@@ -1,0 +1,20 @@
+"""repro_torch: the tensor-formulated Viterbi decoder (Mohammadidoost &
+Hashemi, 2020) ported from JAX/Pallas on a TPU to PyTorch and CUDA on an
+NVIDIA H100.
+
+The JAX package ``repro`` stays the reference; this package mirrors its
+module paths (``repro/core/viterbi.py`` <-> ``repro_torch/core/viterbi.py``)
+and never imports it, nor ``jax``.  Each Pallas TPU kernel becomes a
+hand-written CUDA C++ kernel for ``sm_90a`` under ``kernels/csrc/``, with a
+plain PyTorch version beside it that runs whenever the tensors lie on the
+CPU.
+
+Subpackages ported so far:
+  core     — trellis tables, encoder, channel, the matrix-form ACS scan,
+             traceback and the ``ViterbiDecoder`` batch front door
+  kernels  — K1, the fused ACS forward pass (CUDA) and its plain version
+  codes    — the standard-code registry (puncture patterns as data only)
+  obs      — the metrics registry the decoder's dispatch counters use
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,20 @@
+"""Core library: the paper's tensor-formulated Viterbi decoder, as far as
+this slice of the port goes (batch decode of zero-terminated frames)."""
+from .trellis import (  # noqa: F401
+    AcsTables,
+    CodeSpec,
+    CODE_K7_CCSDS,
+    build_acs_tables,
+    build_transitions,
+    tables_from_numpy,
+)
+from .viterbi import (  # noqa: F401
+    AcsPrecision,
+    decode_frames,
+    forward_fused,
+    traceback,
+    traceback_with_state,
+)
+from .decoder import ViterbiDecoder  # noqa: F401
+from .encoder import conv_encode, conv_encode_torch, tail_flush  # noqa: F401
+from .viterbi_ref import viterbi_decode_ref  # noqa: F401

@@ -1,0 +1,282 @@
+"""Matrix-form Viterbi decoding (paper §V, §VIII) in PyTorch.
+
+The forward ACS recursion is ONE fused matmul per radix-2^rho step:
+
+    potentials = [L_t | Lambda_{t-rho}] @ [Theta-hat^T ; P]
+    Lambda_t   = max_slots    potentials
+    phi_t      = argmax_slots potentials   (ties go to the first slot)
+
+``forward_fused(use_kernel=True)`` (the default) runs that recursion in
+K1, the hand-written CUDA kernel of ``repro_torch.kernels`` (or its plain
+version for CPU tensors) with the kernel's contract: blocks rounded
+straight to the matmul dtype, ``split_dot`` ignored.
+``use_kernel=False`` runs the plain scan below with the reference's scan
+contract: blocks through ``channel_dtype`` first, ``split_dot`` honoured.
+The traceback is plain PyTorch, as it is plain jnp in the reference.
+
+Precision follows the paper's Fig. 13 axes (``AcsPrecision``): matmul
+inputs may be bf16, products and sums are f32, and the carry may be
+rounded to bf16.  No path uses TF32.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from .backend import resolve_device
+from .kernel_geometry import (
+    SLOT_BITS,
+    check_packable,
+    pack_slots,
+    ring_dtype,
+    ring_words,
+)
+from .semiring import NEG, TROPICAL, Semiring
+from .trellis import AcsTables, CodeSpec, build_acs_tables
+
+__all__ = [
+    "AcsPrecision",
+    "dot_f32",
+    "fused_potentials",
+    "blocks_from_llrs",
+    "init_metric",
+    "forward_fused",
+    "traceback",
+    "traceback_with_state",
+    "decode_frames",
+    "NEG",
+]
+
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+@dataclasses.dataclass(frozen=True)
+class AcsPrecision:
+    """Precision knobs mirroring the paper's Table I / Fig. 13 axes."""
+
+    matmul_dtype: torch.dtype = torch.float32  # A/B operands (paper: half)
+    carry_dtype: torch.dtype = torch.float32  # accumulated path metric
+    channel_dtype: torch.dtype = torch.float32  # LLR storage
+    renorm: bool = True  # subtract per-frame max every step
+    split_dot: bool = False  # branch metrics in matmul_dtype, routing in f32
+
+    def label(self) -> str:
+        """The reference's row name: every knob that changes the
+        arithmetic is encoded."""
+        parts = [
+            f"C={_SHORT.get(self.carry_dtype, self.carry_dtype)}",
+            f"mm={_SHORT.get(self.matmul_dtype, self.matmul_dtype)}",
+            f"ch={_SHORT.get(self.channel_dtype, self.channel_dtype)}",
+        ]
+        if self.split_dot:
+            parts.append("split")
+        if not self.renorm:
+            parts.append("norenorm")
+        return ",".join(parts)
+
+    def carry_mantissa_digits(self) -> int:
+        """Significand width of the carry dtype, implicit bit included
+        (f32: 24, f16: 11, bf16: 8)."""
+        return round(-math.log2(torch.finfo(self.carry_dtype).eps)) + 1
+
+    def carry_absorb_limit(self) -> float:
+        """Carry magnitude beyond which adding a unit-scale increment
+        loses at least one bit of it (2**mantissa_digits)."""
+        return float(2.0 ** self.carry_mantissa_digits())
+
+    def carry_max(self) -> float:
+        """Largest finite value of the carry dtype."""
+        return float(torch.finfo(self.carry_dtype).max)
+
+
+def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with products and sums in IEEE f32, whatever dtype the
+    operands were rounded to (the reference's
+    ``preferred_element_type=f32``).  Refuses to run under TF32."""
+    if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is on: the ACS "
+            "potentials need IEEE f32 products; turn TF32 off"
+        )
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
+def fused_potentials(
+    l_t: torch.Tensor,  # (rows, B) LLR block
+    lam: torch.Tensor,  # (rows, S) path metrics
+    w: torch.Tensor,  # (B+S, S*R) stacked [Theta^T ; P] in matmul dtype
+    w_theta: torch.Tensor,  # (B, S*R) in matmul dtype
+    w_pred: torch.Tensor,  # (S, S*R) f32 one-hot
+    precision: AcsPrecision,
+) -> torch.Tensor:
+    """One fused-ACS matmul: branch metrics + path-metric routing, f32
+    products and sums.  Returns (rows, S*R) f32 potentials."""
+    mm = precision.matmul_dtype
+    if precision.split_dot:
+        return dot_f32(l_t.to(mm), w_theta) + dot_f32(
+            lam.to(torch.float32), w_pred
+        )
+    x = torch.cat([l_t.to(mm), lam.to(mm)], dim=1)
+    return dot_f32(x, w)
+
+
+def blocks_from_llrs(llrs: torch.Tensor, rho: int) -> torch.Tensor:
+    """(F, n, beta) LLRs -> (T', F, rho*beta) fused-step blocks (a view).
+
+    n must be divisible by rho (pad with zero LLRs beforehand — a zero LLR
+    carries no information and does not bias the path metrics).
+    """
+    F, n, beta = llrs.shape
+    if n % rho:
+        raise ValueError(f"n={n} not divisible by rho={rho}")
+    # stage-major flattening matches trellis.superbranch_output_bits order
+    return llrs.reshape(F, n // rho, rho * beta).permute(1, 0, 2)
+
+
+def init_metric(
+    n_frames: int,
+    n_states: int,
+    initial_state: Optional[int],
+    device: Optional[torch.device] = None,
+) -> torch.Tensor:
+    """Metric at t=0: one-hot (known encoder start) or uniform (truncated)."""
+    if initial_state is None:
+        return torch.zeros((n_frames, n_states), dtype=torch.float32, device=device)
+    lam = torch.full(
+        (n_frames, n_states), NEG, dtype=torch.float32, device=device
+    )
+    lam[:, initial_state] = 0.0
+    return lam
+
+
+def forward_fused(
+    blocks: torch.Tensor,
+    lam0: torch.Tensor,
+    tables: AcsTables,
+    precision: AcsPrecision = AcsPrecision(),
+    use_kernel: bool = True,
+    pack_survivors: bool = False,
+    semiring: Semiring = TROPICAL,
+):
+    """Fused forward procedure on the tensors' device.
+
+    blocks: (T', F, rho*beta); lam0: (F, S).
+    Returns (lam_final (F, S) f32, phis) with phis (T', F, S) int8 slots,
+    or (T', F, S//16) int32 when ``pack_survivors`` (rho <= 2 only).
+    """
+    if use_kernel:
+        from repro_torch.kernels import ops as kernel_ops
+
+        return kernel_ops.viterbi_forward(
+            blocks, lam0, tables, precision, pack_survivors=pack_survivors,
+            semiring=semiring.name,
+        )
+
+    S, R = tables.n_states, tables.n_slots
+    if pack_survivors:
+        check_packable(S, R)
+    dev = blocks.device
+    mm = precision.matmul_dtype
+    W = torch.as_tensor(tables.fused_w, device=dev).to(mm)
+    W_theta = torch.as_tensor(tables.theta_t, device=dev).to(mm)
+    W_pred = torch.as_tensor(tables.pred_onehot, device=dev)
+    blocks = blocks.to(precision.channel_dtype)
+    T, F = blocks.shape[0], blocks.shape[1]
+    phis = torch.empty(
+        (T, F, ring_words(S, pack_survivors)),
+        dtype=ring_dtype(pack_survivors), device=dev,
+    )
+    lam = lam0.to(precision.carry_dtype)
+    for t in range(T):
+        pot = fused_potentials(blocks[t], lam, W, W_theta, W_pred, precision)
+        pot = pot.view(F, S, R)
+        new_lam = semiring.sum(pot, dim=-1)
+        phi = pot.argmax(dim=-1)
+        phis[t] = pack_slots(phi, R) if pack_survivors else phi
+        if precision.renorm:
+            new_lam = new_lam - new_lam.amax(dim=-1, keepdim=True)
+        lam = new_lam.to(precision.carry_dtype)
+    return lam.to(torch.float32), phis
+
+
+def _traceback_scan(
+    phis: torch.Tensor, final_state: torch.Tensor, tables: AcsTables
+):
+    """Algorithm 2 over frames, one radix step at a time, newest first.
+
+    Returns (start_state (F,), bits (F, T'*rho) int32), where start_state
+    is the survivor path's state BEFORE the first step in ``phis``."""
+    k, rho, R = tables.spec.k, tables.rho, tables.n_slots
+    shift = k - 1 - rho
+    mask = (1 << shift) - 1
+    packed = phis.dtype == torch.int32
+    slot_bits = SLOT_BITS[R]
+    T, F = phis.shape[0], phis.shape[1]
+    j = final_state.to(device=phis.device, dtype=torch.int64)
+    states = torch.empty((T, F), dtype=torch.int64, device=phis.device)
+    for t in range(T - 1, -1, -1):
+        states[t] = j
+        if packed:
+            word = phis[t].gather(1, (j >> 4)[:, None])[:, 0].to(torch.int64)
+            slot = (word >> (slot_bits * (j & 15))) & (R - 1)
+        else:
+            slot = phis[t].gather(1, j[:, None])[:, 0].to(torch.int64)
+        j = ((j & mask) << rho) | slot
+    # the rho decoded bits of each step are the top rho bits of its state,
+    # chronological = LSB-first of that field
+    v = states >> shift  # (T', F)
+    bits = (v[..., None] >> torch.arange(rho, device=phis.device)) & 1
+    bits = bits.permute(1, 0, 2).reshape(F, T * rho)
+    return j.to(torch.int32), bits.to(torch.int32)
+
+
+def traceback(
+    phis: torch.Tensor, final_state: torch.Tensor, tables: AcsTables
+) -> torch.Tensor:
+    """Vectorized Algorithm 2 over frames.
+
+    phis: (T', F, S) int8 slots OR (T', F, S//16) int32 packed (unpacked
+    lazily per step); final_state: (F,).  Returns decoded bits
+    (F, T'*rho) int32.
+    """
+    return _traceback_scan(phis, final_state, tables)[1]
+
+
+def traceback_with_state(
+    phis: torch.Tensor, final_state: torch.Tensor, tables: AcsTables
+):
+    """``traceback`` that also returns the path's start state (F,)."""
+    return _traceback_scan(phis, final_state, tables)
+
+
+def decode_frames(
+    llrs,
+    spec: CodeSpec,
+    rho: int = 2,
+    initial_state: Optional[int] = 0,
+    final_state: Optional[int] = None,
+    precision: AcsPrecision = AcsPrecision(),
+    use_kernel: bool = True,
+    pack_survivors: bool = False,
+    device=None,
+) -> torch.Tensor:
+    """Decode a batch of independent frames.  llrs: (F, n, beta), n a
+    multiple of rho.  ``device=None`` is the card (see
+    ``backend.resolve_device``).  Returns (F, n) int32 bits."""
+    dev = resolve_device(device)
+    llrs = torch.as_tensor(llrs, device=dev).to(torch.float32)
+    tables = build_acs_tables(spec, rho)
+    blocks = blocks_from_llrs(llrs, rho)
+    F = llrs.shape[0]
+    lam0 = init_metric(F, spec.n_states, initial_state, device=dev)
+    lam, phis = forward_fused(
+        blocks, lam0, tables, precision, use_kernel, pack_survivors
+    )
+    if final_state is None:
+        fs = lam.argmax(dim=-1)
+    else:
+        fs = torch.full((F,), final_state, dtype=torch.int64, device=dev)
+    return traceback(phis, fs, tables)

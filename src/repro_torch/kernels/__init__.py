@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels for Hopper, one per Pallas TPU kernel of the
+reference, each with its plain PyTorch version.
+
+Layout: ``csrc/`` (CUDA C++ sources, built with ``nvcc`` at first use),
+``<name>.py`` (build, binding and the wrapper that launches the kernel),
+``ops.py`` (the wrappers ``core`` calls), ``ref.py`` (the plain
+versions).  Nothing is built or loaded at import.
+"""
+from .ops import viterbi_forward  # noqa: F401
+from .viterbi_acs import acs_forward  # noqa: F401

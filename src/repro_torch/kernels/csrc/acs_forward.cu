@@ -1,0 +1,254 @@
+// K1 — fused radix-2^rho Viterbi ACS forward pass, hand-written for Hopper
+// (sm_90a).
+//
+// Replaces the Pallas TPU kernel `acs_forward_pallas` (body `_acs_kernel`)
+// in src/repro/kernels/viterbi_acs.py.  Same contract: for each of T radix
+// steps, per frame f and state j,
+//
+//     pot[r]   = sum_k x[k] * W[k, j*R + r],   x = [L_t | Lambda] (B+S)
+//     Lambda'  = max_r pot[r]
+//     phi[t,f,j] = first argmax_r pot[r]
+//
+// with x rounded to the matmul dtype, products and sums in f32 (no TF32),
+// an optional per-frame max subtraction, and the carry rounded to the
+// carry dtype.  phi is written as int8 slots, or 16 slots per int32 word at
+// SLOT_BITS[R] bits each.
+//
+// What bounds it on this card: the dot products.  A step does
+// 2*(B+S)*S*R flops per frame (5.8e11 flops over the 512-frame x
+// 32768-step benchmark shape, about 8.7 ms at the 67 TFLOP/s non-tensor
+// f32 peak), against 1.25 GiB of HBM traffic (about 0.4 ms), so it is
+// bound by operations; and since every thread streams its R columns of W
+// from shared memory for every step, shared-memory bandwidth is what the
+// simple design below actually runs into.
+//
+// Design (simple and right first):
+//   * one block per tile of BF = 256/S frames, one thread per (frame, state);
+//   * W (68 x 256 f32 = 68 KiB for ccsds-k7 at rho=2) lives in dynamic
+//     shared memory for the whole run (opt-in above 48 KiB);
+//   * the T-loop runs inside the kernel: Lambda stays in a register of its
+//     thread and in shared memory, never in HBM, between steps;
+//   * LLR blocks are staged into shared memory kStageSteps steps at a time,
+//     so the global-load latency is paid once per stage, not per step;
+//   * W is a general input: the dot runs over all B+S rows in a fixed
+//     order (k = 0 .. B+S-1, one fma each), no use of P's one-hot shape;
+//   * the renorm max is a warp shuffle reduction plus one shared-memory
+//     exchange between the S/32 warps of a frame.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kStageSteps = 32;  // LLR steps staged into shared memory at once
+
+enum RoundTo { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float round_to(float x, int dtype) {
+  return dtype == kBF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
+// R consecutive floats of W from shared memory, as 8- or 16-byte loads
+// (the column group j*R .. j*R+R-1 is aligned to its size).
+template <int R>
+__device__ __forceinline__ void load_cols(const float* p, float (&v)[R]) {
+  if constexpr (R == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x;
+    v[1] = a.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < R / 4; ++q) {
+      const float4 a = reinterpret_cast<const float4*>(p)[q];
+      v[4 * q + 0] = a.x;
+      v[4 * q + 1] = a.y;
+      v[4 * q + 2] = a.z;
+      v[4 * q + 3] = a.w;
+    }
+  }
+}
+
+size_t smem_floats(int B, int S, int R, int BF) {
+  const int warps_per_frame = S >= 32 ? S / 32 : 1;
+  return (size_t)(B + S) * S * R          // W
+         + (size_t)kStageSteps * BF * B   // staged LLR blocks
+         + (size_t)BF * S                 // Lambda, rounded to the matmul dtype
+         + (size_t)BF * warps_per_frame;  // renorm partial maxima
+}
+
+template <int R>
+__global__ void __launch_bounds__(1024) acs_forward_kernel(
+    const float* __restrict__ blocks,  // (T, F, B)
+    const float* __restrict__ lam0,    // (F, S)
+    const float* __restrict__ w,       // (B+S, S*R)
+    float* __restrict__ lam_out,       // (F, S)
+    int8_t* __restrict__ phi8,         // (T, F, S), or null when packed
+    int32_t* __restrict__ phi32,       // (T, F, S/16), or null when unpacked
+    int T, int F, int B, int S, int BF,
+    int mm_dtype, int carry_dtype, int renorm, int slot_bits) {
+  extern __shared__ __align__(16) float smem[];
+  const int K = B + S;
+  const int SR = S * R;
+  const int warps_per_frame = S >= 32 ? S / 32 : 1;
+  float* w_s = smem;                              // K * SR
+  float* l_s = w_s + (size_t)K * SR;              // kStageSteps * BF * B
+  float* x_s = l_s + (size_t)kStageSteps * BF * B;  // BF * S
+  float* red_s = x_s + (size_t)BF * S;            // BF * warps_per_frame
+
+  const int tid = threadIdx.x;
+  const int fl = tid / S;  // frame within the block
+  const int j = tid % S;   // state
+  const long long f0 = (long long)blockIdx.x * BF;
+  const long long frame = f0 + fl;
+  const bool live = frame < F;
+  const int nf = F - f0 < BF ? (int)(F - f0) : BF;  // live frames
+
+  for (int i = tid; i < K * SR; i += blockDim.x) w_s[i] = round_to(w[i], mm_dtype);
+
+  float lam = live ? round_to(lam0[frame * S + j], carry_dtype) : 0.f;
+  const float* wcol = w_s + j * R;
+
+  for (int t0 = 0; t0 < T; t0 += kStageSteps) {
+    // Every read of l_s from the previous stage happened before the last
+    // step's closing barrier, so the stage can be overwritten here.
+    const int steps = min(kStageSteps, T - t0);
+    const int per_step = nf * B;
+    for (int i = tid; i < steps * per_step; i += blockDim.x) {
+      const int tt = i / per_step;
+      const int r = i - tt * per_step;
+      l_s[tt * BF * B + r] =
+          round_to(blocks[((long long)(t0 + tt) * F + f0) * B + r], mm_dtype);
+    }
+    for (int tt = 0; tt < steps; ++tt) {
+      const long long t = t0 + tt;
+      x_s[fl * S + j] = round_to(lam, mm_dtype);
+      __syncthreads();  // stage and x_s complete
+
+      float acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
+      const float* lrow = l_s + (tt * BF + fl) * B;
+      for (int k = 0; k < B; ++k) {
+        const float xv = lrow[k];
+        float wv[R];
+        load_cols<R>(wcol + (size_t)k * SR, wv);
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(xv, wv[r], acc[r]);
+      }
+      const float* xrow = x_s + fl * S;
+#pragma unroll 4
+      for (int k = 0; k < S; ++k) {
+        const float xv = xrow[k];
+        float wv[R];
+        load_cols<R>(wcol + (size_t)(B + k) * SR, wv);
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(xv, wv[r], acc[r]);
+      }
+
+      float best = acc[0];
+      int arg = 0;
+#pragma unroll
+      for (int r = 1; r < R; ++r) {
+        if (acc[r] > best) {  // strict: ties keep the first slot
+          best = acc[r];
+          arg = r;
+        }
+      }
+
+      if (phi32 != nullptr) {
+        // 16 consecutive states of one frame share a word: OR their
+        // shifted slots across the 16 lanes, lane j%16 == 0 stores it.
+        unsigned v = (unsigned)arg << (slot_bits * (j & 15));
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) v |= __shfl_xor_sync(0xffffffffu, v, off);
+        if (live && (j & 15) == 0)
+          phi32[(t * F + frame) * (S / 16) + (j >> 4)] = (int32_t)v;
+      } else if (live) {
+        phi8[(t * F + frame) * S + j] = (int8_t)arg;
+      }
+
+      if (renorm) {
+        // max over the frame's S states: within a warp (groups of
+        // min(S, 32) lanes belong to one frame), then across its warps
+        float m = best;
+        const int width = S < 32 ? S : 32;
+        for (int off = width / 2; off > 0; off >>= 1)
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+        if (S > 32 && (tid & 31) == 0) red_s[fl * warps_per_frame + (j >> 5)] = m;
+        __syncthreads();  // partial maxima visible; all x_s/l_s reads done
+        if (S > 32) {
+          m = red_s[fl * warps_per_frame];
+          for (int q = 1; q < warps_per_frame; ++q) m = fmaxf(m, red_s[fl * warps_per_frame + q]);
+        }
+        best -= m;
+      } else {
+        __syncthreads();  // all x_s/l_s reads of this step done
+      }
+      lam = round_to(best, carry_dtype);
+    }
+  }
+  if (live) lam_out[frame * S + j] = lam;
+}
+
+template <int R>
+cudaError_t launch(const float* blocks, const float* lam0, const float* w,
+                   float* lam_out, void* phi, int T, int F, int B, int S,
+                   int BF, int mm_dtype, int carry_dtype, int renorm,
+                   int packed, int slot_bits, cudaStream_t stream) {
+  const size_t smem = smem_floats(B, S, R, BF) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      acs_forward_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((F + BF - 1) / BF));
+  const dim3 block((unsigned)(BF * S));
+  acs_forward_kernel<R><<<grid, block, smem, stream>>>(
+      blocks, lam0, w, lam_out,
+      packed ? nullptr : static_cast<int8_t*>(phi),
+      packed ? static_cast<int32_t*>(phi) : nullptr,
+      T, F, B, S, BF, mm_dtype, carry_dtype, renorm, slot_bits);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory one block needs, in bytes.
+long long acs_forward_smem_bytes(int B, int S, int R, int BF) {
+  return (long long)(smem_floats(B, S, R, BF) * sizeof(float));
+}
+
+// Launches K1 on `stream` (a cudaStream_t) and returns the launch's
+// cudaError_t.  Does not synchronise and allocates nothing: the caller
+// owns every buffer.  BF * S threads per block; BF*S must be a multiple
+// of 32 and at most 1024, and S % 16 == 0 when `packed`.
+int acs_forward_launch(const float* blocks, const float* lam0, const float* w,
+                       float* lam_out, void* phi, int T, int F, int B, int S,
+                       int R, int BF, int mm_dtype, int carry_dtype,
+                       int renorm, int packed, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (R) {
+    case 2:
+      return (int)launch<2>(blocks, lam0, w, lam_out, phi, T, F, B, S, BF,
+                            mm_dtype, carry_dtype, renorm, packed, 1, s);
+    case 4:
+      return (int)launch<4>(blocks, lam0, w, lam_out, phi, T, F, B, S, BF,
+                            mm_dtype, carry_dtype, renorm, packed, 2, s);
+    case 8:
+      return (int)launch<8>(blocks, lam0, w, lam_out, phi, T, F, B, S, BF,
+                            mm_dtype, carry_dtype, renorm, packed, 3, s);
+    case 16:
+      return (int)launch<16>(blocks, lam0, w, lam_out, phi, T, F, B, S, BF,
+                             mm_dtype, carry_dtype, renorm, packed, 4, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+const char* acs_forward_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,172 @@
+"""The port stands alone: no import of ``jax`` or ``repro`` from
+``src/repro_torch`` or ``chip_smoke.py``, every module imports on a
+CPU-only torch with no ``triton`` and no ``nvcc``, the card is the
+default device with no fallback to the CPU, and the entry points of
+later slices refuse instead of running something else."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "attr", getattr(node.func, "id", None))
+            in ("import_module", "__import__")
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+            and isinstance(node.args[0].value, str)
+        ):
+            yield node.args[0].value.split(".")[0]
+
+
+def _module_names():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = _port_files()
+    assert len(files) >= 20 and (REPO / "chip_smoke.py").is_file()
+    bad = {
+        str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
+        for f in files
+    }
+    bad = {k: v for k, v in bad.items() if v}
+    assert not bad, f"the port imports the reference or JAX: {bad}"
+
+
+def test_every_module_imports_without_triton_nvcc_or_jax():
+    """In a fresh interpreter with ``triton`` blocked and no CUDA
+    toolkit on PATH, every module imports and neither JAX nor the
+    reference package gets loaded."""
+    modules = list(_module_names())
+    assert "repro_torch.kernels.viterbi_acs" in modules
+    code = (
+        "import sys\n"
+        "sys.modules['triton'] = None\n"
+        "import importlib\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "loaded = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not loaded, loaded\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src")
+    env["PATH"] = os.pathsep.join(
+        p for p in env.get("PATH", "").split(os.pathsep)
+        if not (Path(p) / "nvcc").exists()
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+
+
+def test_default_device_is_the_card_without_fallback():
+    from repro_torch.core import CODE_K7_CCSDS, ViterbiDecoder
+
+    if torch.cuda.is_available():
+        assert ViterbiDecoder(CODE_K7_CCSDS).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ViterbiDecoder(CODE_K7_CCSDS)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ViterbiDecoder.from_standard("ccsds-k7", device="cuda")
+    assert ViterbiDecoder(CODE_K7_CCSDS, device="cpu").device.type == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        ViterbiDecoder(CODE_K7_CCSDS, device="meta")
+
+
+def test_later_slices_refuse():
+    from repro_torch.core import CODE_K7_CCSDS, ViterbiDecoder
+    from repro_torch.core.semiring import Semiring
+    from repro_torch.kernels import acs_forward, viterbi_forward
+    from repro_torch.core.trellis import build_acs_tables
+
+    with pytest.raises(NotImplementedError, match="time-parallel"):
+        ViterbiDecoder(CODE_K7_CCSDS, time_parallel=True, device="cpu")
+    dec = ViterbiDecoder(CODE_K7_CCSDS, device="cpu")
+    llrs = torch.zeros(2, 8, 2)
+    with pytest.raises(NotImplementedError, match="time-parallel"):
+        dec.decode_batch(llrs, time_parallel=True)
+    with pytest.raises(NotImplementedError, match="soft-output"):
+        Semiring("logprob")
+    tb = build_acs_tables(CODE_K7_CCSDS, 2)
+    blocks, lam0 = torch.zeros(4, 2, 4), torch.zeros(2, 64)
+    with pytest.raises(NotImplementedError, match="soft-output"):
+        viterbi_forward(blocks, lam0, tb, semiring="logprob")
+    with pytest.raises(NotImplementedError, match="soft-output"):
+        acs_forward(
+            blocks, lam0, torch.as_tensor(tb.fused_w), n_states=64,
+            n_slots=4, semiring="logprob",
+        )
+    with pytest.raises(NotImplementedError, match="tail-biting"):
+        ViterbiDecoder.from_standard("lte-tbcc", device="cpu").decode_batch(
+            torch.zeros(1, 8, 3)
+        )
+    with pytest.raises(NotImplementedError, match="depuncturing"):
+        ViterbiDecoder.from_standard("wifi-11a-r34", device="cpu").decode_batch(
+            torch.zeros(1, 8, 2)
+        )
+    for call in (
+        lambda: dec.decode_tailbiting(llrs),
+        lambda: dec.decode_soft(llrs),
+        lambda: dec.decode_stream_tiled(llrs[0]),
+        lambda: dec.init_stream_state(2),
+        lambda: dec.decode_stream_chunked(llrs),
+    ):
+        with pytest.raises(NotImplementedError):
+            call()
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """A missing toolchain is an error, never a quiet switch to the
+    plain version."""
+    from repro_torch.kernels import viterbi_acs
+
+    monkeypatch.setattr(viterbi_acs, "_find_nvcc", lambda: None)
+    monkeypatch.setattr(viterbi_acs, "BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        viterbi_acs.build()
+    assert not list(tmp_path.iterdir())
+
+
+def test_kernel_wrapper_refuses_other_devices():
+    from repro_torch.kernels import acs_forward
+
+    meta = torch.zeros(4, 2, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        acs_forward(
+            meta, torch.zeros(2, 64, device="meta"),
+            torch.zeros(68, 256, device="meta"), n_states=64, n_slots=4,
+        )
+    with pytest.raises(ValueError, match="several devices"):
+        acs_forward(
+            meta, torch.zeros(2, 64), torch.zeros(68, 256),
+            n_states=64, n_slots=4,
+        )

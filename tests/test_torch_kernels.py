@@ -1,0 +1,208 @@
+"""K1 (``repro_torch.kernels.viterbi_acs.acs_forward``) against the
+reference's Pallas kernel (``repro.kernels.ops.viterbi_forward``), which
+runs in interpret mode on the CPU as the reference's own tests run it.
+
+On CPU tensors ``acs_forward`` runs its plain version, so these tests
+hold the kernel's contract; the CUDA kernel is held against the plain
+version on the card by ``test_cuda_kernel_matches_plain`` (marked
+``cuda``) and by ``chip_smoke.py``.
+
+Tolerances: with integer-valued LLRs every f32 sum is exact in any
+order, so Lambda and phi must be bit-identical.  With Gaussian LLRs the
+sums round in the matmul's order: decoded bits must be identical and
+Lambda must agree to atol=1e-5, rtol=1e-6.
+"""
+import numpy as np
+import pytest
+import torch
+
+DT = ("f32", "bf16")
+
+
+def _dtypes(name):
+    import jax.numpy as jnp
+
+    return {"f32": (torch.float32, jnp.float32),
+            "bf16": (torch.bfloat16, jnp.bfloat16)}[name]
+
+
+def _inputs(spec, rho, F, T, seed, integer, initial_state):
+    """(T, F, B) blocks and (F, S) start metrics, made with numpy."""
+    from repro_torch.core.viterbi import NEG
+
+    rng = np.random.default_rng(seed)
+    B, S = rho * spec.beta, spec.n_states
+    if integer:
+        blocks = rng.integers(-8, 9, (T, F, B)).astype(np.float32)
+    else:
+        blocks = rng.normal(0.0, 2.0, (T, F, B)).astype(np.float32)
+    lam0 = np.zeros((F, S), np.float32)
+    if initial_state is not None:
+        lam0[:] = NEG
+        lam0[:, initial_state] = 0.0
+    return blocks, lam0
+
+
+def _run_pair(spec, rho, blocks, lam0, mm, carry, renorm, pack):
+    """(reference lam, phi) via interpret-mode Pallas, (port lam, phi)
+    via acs_forward on CPU tensors."""
+    import jax.numpy as jnp
+    from repro.core.trellis import build_acs_tables as ref_tables
+    from repro.core.viterbi import AcsPrecision as RefPrecision
+    from repro.kernels.ops import viterbi_forward as ref_forward
+
+    from repro_torch.core.trellis import build_acs_tables
+    from repro_torch.kernels import acs_forward
+
+    mm_t, mm_j = _dtypes(mm)
+    c_t, c_j = _dtypes(carry)
+    prec = RefPrecision(matmul_dtype=mm_j, carry_dtype=c_j, renorm=renorm)
+    lam_r, phi_r = ref_forward(
+        jnp.asarray(blocks), jnp.asarray(lam0), ref_tables(spec, rho), prec,
+        pack_survivors=pack,
+    )
+    tb = build_acs_tables(spec, rho)
+    lam_p, phi_p = acs_forward(
+        torch.from_numpy(blocks), torch.from_numpy(lam0),
+        torch.from_numpy(tb.fused_w), n_states=tb.n_states,
+        n_slots=tb.n_slots, carry_dtype=c_t, matmul_dtype=mm_t,
+        renorm=renorm, pack_survivors=pack,
+    )
+    return (np.array(lam_r), np.array(phi_r)), (lam_p.numpy(), phi_p.numpy())
+
+
+@pytest.mark.parametrize("pack", [False, True], ids=["int8", "packed"])
+@pytest.mark.parametrize(
+    "carry,renorm", [("f32", True), ("bf16", False)],
+    ids=["cf32-renorm", "cbf16-norenorm"],
+)
+@pytest.mark.parametrize("mm", DT, ids=["mmf32", "mmbf16"])
+def test_k1_bit_identical_on_integer_llrs(mm, carry, renorm, pack):
+    from repro_torch.core import CODE_K7_CCSDS
+
+    blocks, lam0 = _inputs(CODE_K7_CCSDS, 2, 16, 48, 1, True, 0)
+    (lam_r, phi_r), (lam_p, phi_p) = _run_pair(
+        CODE_K7_CCSDS, 2, blocks, lam0, mm, carry, renorm, pack
+    )
+    assert phi_p.dtype == phi_r.dtype and phi_p.shape == phi_r.shape
+    np.testing.assert_array_equal(lam_p, lam_r)
+    np.testing.assert_array_equal(phi_p, phi_r)
+
+
+@pytest.mark.parametrize(
+    "spec_name,rho,pack,initial_state",
+    [
+        ("ccsds-k7", 1, False, 0),
+        ("ccsds-k7", 1, True, None),
+        ("gsm-cs1", 2, True, 0),
+        ("gsm-cs1", 1, False, None),
+        ("lte-tbcc", 2, True, 0),
+        ("ccsds-k7", 3, False, 0),
+    ],
+)
+def test_k1_bit_identical_across_codes_and_radix(spec_name, rho, pack, initial_state):
+    from repro_torch.codes import get_code
+
+    spec = get_code(spec_name).spec
+    blocks, lam0 = _inputs(spec, rho, 11, 40, 2, True, initial_state)
+    (lam_r, phi_r), (lam_p, phi_p) = _run_pair(
+        spec, rho, blocks, lam0, "f32", "f32", True, pack
+    )
+    np.testing.assert_array_equal(lam_p, lam_r)
+    np.testing.assert_array_equal(phi_p, phi_r)
+
+
+@pytest.mark.parametrize("mm", DT, ids=["mmf32", "mmbf16"])
+@pytest.mark.parametrize("rho", [1, 2])
+def test_k1_gaussian_llrs(rho, mm):
+    import jax.numpy as jnp
+    from repro.core.trellis import build_acs_tables as ref_tables
+    from repro.core.viterbi import traceback as ref_traceback
+
+    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.core.viterbi import traceback
+
+    blocks, lam0 = _inputs(CODE_K7_CCSDS, rho, 16, 64 // rho, 3, False, 0)
+    (lam_r, phi_r), (lam_p, phi_p) = _run_pair(
+        CODE_K7_CCSDS, rho, blocks, lam0, mm, "f32", True, False
+    )
+    np.testing.assert_allclose(lam_p, lam_r, atol=1e-5, rtol=1e-6)
+    fs = lam_r.argmax(axis=-1)
+    bits_r = ref_traceback(
+        jnp.asarray(phi_r), jnp.asarray(fs), ref_tables(CODE_K7_CCSDS, rho)
+    )
+    bits_p = traceback(
+        torch.from_numpy(phi_p), torch.from_numpy(fs),
+        build_acs_tables(CODE_K7_CCSDS, rho),
+    )
+    np.testing.assert_array_equal(bits_p.numpy(), np.asarray(bits_r))
+
+
+def test_k1_rejects_packing_it_cannot_hold():
+    """The reference packs 16 slots of 3 bits into an int32 at rho=3 and
+    corrupts them; K1 refuses, on every device, as it does S % 16."""
+    from repro_torch.core import CODE_K7_CCSDS, CodeSpec, build_acs_tables
+    from repro_torch.kernels import acs_forward, viterbi_forward
+
+    tb = build_acs_tables(CODE_K7_CCSDS, 3)
+    blocks, lam0 = torch.zeros(2, 3, tb.llr_block), torch.zeros(3, 64)
+    with pytest.raises(ValueError, match="rho <= 2"):
+        viterbi_forward(blocks, lam0, tb, pack_survivors=True)
+    k3 = build_acs_tables(CodeSpec(k=3, polys=(7, 5)), 1)
+    with pytest.raises(ValueError, match="n_states % 16"):
+        acs_forward(
+            torch.zeros(2, 3, 2), torch.zeros(3, 4),
+            torch.as_tensor(k3.fused_w), n_states=4, n_slots=2,
+            pack_survivors=True,
+        )
+
+
+def test_k1_ragged_and_empty_shapes():
+    """Any F (no tile padding is visible to the caller); T = 0, which
+    the reference's kernel cannot take, returns the start metrics
+    through the carry cast and an empty survivor tensor."""
+    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.kernels import acs_forward
+
+    for F, T in ((1, 5), (7, 9)):
+        blocks, lam0 = _inputs(CODE_K7_CCSDS, 2, F, T, 4, True, None)
+        (lam_r, phi_r), (lam_p, phi_p) = _run_pair(
+            CODE_K7_CCSDS, 2, blocks, lam0, "f32", "bf16", True, True
+        )
+        np.testing.assert_array_equal(lam_p, lam_r)
+        np.testing.assert_array_equal(phi_p, phi_r)
+    tb = build_acs_tables(CODE_K7_CCSDS, 2)
+    lam0 = torch.linspace(-3.0, 3.0, 64).repeat(2, 1) / 7
+    lam, phi = acs_forward(
+        torch.zeros(0, 2, 4), lam0, torch.as_tensor(tb.fused_w),
+        n_states=64, n_slots=4, carry_dtype=torch.bfloat16,
+        pack_survivors=True,
+    )
+    assert torch.equal(lam, lam0.to(torch.bfloat16).float())
+    assert phi.shape == (0, 2, 4) and phi.dtype == torch.int32
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain():
+    """The CUDA kernel against its plain version on the card, bit for
+    bit on integer LLRs (needs an H100 and nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.kernels import acs_forward
+    from repro_torch.kernels.ref import acs_forward_ref
+
+    tb = build_acs_tables(CODE_K7_CCSDS, 2)
+    blocks, lam0 = _inputs(CODE_K7_CCSDS, 2, 40, 100, 5, True, 0)
+    dev = torch.device("cuda")
+    args = (
+        torch.from_numpy(blocks).to(dev), torch.from_numpy(lam0).to(dev),
+        torch.as_tensor(tb.fused_w, device=dev),
+    )
+    for mm in (torch.float32, torch.bfloat16):
+        for pack in (False, True):
+            kw = dict(n_states=64, n_slots=4, matmul_dtype=mm, pack_survivors=pack)
+            lam_k, phi_k = acs_forward(*args, **kw)
+            lam_r, phi_r = acs_forward_ref(*args, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(lam_k, lam_r) and torch.equal(phi_k, phi_r)
