@@ -7,8 +7,8 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
 which ends the run with a non-zero exit when it fails:
 
   1. probe   — a CUDA device is present; print its name and power limit;
-  2. build   — compile every kernel of the main path from the checkout's
-               sources (nvcc, into build/torch_ext/);
+  2. build   — compile every kernel from the checkout's sources (one nvcc
+               per source, side by side, into build/torch_ext/);
   3. kernel  — K1 (``acs_forward``) against its plain PyTorch version at
                F=512 frames x T=1024 radix steps on quantised integer
                LLRs, over f32/bf16 matmul x packed/int8 survivors x renorm
@@ -24,7 +24,33 @@ which ends the run with a non-zero exit when it fails:
                must match the scalar oracle.  Times (CUDA events, after a
                warm-up): K1, the traceback, decode_batch wall time and
                decoded Mb/s, K1's plain version and a torch.matmul
-               yardstick at the same shape.
+               yardstick at the same shape;
+  5. k2      — K2 (``acs_decode_fused``) against its plain version at
+               F=512 x T=1024 radix steps, depth D=256 steps, tile 32, on
+               quantised integer LLRs with a random entry ring, over
+               f32/bf16 matmul x packed/int8 ring x renorm on/off, plus a
+               frame count that is not a multiple of K2's block, a ring
+               too large for shared memory, and the streaming path's own
+               geometry (F=512, its depth of 2560 steps and tile, packed:
+               3 frames a block, the last block 2 frames): bits, metrics
+               and exit ring must be bit-identical;
+  6. stream  — the same 512 x 65536 input through
+               ``decode_stream_chunked(chunk_len=4096, initial_state=0)``
+               (f32, depth 5120 stages, packed ring): one K2 launch per
+               chunk (16), BER <= 1e-4, and bits equal to decode_batch's,
+               on the AWGN and on the integer LLRs.  Times: K2 over the
+               stream (CUDA events), the flush traceback, the wall time
+               and decoded Mb/s, and the two-pass chunked path
+               (``one_pass=False``: K1 and the plain traceback) once as the
+               yardstick at this shape;
+  7. tiled   — one stream of 2^20 stages through ``decode_stream_tiled``
+               (64-stage windows with 32 stages of overlap: 16384 windows
+               of 64 steps, tile 16) in one K2 launch; K2 bit-identical to
+               its plain version at that shape; BER beside the two-pass
+               tiled path's;
+  8. multi   — ``decode_chunk_multi``: two sessions at different stream
+               positions emit on the card what each emits alone, and
+               reach the same metrics, ring and position.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -35,6 +61,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -42,6 +69,9 @@ import torch
 
 F_FULL, N_FULL = 512, 65536  # cell decode_64k: 512 streams x 65536 stages
 F_SWEEP, T_SWEEP = 512, 1024
+D_SWEEP, TT_SWEEP = 256, 32  # K2 sweep: ring depth and time tile, in steps
+CHUNK_LEN = 4096  # streaming chunk, in stages
+N_TILED = 2**20  # decode_1m: one stream of 2^20 stages
 EBN0_DB, BER_LIMIT = 4.0, 1e-4
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet) at the 700 W limit
@@ -92,6 +122,15 @@ def library_forward(blocks, lam0, w, n_states, n_slots):
     return lam, phi
 
 
+def k2_random_ring(gen, D, F, pack, dev):
+    """An entry ring of random survivors: whole int32 words, or slots."""
+    if pack:
+        return torch.randint(-2**31, 2**31, (D, F, 4), generator=gen,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+    return torch.randint(0, 4, (D, F, 64), generator=gen, device=dev,
+                         dtype=torch.int8)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -115,8 +154,10 @@ def main() -> None:
         init_metric,
         traceback,
     )
+    from repro_torch.core.decoder import _flush_step
+    from repro_torch.core.kernel_geometry import k2_block_frames
     from repro_torch.kernels import viterbi_acs
-    from repro_torch.kernels.ref import acs_forward_ref
+    from repro_torch.kernels.ref import acs_decode_fused_ref, acs_forward_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False  # no TF32 anywhere
     torch.backends.cudnn.allow_tf32 = False
@@ -133,11 +174,15 @@ def main() -> None:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    lib_path = viterbi_acs.build()
-    print(f"build: K1 {lib_path.name} in {time.perf_counter() - t0:.2f} s")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(viterbi_acs.KERNELS)) as pool:
+        libs = dict(zip(viterbi_acs.KERNELS,
+                        pool.map(viterbi_acs.build, viterbi_acs.KERNELS)))
+    print(f"build: {', '.join(p.name for p in libs.values())} "
+          f"in {time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)")
+    for kernel, lib_path in libs.items():
+        for line in lib_path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {kernel}: {line.strip()}")
 
     spec = CODE_K7_CCSDS
     tables = build_acs_tables(spec, 2)
@@ -275,7 +320,8 @@ def main() -> None:
     bytes_moved = (blocks.numel() * 4 + lam0.numel() * 4 + w.numel() * 4
                    + phi_k.numel() * phi_k.element_size() + lam_k.numel() * 4)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, bytes_moved / PEAK_HBM_BYTES * 1e3
-    print(json.dumps({"kernels": [{
+    del phi_k
+    k1_row = {
         "name": "K1 acs_forward",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/acs_forward.cu",
@@ -287,6 +333,252 @@ def main() -> None:
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": lib_ms,
+    }
+
+    # -- 5. K2 vs plain version -------------------------------------------
+    k2_err = 0.0
+    k2 = viterbi_acs.acs_decode_fused
+    blocks = torch.randint(
+        -8, 9, (T_SWEEP, F_SWEEP, B), generator=gen, device=dev
+    ).float()
+    lam0 = init_metric(F_SWEEP, S, 0, device=dev)
+
+    def k2_case(label, blocks, lam0, hist0, **kw):
+        nonlocal k2_err
+        kw = dict(n_states=S, n_slots=R, k=spec.k, rho=2, **kw)
+        got = k2(blocks, lam0, hist0, w, **kw)
+        want = acs_decode_fused_ref(blocks, lam0, hist0, w, **kw)
+        torch.cuda.synchronize()
+        err = (got[1] - want[1]).abs().max().item()
+        k2_err = max(k2_err, err)
+        same = all(torch.equal(g, p) for g, p in zip(got, want))
+        ring = hist0.shape[0] + kw["time_tile"]
+        bf, in_smem = k2_block_frames(
+            S, B, R, ring * hist0.shape[2] * hist0.element_size()
+        )
+        print(f"K2 vs plain {label} (F={blocks.shape[1]} T={blocks.shape[0]} "
+              f"D={hist0.shape[0]}; {bf} frames a block, ring in "
+              f"{'shared' if in_smem else 'device'} memory): "
+              f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
+        if not same:
+            fail(f"K2 differs from its plain version ({label}), "
+                 f"max |lam| diff {err}")
+
+    for mm in (torch.float32, torch.bfloat16):
+        for pack in (False, True):
+            for renorm in (True, False):
+                hist0 = k2_random_ring(gen, D_SWEEP, F_SWEEP, pack, dev)
+                k2_case(f"mm={str(mm)[6:]} packed={pack} renorm={renorm}",
+                        blocks, lam0, hist0, time_tile=TT_SWEEP,
+                        matmul_dtype=mm, renorm=renorm, pack_survivors=pack)
+    ragged = F_SWEEP - 3  # not a multiple of K2's 4 (or 3) frames a block
+    k2_case("ragged F, packed", blocks[:, :ragged].contiguous(), lam0[:ragged],
+            k2_random_ring(gen, D_SWEEP, ragged, True, dev),
+            time_tile=TT_SWEEP, pack_survivors=True)
+    k2_case("int8 ring of 2592 steps", blocks[:128].contiguous(), lam0,
+            k2_random_ring(gen, 2560, F_SWEEP, False, dev),
+            time_tile=TT_SWEEP, pack_survivors=False)
+    # the geometry decode_stream_chunked launches in phase 6: its depth and
+    # tile, the packed ring, F_FULL frames; four tiles
+    d_main = decoder.decision_depth // 2
+    tt_main = decoder._one_pass_tile(CHUNK_LEN // 2, d_main)
+    k2_case("streaming path's geometry, packed",
+            blocks[:4 * tt_main, :F_FULL].contiguous(), lam0[:F_FULL],
+            k2_random_ring(gen, d_main, F_FULL, True, dev),
+            time_tile=tt_main, pack_survivors=True)
+    hist0 = k2_random_ring(gen, D_SWEEP, F_SWEEP, True, dev)
+    kw2 = dict(n_states=S, n_slots=R, k=spec.k, rho=2, time_tile=TT_SWEEP,
+               pack_survivors=True)
+    k2_sweep_ms = cuda_ms(lambda: k2(blocks, lam0, hist0, w, **kw2), reps=3)
+    k2_plain_ms = cuda_ms(
+        lambda: acs_decode_fused_ref(blocks, lam0, hist0, w, **kw2),
+        warmup=lambda: acs_decode_fused_ref(blocks[:TT_SWEEP], lam0, hist0, w, **kw2),
+    )
+    sweep_shape = (f"F={F_SWEEP} T={T_SWEEP} D={D_SWEEP} TT={TT_SWEEP} "
+                   "f32 packed renorm")
+    print(f"time K2 at {sweep_shape}: {k2_sweep_ms:.3f} ms; "
+          f"plain version {k2_plain_ms:.3f} ms")
+
+    # -- 6. stateful streaming at the decode_64k shape --------------------
+    n_chunks = N_FULL // CHUNK_LEN
+    viterbi_acs.acs_forward.launches = 0
+    k2.launches = 0
+    bits_s = decoder.decode_stream_chunked(llrs, chunk_len=CHUNK_LEN, initial_state=0)
+    torch.cuda.synchronize()
+    k2_launches, k1_in_stream = k2.launches, viterbi_acs.acs_forward.launches
+    print(f"decode_stream_chunked: {n_chunks} chunks of {CHUNK_LEN} stages, "
+          f"depth {decoder.decision_depth} stages, packed ring "
+          f"{decoder.ring_packed}; K2 launches {k2_launches}, "
+          f"K1 launches {k1_in_stream}")
+    if k2_launches != n_chunks:
+        fail(f"decode_stream_chunked launched K2 {k2_launches} times, "
+             f"not once per chunk ({n_chunks})")
+    if bits_s.shape != (F_FULL, N_FULL) or bits_s.device.type != "cuda":
+        fail(f"decode_stream_chunked returned {tuple(bits_s.shape)} on {bits_s.device}")
+    errors_s = int((bits_s[:, :n_info] != info).sum())
+    ber_s = errors_s / (F_FULL * n_info)
+    print(f"stream AWGN Eb/N0={EBN0_DB} dB: {errors_s} bit errors, BER "
+          f"{ber_s:.3e} (limit {BER_LIMIT:g})")
+    if not ber_s <= BER_LIMIT:
+        fail(f"streaming BER {ber_s:.3e} above {BER_LIMIT:g}")
+    if not torch.equal(bits_s, bits):
+        fail("decode_stream_chunked and decode_batch decode the AWGN input "
+             f"differently ({int((bits_s != bits).sum())} bits)")
+    bits_sq = decoder.decode_stream_chunked(quant, chunk_len=CHUNK_LEN, initial_state=0)
+    if not torch.equal(bits_sq, bits_q):
+        fail("decode_stream_chunked and decode_batch decode the integer "
+             f"LLRs differently ({int((bits_sq != bits_q).sum())} bits)")
+    print("stream bits == decode_batch bits, on the AWGN and the integer LLRs")
+    del bits_sq
+
+    # K2 alone over the stream: the same 16 launches, state carried
+    blocks_s = blocks_from_llrs(llrs, 2)
+    tt = decoder._one_pass_tile(CHUNK_LEN // 2, decoder.decision_depth // 2)
+    state0 = decoder.init_stream_state(F_FULL, initial_state=0)
+    steps = CHUNK_LEN // 2
+    chunk_blocks = [blocks_s[lo:lo + steps].contiguous()
+                    for lo in range(0, N_FULL // 2, steps)]
+
+    def k2_stream():
+        lam, hist = state0.lam, state0.hist
+        for cb in chunk_blocks:
+            _, lam, hist = k2(cb, lam, hist, w, n_states=S, n_slots=R,
+                              k=spec.k, rho=2, time_tile=tt,
+                              pack_survivors=True)
+        return lam, hist
+
+    k2_stream_ms = cuda_ms(k2_stream)
+    lam_end, hist_end = k2_stream()
+    del chunk_blocks
+    flush_ms = cuda_ms(lambda: _flush_step(hist_end, lam_end, tables, None))
+    walls_s = sorted(
+        host_ms(lambda: decoder.decode_stream_chunked(
+            llrs, chunk_len=CHUNK_LEN, initial_state=0))[1]
+        for _ in range(3)
+    )
+    wall_s = walls_s[1]
+    mbps_s = F_FULL * N_FULL / wall_s / 1e3
+    # the same call in its stages, each ending in a synchronize; the
+    # validation is timed alone and again inside decode_chunk
+    st = decoder.init_stream_state(F_FULL, initial_state=0)
+    chunk_ms = validate_s_ms = 0.0
+    outs = []
+    for lo in range(0, N_FULL, CHUNK_LEN):
+        part = llrs[:, lo:lo + CHUNK_LEN]
+        validate_s_ms += host_ms(lambda: decoder._harden(part, where="stream"))[1]
+        (st, out), ms = host_ms(lambda: decoder.decode_chunk(st, part))
+        chunk_ms += ms
+        outs.append(out)
+    tail, flush_host_ms = host_ms(lambda: decoder.flush_stream(st))
+    _, cat_ms = host_ms(lambda: torch.cat(outs + [tail], dim=1))
+    del outs, tail, st
+    two_pass = ViterbiDecoder.from_standard("ccsds-k7", one_pass=False)
+    bits_2p, two_pass_ms = host_ms(lambda: two_pass.decode_stream_chunked(
+        llrs, chunk_len=CHUNK_LEN, initial_state=0))
+    print(f"time K2 over the stream ({n_chunks} launches of {steps} steps, "
+          f"tile {tt}): {k2_stream_ms:.3f} ms "
+          f"({k2_stream_ms / n_chunks:.3f} ms a launch)")
+    print(f"time flush traceback ({decoder.decision_depth // 2} steps): "
+          f"{flush_ms:.3f} ms")
+    print(f"time decode_stream_chunked wall: {wall_s:.3f} ms (median of "
+          f"{', '.join(f'{x:.3f}' for x in walls_s)}; K2 "
+          f"{k2_stream_ms / wall_s:.1%}, flush {flush_ms / wall_s:.1%})")
+    print(f"decode_stream_chunked stages (host clock): {n_chunks} decode_chunk "
+          f"{chunk_ms:.3f} ms (validation alone {validate_s_ms:.3f} ms), "
+          f"flush_stream {flush_host_ms:.3f} ms, concatenation {cat_ms:.3f} ms")
+    print(f"stream decoded: {mbps_s:.3f} Mb/s")
+    print(f"two-pass yardstick (one_pass=False, K1 + plain traceback per "
+          f"chunk): {two_pass_ms:.3f} ms, "
+          f"{F_FULL * N_FULL / two_pass_ms / 1e3:.3f} Mb/s; bits "
+          f"{'==' if torch.equal(bits_2p, bits_s) else '!='} the one-pass bits")
+    del bits_2p, bits_s
+    print(f"peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # K2's bound over the stream: K1's ACS operations; bytes: LLRs in,
+    # bits out, and each launch's entry and exit ring
+    k2_flops = 2 * F_FULL * (B + S) * S * R * (N_FULL // 2)
+    ring_bytes = hist_end.numel() * hist_end.element_size()
+    k2_bytes = (llrs.numel() * 4 + F_FULL * N_FULL  # int8 bits
+                + n_chunks * 2 * ring_bytes + n_chunks * 2 * lam_end.numel() * 4)
+    k2_t_ops = k2_flops / PEAK_F32_FLOPS * 1e3
+    k2_t_bytes = k2_bytes / PEAK_HBM_BYTES * 1e3
+    del hist_end, blocks_s
+
+    # -- 7. tiled streaming at the decode_1m stream length ----------------
+    info_t = torch.randint(0, 2, (1, N_TILED), generator=gen, device=dev)
+    sym_t = bpsk(conv_encode_torch(info_t, spec))
+    stream = llr(awgn(gen, sym_t, EBN0_DB, spec.rate), EBN0_DB, spec.rate)[0]
+    k2.launches = 0
+    tiled = decoder.decode_stream_tiled(stream)
+    torch.cuda.synchronize()
+    tiled_launches = k2.launches
+    tiled_2p = two_pass.decode_stream_tiled(stream)
+    ber_t = (tiled != info_t[0]).float().mean().item()
+    ber_t2 = (tiled_2p != info_t[0]).float().mean().item()
+    print(f"decode_stream_tiled, 2^20 stages: K2 launches {tiled_launches}; "
+          f"BER {ber_t:.3e} one-pass, {ber_t2:.3e} two-pass; "
+          f"{int((tiled != tiled_2p).sum())} bits differ")
+    if tiled_launches != 1 or tiled.shape != (N_TILED,):
+        fail(f"decode_stream_tiled launched K2 {tiled_launches} times, "
+             f"returned {tuple(tiled.shape)}")
+    if not ber_t <= 1e-2:
+        fail(f"tiled BER {ber_t:.3e}: the windows do not decode")
+    cfg = decoder.default_tiled_config()
+    n_win = N_TILED // cfg.frame_len
+    padded = torch.nn.functional.pad(stream, (0, 0, cfg.overlap, cfg.overlap))
+    idx = (torch.arange(n_win, device=dev)[:, None] * cfg.frame_len
+           + torch.arange(cfg.window, device=dev)[None, :])
+    wblocks = blocks_from_llrs(padded[idx], 2).contiguous()
+    d_t = cfg.overlap // 2
+    hist_t = torch.zeros((d_t, n_win, 4), dtype=torch.int32, device=dev)
+    lam_t = init_metric(n_win, S, None, device=dev)
+    tt_t = decoder._one_pass_tile(cfg.window // 2, d_t)
+    k2_case(f"tiled windows, tile {tt_t}", wblocks, lam_t, hist_t,
+            time_tile=tt_t, pack_survivors=True)
+    del wblocks, padded, idx
+
+    # -- 8. decode_chunk_multi: sessions at different positions ------------
+    small = ViterbiDecoder.from_standard("ccsds-k7", decision_depth=512)
+    a_llr, b_llr = quant[:2, :3072], quant[2:5, :2048]
+    sa, _ = small.decode_chunk(small.init_stream_state(2, 0), a_llr[:, :1024])
+    sb = small.init_stream_state(3, 0)
+    k2.launches = 0
+    for lo in (1024, 2048):
+        ca, cb = a_llr[:, lo:lo + 1024], b_llr[:, lo - 1024:lo]
+        (na, nb), (oa, ob) = small.decode_chunk_multi([sa, sb], [ca, cb])
+        alone_a, want_a = small.decode_chunk(sa, ca)
+        alone_b, want_b = small.decode_chunk(sb, cb)
+        same = torch.equal(oa, want_a) and torch.equal(ob, want_b) and all(
+            torch.equal(getattr(n, f), getattr(a, f))
+            for n, a in ((na, alone_a), (nb, alone_b))
+            for f in ("lam", "hist")
+        ) and (na.pos, nb.pos) == (alone_a.pos, alone_b.pos)
+        if not same:
+            fail(f"decode_chunk_multi at positions {sa.pos}, {sb.pos} differs "
+                 "from driving each session alone")
+        sa, sb = na, nb
+    if k2.launches < 2:
+        fail("decode_chunk_multi did not run through K2")
+    print(f"decode_chunk_multi: two sessions at positions 512 and 0 (steps) "
+          f"emit what each emits alone, over 2 rounds (K2 launches {k2.launches})")
+
+    print(json.dumps({"kernels": [k1_row, {
+        "name": "K2 acs_decode_fused",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/acs_decode_fused.cu",
+        "replaces": "src/repro/kernels/viterbi_acs.py:421",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": k2_stream_ms,
+        "shape": f"decode_stream_chunked: F={F_FULL} x {N_FULL} stages, "
+                 f"{n_chunks} launches of {steps} steps, D={decoder.decision_depth // 2}, TT={tt}",
+        "plain_ms": k2_plain_ms,
+        "plain_shape": sweep_shape,
+        "ms_at_plain_shape": k2_sweep_ms,
+        "bound_ms": max(k2_t_ops, k2_t_bytes),
+        "bound_by": "operations" if k2_t_ops >= k2_t_bytes else "bytes",
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -11,8 +11,10 @@ CPU.
 
 Subpackages ported so far:
   core     — trellis tables, encoder, channel, the matrix-form ACS scan,
-             traceback and the ``ViterbiDecoder`` batch front door
-  kernels  — K1, the fused ACS forward pass (CUDA) and its plain version
+             traceback and the ``ViterbiDecoder`` front door (batch,
+             tiled and chunked streaming)
+  kernels  — K1, the fused ACS forward pass, and K2, the one-pass
+             ACS+traceback decode (CUDA), with their plain versions
   codes    — the standard-code registry (puncture patterns as data only)
   obs      — the metrics registry the decoder's dispatch counters use
 """

@@ -1,5 +1,6 @@
 """Core library: the paper's tensor-formulated Viterbi decoder, as far as
-this slice of the port goes (batch decode of zero-terminated frames)."""
+the port goes (batch decode of zero-terminated frames, tiled and chunked
+streaming of unpunctured open-trellis codes)."""
 from .trellis import (  # noqa: F401
     AcsTables,
     CodeSpec,
@@ -10,11 +11,17 @@ from .trellis import (  # noqa: F401
 )
 from .viterbi import (  # noqa: F401
     AcsPrecision,
+    TiledDecoderConfig,
     decode_frames,
     forward_fused,
+    tiled_decode_stream,
     traceback,
     traceback_with_state,
 )
-from .decoder import ViterbiDecoder  # noqa: F401
+from .decoder import (  # noqa: F401
+    DEFAULT_DECISION_DEPTH,
+    StreamState,
+    ViterbiDecoder,
+)
 from .encoder import conv_encode, conv_encode_torch, tail_flush  # noqa: F401
 from .viterbi_ref import viterbi_decode_ref  # noqa: F401

@@ -1,34 +1,72 @@
 """Decoder front door: ``ViterbiDecoder``.
 
-This slice ports the batch entry point, ``decode_batch``: one-shot
-decode of independent zero-terminated frames (the paper's §IX workload)
-on the sequential path, with the forward pass in K1 and a plain PyTorch
-traceback.  The other entry points of the reference (tail-biting,
-punctured input, soft output, streaming, sharding, time-parallel decode)
-belong to later slices and raise ``NotImplementedError`` naming theirs.
+Ported so far, for unpunctured open-trellis codes:
+
+  * ``decode_batch`` — one-shot decode of independent zero-terminated
+    frames (the paper's §IX workload) on the sequential path, the
+    forward pass in K1 and a plain PyTorch traceback;
+  * ``decode_stream_tiled`` — overlapping-window decode of one stream
+    (paper §III), through K2 when the one-pass rule admits the window;
+  * ``init_stream_state`` / ``decode_chunk`` / ``decode_chunk_multi`` /
+    ``flush_stream`` / ``decode_stream_chunked`` — stateful chunked
+    streaming: the path metrics and a decision-depth survivor ring are
+    carried across chunks, and decisions are emitted once they have
+    ``decision_depth`` stages of lookahead.  A chunk takes K2 (one pass,
+    the traceback in the kernel) when the reference's one-pass rule
+    admits it, else the two-pass step (K1, then a plain traceback over
+    the ring and the chunk).
+
+The other entry points of the reference (tail-biting, punctured input,
+soft output, sharding, time-parallel decode) belong to later slices and
+raise ``NotImplementedError`` naming theirs.
 
 Entry points run on the card: ``device=None`` resolves to ``"cuda"`` and
 raises where there is none; the CPU is used only when asked for.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as tnf
 
 from .backend import resolve_device
-from .kernel_geometry import time_parallel_plan
-from .trellis import CodeSpec, build_acs_tables
+from .kernel_geometry import (
+    one_pass_time_tile,
+    ring_auto_packed,
+    ring_dtype,
+    ring_words,
+    time_parallel_plan,
+)
+from .trellis import AcsTables, CodeSpec, build_acs_tables
 from .validate import (
     InvalidInputError,
     RenormGuard,
     batch_headroom_check,
     validate_llrs,
 )
-from .viterbi import AcsPrecision, decode_frames
+from .viterbi import (
+    AcsPrecision,
+    TiledDecoderConfig,
+    blocks_from_llrs,
+    decode_frames,
+    forward_fused,
+    init_metric,
+    tiled_decode_stream,
+    traceback,
+)
 
-__all__ = ["ViterbiDecoder", "InvalidInputError"]
+__all__ = [
+    "StreamState",
+    "ViterbiDecoder",
+    "DEFAULT_DECISION_DEPTH",
+    "InvalidInputError",
+]
+
+# ~5K stages of decision delay: survivor merge is certain for any
+# constraint length served, at ~decision_depth * S / 8 bytes of state
+DEFAULT_DECISION_DEPTH = 5120
 
 
 def _count_dispatch(path: str) -> None:
@@ -40,6 +78,100 @@ def _count_dispatch(path: str) -> None:
         "decoder_dispatch_total",
         "ViterbiDecoder dispatches by selected decode path",
     ).inc(1, path=path)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamState:
+    """Carry of the chunked streaming decoder.
+
+    lam  : (F, S) f32 path metrics at the current stream front.
+    hist : (D, F, S) int8 survivor ring (or (D, F, S//16) int32 packed),
+           in time order: hist[i] is radix step ``pos - D + i``; entries
+           for negative steps are zero filler, never emitted.
+    pos  : radix steps consumed so far.
+    """
+
+    lam: torch.Tensor
+    hist: torch.Tensor
+    pos: int
+
+    @property
+    def depth_steps(self) -> int:
+        return self.hist.shape[0]
+
+    @property
+    def n_frames(self) -> int:
+        return self.lam.shape[0]
+
+
+def _chunk_step(
+    hist: torch.Tensor,
+    lam: torch.Tensor,
+    blocks: torch.Tensor,
+    tables: AcsTables,
+    precision: AcsPrecision,
+    use_kernel: bool,
+    pack_survivors: bool,
+):
+    """One two-pass streaming chunk: T new ACS steps (K1) and one delayed
+    traceback over the ring and the chunk.
+
+    Returns (new_hist, new_lam, bits (F, T*rho)): the decisions for the
+    T oldest steps of the window [pos-D, pos+T), i.e. steps
+    [pos-D, pos+T-D), each with >= D steps of lookahead.
+    """
+    lam2, phis = forward_fused(
+        blocks, lam, tables, precision, use_kernel, pack_survivors
+    )
+    full = torch.cat([hist, phis], dim=0)  # (D+T, F, W)
+    bits = traceback(full, lam2.argmax(dim=-1), tables)
+    T = phis.shape[0]
+    return full[full.shape[0] - hist.shape[0]:], lam2, bits[:, :T * tables.rho]
+
+
+def _chunk_step_fused(
+    hist: torch.Tensor,
+    lam: torch.Tensor,
+    blocks: torch.Tensor,
+    tables: AcsTables,
+    precision: AcsPrecision,
+    time_tile: int,
+    pack_survivors: bool,
+):
+    """``_chunk_step`` in K2: the survivor window stays in the kernel's
+    ring and the delayed traceback runs in the kernel, one commit per
+    time tile.  Same contract and bits as ``_chunk_step`` at chunk =
+    time_tile."""
+    from repro_torch.kernels import ops as kernel_ops
+
+    bits, lam2, hist2 = kernel_ops.viterbi_decode_fused(
+        blocks, lam, hist, tables, precision,
+        time_tile=time_tile, pack_survivors=pack_survivors,
+    )
+    return hist2, lam2, bits.T.to(torch.int32)
+
+
+def _window_valid(pos: int, t_steps: int, depth_steps: int) -> int:
+    """How many of the window's T oldest steps are real stream steps at
+    stream position ``pos``: the window covers steps [pos-D, pos+T-D),
+    and steps before the stream start are warm-up filler."""
+    return max(0, pos + t_steps - depth_steps) - max(0, pos - depth_steps)
+
+
+def _flush_step(
+    hist: torch.Tensor,
+    lam: torch.Tensor,
+    tables: AcsTables,
+    final_state: Optional[int],
+):
+    """Commit the last D steps still in the ring (end of stream)."""
+    if final_state is None:
+        fs = lam.argmax(dim=-1)
+    else:
+        fs = torch.full(
+            (lam.shape[0],), final_state, dtype=torch.int64, device=lam.device
+        )
+    return traceback(hist, fs, tables)  # (F, D*rho)
 
 
 def _later(what: str, slice_name: str):
@@ -55,7 +187,10 @@ class ViterbiDecoder:
     The fused-ACS tables are built once at construction.  ``use_kernel``
     (default True) runs the forward pass in K1 — the CUDA kernel on the
     card, its plain version on the CPU; ``use_kernel=False`` runs the
-    plain scan with ``split_dot`` honoured.
+    plain scan with ``split_dot`` honoured.  ``one_pass`` (default:
+    ``use_kernel``) sends streaming chunks and tiled windows through K2
+    where the one-pass rule admits them; ``time_tile`` and
+    ``block_frames`` are that rule's inputs, as in the reference.
     """
 
     def __init__(
@@ -65,13 +200,21 @@ class ViterbiDecoder:
         precision: Optional[AcsPrecision] = None,
         use_kernel: bool = True,
         pack_survivors: bool = False,
+        decision_depth: int = DEFAULT_DECISION_DEPTH,
         puncture=None,  # codes.PuncturePattern | None
         termination: str = "zero",
+        one_pass: Optional[bool] = None,
+        time_tile: Optional[int] = None,
+        block_frames: Optional[int] = None,
         time_parallel: Optional[bool] = None,
         validate_inputs: bool = True,
         sanitize: bool = False,
         device=None,
     ):
+        if decision_depth % rho:
+            raise ValueError(
+                f"decision_depth={decision_depth} not divisible by rho={rho}"
+            )
         if termination not in ("zero", "tailbiting"):
             raise ValueError(f"unknown termination {termination!r}")
         if puncture is not None and puncture.beta != spec.beta:
@@ -89,10 +232,30 @@ class ViterbiDecoder:
         self.pack_survivors = pack_survivors
         self.puncture = puncture
         self.termination = termination
+        # one-pass streaming: on with the kernels, so streaming chunks and
+        # tiled windows keep their survivors in K2's ring
+        self.one_pass = use_kernel if one_pass is None else bool(one_pass)
+        self.time_tile = time_tile
+        self.block_frames = block_frames
         self.time_parallel = time_parallel
+        # the streaming ring is packed whenever the state count allows and
+        # one-pass is on; batch survivors pack only on request
+        self.ring_packed = (
+            ring_auto_packed(spec.n_states, pack_survivors, 1 << rho)
+            if self.one_pass else pack_survivors
+        )
+        if puncture is not None:
+            # punctured stages carry fewer real LLRs, so survivor merge
+            # takes ~expansion x more stages: stretch the decision delay,
+            # on the rho grid
+            decision_depth = int(
+                -(-int(decision_depth * puncture.expansion) // rho) * rho
+            )
+        self.decision_depth = decision_depth
         # input hardening: validate every entry point (strict raise, or
         # clamp-and-count with sanitize=True); no-renorm precisions get
-        # the renorm-cadence guard the streaming slice will consult
+        # the renorm-cadence guard, which observes the carry between
+        # streaming chunks and renormalises it before headroom runs out
         self.validate_inputs = validate_inputs
         self.sanitize = sanitize
         self.sanitized_total = 0
@@ -109,6 +272,10 @@ class ViterbiDecoder:
         precision: Optional[AcsPrecision] = None,
         use_kernel: bool = True,
         pack_survivors: bool = False,
+        decision_depth: int = DEFAULT_DECISION_DEPTH,
+        one_pass: Optional[bool] = None,
+        time_tile: Optional[int] = None,
+        block_frames: Optional[int] = None,
         time_parallel: Optional[bool] = None,
         validate_inputs: bool = True,
         sanitize: bool = False,
@@ -126,8 +293,12 @@ class ViterbiDecoder:
             precision=precision,
             use_kernel=use_kernel,
             pack_survivors=pack_survivors,
+            decision_depth=decision_depth,
             puncture=code.puncture,
             termination=code.termination,
+            one_pass=one_pass,
+            time_tile=time_tile,
+            block_frames=block_frames,
             time_parallel=time_parallel,
             validate_inputs=validate_inputs,
             sanitize=sanitize,
@@ -145,7 +316,8 @@ class ViterbiDecoder:
         return llrs
 
     def depunctured(self, llrs):
-        """Pass (F, n, beta) LLRs of an unpunctured decoder through."""
+        """Pass the LLRs of an unpunctured decoder through; a punctured
+        decoder raises (depuncturing is the standard-codes slice)."""
         if self.puncture is not None:
             _later("depuncturing", "standard-codes")
         return llrs
@@ -215,6 +387,255 @@ class ViterbiDecoder:
         )
         return out[:, :n] if pad else out
 
+    # -- tiled stream (stateless, latency-optimal) ------------------------
+
+    def default_tiled_config(
+        self, base: Optional[TiledDecoderConfig] = None
+    ) -> TiledDecoderConfig:
+        """The tiling this decoder picks by itself: ``base`` (or the
+        library default), with the overlap stretched by the puncture
+        expansion and kept on the rho grid."""
+        base = base or TiledDecoderConfig(rho=self.rho)
+        if self.puncture is None:
+            return base
+        v = int(base.overlap * self.puncture.expansion)
+        v += (-v) % self.rho
+        return TiledDecoderConfig(
+            frame_len=base.frame_len, overlap=v, rho=self.rho
+        )
+
+    def decode_stream_tiled(
+        self, llrs, cfg: Optional[TiledDecoderConfig] = None
+    ) -> torch.Tensor:
+        """Overlapping-window decode of one (n, beta) stream (paper §III);
+        returns (n,) int32 bits on the decoder's device."""
+        if self.termination == "tailbiting":
+            raise ValueError(
+                "tiled stream decode assumes an open (non-circular) "
+                "trellis; use decode_batch/decode_tailbiting per frame"
+            )
+        llrs = self._harden(self.depunctured(
+            torch.as_tensor(llrs, device=self.device).to(torch.float32)
+        ))
+        cfg = cfg or self.default_tiled_config()
+        if cfg.rho != self.rho:
+            raise ValueError(f"cfg.rho={cfg.rho} != decoder rho={self.rho}")
+        _count_dispatch("tiled")
+        return tiled_decode_stream(
+            llrs,
+            self.spec,
+            cfg,
+            precision=self.precision,
+            use_kernel=self.use_kernel,
+            pack_survivors=self.pack_survivors,
+            one_pass=self.one_pass,
+            time_tile=self.time_tile,
+            block_frames=self.block_frames,
+            time_parallel=self.time_parallel,
+            device=self.device,
+        )
+
+    # -- stateful chunked streaming (throughput-optimal) ------------------
+
+    def init_stream_state(
+        self,
+        n_frames: int,
+        initial_state: Optional[int] = None,
+        decision_depth: Optional[int] = None,
+    ) -> StreamState:
+        """Fresh state for F parallel streams decoded chunk by chunk."""
+        depth = decision_depth or self.decision_depth
+        if depth % self.rho:
+            raise ValueError(
+                f"decision_depth={depth} not divisible by rho={self.rho}"
+            )
+        S = self.spec.n_states
+        lam = init_metric(n_frames, S, initial_state, device=self.device)
+        hist = torch.zeros(
+            (depth // self.rho, n_frames, ring_words(S, self.ring_packed)),
+            dtype=ring_dtype(self.ring_packed), device=self.device,
+        )
+        return StreamState(lam=lam, hist=hist, pos=0)
+
+    def _one_pass_tile(self, t_steps: int, d_steps: int) -> Optional[int]:
+        """K2's time tile for a (t_steps, d_steps) chunk, or None for the
+        two-pass step (the shared ``one_pass_time_tile`` rule)."""
+        if not self.one_pass:
+            return None
+        return one_pass_time_tile(
+            d_steps,
+            t_steps,
+            self.spec.n_states,
+            self.ring_packed,
+            self.time_tile,
+            self.block_frames,
+        )
+
+    def decode_chunk(
+        self, state: StreamState, llrs
+    ) -> Tuple[StreamState, torch.Tensor]:
+        """Consume one (F, c, beta) LLR chunk, c divisible by rho, and emit
+        the decisions that became final.
+
+        Returns (new_state, bits (F, m*rho)) for the m chunk steps whose
+        decisions now have >= decision_depth stages of lookahead: empty
+        during warm-up, (F, c) once pos >= decision_depth.  Across
+        ``decode_chunk`` calls and ``flush_stream`` every stage is emitted
+        once, in order.
+        """
+        llrs = self._harden(
+            torch.as_tensor(llrs, device=self.device).to(torch.float32),
+            where="stream",
+        )
+        F, c, _ = llrs.shape
+        if F != state.n_frames:
+            raise ValueError(f"state has {state.n_frames} frames, got {F}")
+        blocks = blocks_from_llrs(llrs, self.rho)
+        hist, lam, bits = self._dispatch_chunk(state.hist, state.lam, blocks)
+        T = c // self.rho
+        lam = self._guard_carry(lam, state.pos + T, T)
+        n_valid = _window_valid(state.pos, T, state.depth_steps)
+        out = bits[:, (T - n_valid) * self.rho:] if n_valid else bits[:, :0]
+        return StreamState(lam=lam, hist=hist, pos=state.pos + T), out
+
+    def _guard_carry(self, lam, pos: int, t_chunk: int):
+        """Between chunks the carry is visible: for no-renorm precisions,
+        observe it on the guard's cadence and renormalise (a per-frame
+        max subtraction, which the traceback does not see) before the
+        carry dtype runs out of headroom.  Inert with renorm on."""
+        guard = self.renorm_guard
+        if guard is None or not guard.due(pos, t_chunk):
+            return lam
+        lam, _ = guard.observe(lam, t_chunk=t_chunk)
+        return lam
+
+    def _dispatch_chunk(self, hist, lam, blocks):
+        """(hist, lam, blocks) -> (hist', lam', window bits (F, T*rho)) for
+        the T oldest window steps, through K2 or the two-pass step by the
+        one-pass rule: the single dispatch point under ``decode_chunk``
+        and ``decode_chunk_multi``."""
+        tt = self._one_pass_tile(blocks.shape[0], hist.shape[0])
+        _count_dispatch("chunk_one_pass" if tt else "chunk_two_pass")
+        if tt:
+            return _chunk_step_fused(
+                hist, lam, blocks, self.tables, self.precision, tt,
+                self.ring_packed,
+            )
+        return _chunk_step(
+            hist, lam, blocks, self.tables, self.precision,
+            self.use_kernel, self.ring_packed,
+        )
+
+    def decode_chunk_multi(self, states, chunks):
+        """Advance several independent stream states in one dispatch.
+
+        ``states`` are StreamStates of this decoder (one decision depth);
+        ``chunks`` the matching (f_i, c, beta) LLR chunks, all of c
+        stages.  They are stacked on the frame axis, run through one
+        ``_dispatch_chunk`` and split back; each state's window is sliced
+        by its own position, so every session emits what it would emit
+        alone.  Returns (new_states, outs), outs[i] (f_i, m_i*rho).
+        """
+        if not states:
+            return [], []
+        if len(states) != len(chunks):
+            raise ValueError(f"{len(states)} states but {len(chunks)} chunks")
+        depths = {s.depth_steps for s in states}
+        if len(depths) != 1:
+            raise ValueError(f"mixed decision depths {sorted(depths)}")
+        chunks = [
+            torch.as_tensor(ch, device=self.device).to(torch.float32)
+            for ch in chunks
+        ]
+        steps = {ch.shape[1] for ch in chunks}
+        if len(steps) != 1:
+            raise ValueError(f"mixed chunk lengths {sorted(steps)}")
+        for s, ch in zip(states, chunks):
+            if ch.shape[0] != s.n_frames:
+                raise ValueError(
+                    f"state has {s.n_frames} frames, chunk {ch.shape[0]}"
+                )
+        stacked = self._harden(torch.cat(chunks, dim=0), where="stream")
+        blocks = blocks_from_llrs(stacked, self.rho)
+        hist = torch.cat([s.hist for s in states], dim=1)
+        lam = torch.cat([s.lam for s in states], dim=0)
+        hist2, lam2, bits = self._dispatch_chunk(hist, lam, blocks)
+        T = steps.pop() // self.rho
+        D = depths.pop()
+        if self.renorm_guard is not None and any(
+                self.renorm_guard.due(s.pos + T, T) for s in states):
+            lam2, _ = self.renorm_guard.observe(lam2, t_chunk=T)
+        new_states, outs, off = [], [], 0
+        for s in states:
+            f = s.n_frames
+            b = bits[off:off + f]
+            n_valid = _window_valid(s.pos, T, D)
+            outs.append(b[:, (T - n_valid) * self.rho:] if n_valid else b[:, :0])
+            new_states.append(StreamState(
+                lam=lam2[off:off + f], hist=hist2[:, off:off + f],
+                pos=s.pos + T,
+            ))
+            off += f
+        return new_states, outs
+
+    def flush_stream(
+        self, state: StreamState, final_state: Optional[int] = None
+    ) -> torch.Tensor:
+        """End of stream: commit the decisions still inside the ring.
+
+        Returns (F, min(pos, depth)*rho) bits.  With ``final_state`` the
+        traceback is pinned (tail-flushed streams); otherwise it starts
+        from the per-frame argmax metric, as decode_batch does.
+        """
+        bits = _flush_step(state.hist, state.lam, self.tables, final_state)
+        valid = min(state.pos, state.depth_steps)
+        return bits[:, (state.depth_steps - valid) * self.rho:]
+
+    def decode_stream_chunked(
+        self,
+        llrs,
+        chunk_len: int = 4096,
+        initial_state: Optional[int] = None,
+        final_state: Optional[int] = None,
+        decision_depth: Optional[int] = None,
+    ) -> torch.Tensor:
+        """Chunk (F, n, beta) streams through the stateful path and return
+        the whole (F, n) int32 decision array on the decoder's device.
+
+        The last chunk is the (shorter) remainder, so at most rho-1
+        trailing stages are zero-LLR padded, and their decisions are cut
+        off.  ``final_state`` pins the traceback at the last stage, so it
+        is refused when that stage would be padding (n not a multiple of
+        rho).
+        """
+        if self.termination == "tailbiting":
+            raise ValueError(
+                "chunked streaming assumes an open trellis; tail-biting "
+                "frames decode whole via decode_batch/decode_tailbiting"
+            )
+        llrs = self.depunctured(
+            torch.as_tensor(llrs, device=self.device).to(torch.float32)
+        )
+        F, n, _ = llrs.shape
+        c = chunk_len - (chunk_len % self.rho) or self.rho
+        pad = (-n) % self.rho
+        if pad and final_state is not None:
+            raise ValueError(
+                f"final_state requires n divisible by rho={self.rho}; "
+                f"got n={n} (the pin would land on padded stages)"
+            )
+        state = self.init_stream_state(
+            F, initial_state=initial_state, decision_depth=decision_depth
+        )
+        if pad:
+            llrs = tnf.pad(llrs, (0, 0, 0, pad))
+        outs = []
+        for lo in range(0, n, c):
+            state, bits = self.decode_chunk(state, llrs[:, lo:lo + c])
+            outs.append(bits)
+        outs.append(self.flush_stream(state, final_state=final_state))
+        return torch.cat(outs, dim=1)[:, :n]
+
     # -- entry points of later slices -------------------------------------
 
     def decode_tailbiting(self, llrs, max_iters=None, time_parallel=None):
@@ -222,16 +643,3 @@ class ViterbiDecoder:
 
     def decode_soft(self, llrs, output: str = "llr", **kwargs):
         _later("soft-output decode (BCJR, list-Viterbi)", "soft-output")
-
-    def decode_stream_tiled(self, llrs, cfg=None):
-        _later("tiled stream decode", "streaming")
-
-    def init_stream_state(self, n_frames: int, initial_state=None,
-                          decision_depth=None):
-        _later("chunked streaming", "streaming")
-
-    def decode_chunk(self, state, llrs):
-        _later("chunked streaming", "streaming")
-
-    def decode_stream_chunked(self, llrs, chunk_len: int = 4096, **kwargs):
-        _later("chunked streaming", "streaming")

@@ -1,9 +1,15 @@
-"""Kernel geometry shared by the decoder and the K1 wrapper: the survivor
-layout (int8 slots, or 16 slots packed per int32 word), the CUDA block
-shape of K1, and the time-parallel eligibility rule.
+"""Kernel geometry shared by the decoder and the kernel wrappers: the
+survivor layout (int8 slots, or 16 slots packed per int32 word), the CUDA
+block shapes of K1 and K2, the one-pass eligibility rule of the streaming
+entry points, and the time-parallel eligibility rule.
 
-The reference's VMEM budgets (``FUSED_RING_VMEM_BUDGET`` and friends)
-and its 256-frame TPU tile are TPU constants and are not carried over.
+The one-pass rule (``one_pass_time_tile``) keeps the reference's numbers
+on purpose: it decides whether a chunk takes the one-pass or the two-pass
+step, and the two emit different bits wherever survivors have not merged
+within the decision depth, so both packages must choose alike on every
+shape.  Its ring budget is therefore the reference's dispatch rule, not a
+Hopper budget; where K2 actually keeps its ring on the card is
+``k2_block_frames``'s business.
 """
 from __future__ import annotations
 
@@ -14,22 +20,42 @@ import torch
 __all__ = [
     "DEFAULT_TIME_TILE",
     "DEFAULT_TRANSFER_TILE",
+    "MIN_ONE_PASS_TILE",
+    "ONE_PASS_RING_BUDGET",
+    "ONE_PASS_RULE_FRAMES",
     "MIN_TIME_PARALLEL_TILES",
     "SLOT_BITS",
     "K1_THREADS",
+    "SMEM_LIMIT_BYTES",
+    "STAGE_STEPS",
     "ring_words",
     "ring_dtype",
     "ring_auto_packed",
     "check_packable",
     "pack_slots",
     "k1_block_frames",
+    "k2_smem_bytes",
+    "k2_block_frames",
     "pick_time_tile",
+    "fused_ring_bytes",
+    "one_pass_time_tile",
     "default_transfer_tile",
     "pick_transfer_tile",
     "time_parallel_plan",
 ]
 
 DEFAULT_TIME_TILE = 32
+
+# The reference's one-pass dispatch rule, kept number for number so that
+# both packages pick the same path (and so emit the same bits) on every
+# shape: a time tile below MIN_ONE_PASS_TILE takes the two-pass step, and
+# so does a survivor ring of more than ONE_PASS_RING_BUDGET bytes,
+# reckoned at ONE_PASS_RULE_FRAMES frames unless the caller names a frame
+# count.  These are not a Hopper budget: K2 places its ring by
+# ``k2_block_frames``.
+MIN_ONE_PASS_TILE = 8
+ONE_PASS_RING_BUDGET = 12 * 2**20
+ONE_PASS_RULE_FRAMES = 256
 
 # time-parallel decode: target steps per transfer-matrix tile, and the
 # tile count below which a matrix scan has nothing to parallelize
@@ -43,6 +69,12 @@ SLOT_BITS = {2: 1, 4: 2, 8: 3, 16: 4}
 # holds K1_THREADS // S frames
 K1_THREADS = 256
 
+# dynamic shared memory one H100 block may opt in to
+SMEM_LIMIT_BYTES = 232448
+# LLR steps a block stages into shared memory at once (kStageSteps in
+# csrc/acs_step.cuh)
+STAGE_STEPS = 32
+
 
 def ring_words(n_states: int, pack_survivors: bool) -> int:
     """Last-axis width of a survivor entry: 16 slots per int32 word when
@@ -54,10 +86,16 @@ def ring_dtype(pack_survivors: bool) -> torch.dtype:
     return torch.int32 if pack_survivors else torch.int8
 
 
-def ring_auto_packed(n_states: int, pack_survivors: bool) -> bool:
-    """The streaming ring packs whenever the state count allows, and
-    always when explicitly requested."""
-    return pack_survivors or n_states % 16 == 0
+def ring_auto_packed(
+    n_states: int, pack_survivors: bool, n_slots: int = 4
+) -> bool:
+    """The streaming ring packs when explicitly requested, and otherwise
+    whenever the state count and the radix allow.  The reference packs
+    at any radix, which corrupts the ring for rho >= 3 (16 slots of 3
+    bits do not fit a word); the port keeps an int8 ring there."""
+    return pack_survivors or (
+        n_states % 16 == 0 and 16 * SLOT_BITS[n_slots] <= 32
+    )
 
 
 def check_packable(n_states: int, n_slots: int) -> None:
@@ -98,6 +136,55 @@ def k1_block_frames(n_states: int) -> int:
     return max(1, K1_THREADS // n_states)
 
 
+def k2_smem_bytes(
+    llr_block: int,
+    n_states: int,
+    n_slots: int,
+    block_frames: int,
+    ring_bytes_per_frame: int = 0,
+) -> int:
+    """Dynamic shared memory of one K2 block, in bytes: W, the staged LLR
+    steps, the matmul-rounded and the carried metrics, the renorm
+    partial maxima (16-byte aligned), then the block's survivor rings
+    when they live in shared memory (``ring_bytes_per_frame`` > 0).
+    The wrapper launches K2 with this many bytes; the launcher refuses a
+    count that does not hold the kernel's layout."""
+    S, B, BF = n_states, llr_block, block_frames
+    warps_per_frame = S // 32 if S >= 32 else 1
+    floats = (
+        (B + S) * S * n_slots
+        + STAGE_STEPS * BF * B
+        + 2 * BF * S
+        + BF * warps_per_frame
+    )
+    head = -(-floats * 4 // 16) * 16
+    return head + BF * ring_bytes_per_frame
+
+
+def k2_block_frames(
+    n_states: int,
+    llr_block: int,
+    n_slots: int,
+    ring_bytes_per_frame: int,
+    smem_limit: int = SMEM_LIMIT_BYTES,
+):
+    """(frames per K2 block, ring in shared memory?).
+
+    One thread per (frame, state), at most K1's 256 threads, and a whole
+    number of warps.  The most frames whose rings fit in shared memory
+    beside W and the staged LLRs; where not even the fewest fit, the
+    rings go to a scratch buffer in device memory and the block takes
+    K1's frame count."""
+    bf_max = k1_block_frames(n_states)
+    unit = max(1, 32 // n_states)  # frames that fill one warp
+    for bf in range(bf_max, 0, -unit):
+        if k2_smem_bytes(
+            llr_block, n_states, n_slots, bf, ring_bytes_per_frame
+        ) <= smem_limit:
+            return bf, True
+    return bf_max, False
+
+
 def pick_time_tile(d_steps: int, t_steps: int, target=None) -> int:
     """Largest time tile <= ``target`` dividing both ``d_steps`` and
     ``t_steps``.  Always >= 1."""
@@ -113,6 +200,55 @@ def pick_time_tile(d_steps: int, t_steps: int, target=None) -> int:
                 best = max(best, g // c)
         c += 1
     return best
+
+
+def fused_ring_bytes(
+    depth_steps: int,
+    time_tile: int,
+    block_frames: int,
+    n_states: int,
+    pack_survivors: bool,
+) -> int:
+    """Bytes of a one-pass survivor ring of ``depth_steps + time_tile``
+    steps over ``block_frames`` frames (the reference's
+    ``fused_ring_vmem_bytes``)."""
+    itemsize = torch.iinfo(ring_dtype(pack_survivors)).bits // 8
+    return (
+        (depth_steps + time_tile)
+        * block_frames
+        * ring_words(n_states, pack_survivors)
+        * itemsize
+    )
+
+
+def one_pass_time_tile(
+    d_steps: int,
+    t_steps: int,
+    n_states: int,
+    ring_packed: bool,
+    time_tile=None,
+    block_frames=None,
+):
+    """The one-pass eligibility rule of every streaming entry point: the
+    time tile to launch K2 with, or None when the chunk takes the
+    two-pass step — packing impossible, no common tile of at least
+    ``MIN_ONE_PASS_TILE`` steps (or of the whole depth or chunk), or a
+    ring beyond ``ONE_PASS_RING_BUDGET`` at ``block_frames`` (default
+    ``ONE_PASS_RULE_FRAMES``) frames.  The reference's rule, unchanged."""
+    if d_steps <= 0 or t_steps <= 0:
+        return None
+    if ring_packed and n_states % 16:
+        return None
+    tt = pick_time_tile(d_steps, t_steps, time_tile)
+    if tt < min(MIN_ONE_PASS_TILE, d_steps, t_steps):
+        return None
+    bf = block_frames or ONE_PASS_RULE_FRAMES
+    if (
+        fused_ring_bytes(d_steps, tt, bf, n_states, ring_packed)
+        > ONE_PASS_RING_BUDGET
+    ):
+        return None
+    return tt
 
 
 def default_transfer_tile(t_steps: int) -> int:

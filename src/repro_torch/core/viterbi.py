@@ -14,6 +14,10 @@ straight to the matmul dtype, ``split_dot`` ignored.
 contract: blocks through ``channel_dtype`` first, ``split_dot`` honoured.
 The traceback is plain PyTorch, as it is plain jnp in the reference.
 
+``tiled_decode_stream`` decodes one long stream as overlapping windows
+(paper §III), through K2 (one pass, the traceback in the kernel) when
+the reference's one-pass rule admits the window, else two-pass.
+
 Precision follows the paper's Fig. 13 axes (``AcsPrecision``): matmul
 inputs may be bf16, products and sums are f32, and the carry may be
 rounded to bf16.  No path uses TF32.
@@ -30,9 +34,12 @@ from .backend import resolve_device
 from .kernel_geometry import (
     SLOT_BITS,
     check_packable,
+    one_pass_time_tile,
     pack_slots,
+    ring_auto_packed,
     ring_dtype,
     ring_words,
+    time_parallel_plan,
 )
 from .semiring import NEG, TROPICAL, Semiring
 from .trellis import AcsTables, CodeSpec, build_acs_tables
@@ -47,6 +54,8 @@ __all__ = [
     "traceback",
     "traceback_with_state",
     "decode_frames",
+    "TiledDecoderConfig",
+    "tiled_decode_stream",
     "NEG",
 ]
 
@@ -280,3 +289,148 @@ def decode_frames(
     else:
         fs = torch.full((F,), final_state, dtype=torch.int64, device=dev)
     return traceback(phis, fs, tables)
+
+
+# ---------------------------------------------------------------------------
+# Tiled stream decoder (paper §III tiling over a frames-in-rows batch)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TiledDecoderConfig:
+    """Frame tiling (paper §III): each window decodes ``frame_len`` bits
+    and carries ``overlap`` stages of history on both sides (Eq. 5's v)."""
+
+    frame_len: int = 64
+    overlap: int = 32
+    rho: int = 2
+
+    def __post_init__(self):
+        if (self.frame_len + 2 * self.overlap) % self.rho:
+            raise ValueError("frame_len + 2*overlap must be divisible by rho")
+        if self.frame_len % self.rho:
+            raise ValueError("frame_len must be divisible by rho")
+
+    @property
+    def window(self) -> int:
+        return self.frame_len + 2 * self.overlap
+
+
+def _one_pass_window_plan(
+    spec: CodeSpec,
+    cfg: TiledDecoderConfig,
+    pack_survivors: bool,
+    time_tile: Optional[int],
+    block_frames: Optional[int],
+):
+    """(time_tile, ring_packed) for decoding the windows through K2, or
+    None for the two-pass path: the shared ``one_pass_time_tile`` rule,
+    plus an overlap on the rho grid (the ring holds whole radix steps)."""
+    v, rho = cfg.overlap, cfg.rho
+    if v % rho:
+        return None
+    packed = ring_auto_packed(spec.n_states, pack_survivors, 1 << rho)
+    tt = one_pass_time_tile(
+        v // rho, cfg.window // rho, spec.n_states, packed,
+        time_tile, block_frames,
+    )
+    return None if tt is None else (tt, packed)
+
+
+def _one_pass_windows(
+    frames: torch.Tensor,  # (n_windows, window, beta)
+    spec: CodeSpec,
+    cfg: TiledDecoderConfig,
+    precision: AcsPrecision,
+    time_tile: int,
+    ring_packed: bool,
+) -> torch.Tensor:
+    """Decode tiling windows through K2.
+
+    The left overlap is the warm-up and the right one the lookahead: with
+    a decision depth of overlap/rho steps, every centre stage is committed
+    with >= overlap stages of lookahead, and K2's rows [2*overlap:) are
+    exactly the centres, so no flush traceback is needed.
+    """
+    from repro_torch.kernels import ops as kernel_ops
+
+    v, rho = cfg.overlap, cfg.rho
+    dev = frames.device
+    blocks = blocks_from_llrs(frames, rho)
+    n_windows = frames.shape[0]
+    lam0 = init_metric(n_windows, spec.n_states, None, device=dev)
+    hist0 = torch.zeros(
+        (v // rho, n_windows, ring_words(spec.n_states, ring_packed)),
+        dtype=ring_dtype(ring_packed), device=dev,
+    )
+    bits, _, _ = kernel_ops.viterbi_decode_fused(
+        blocks, lam0, hist0, build_acs_tables(spec, rho), precision,
+        time_tile=time_tile, pack_survivors=ring_packed,
+    )
+    # row r <-> stage r - v; the centres are stages [v, v+f) = rows [2v, 2v+f)
+    return bits[2 * v:, :].T.to(torch.int32)  # (n_windows, f)
+
+
+def tiled_decode_stream(
+    llrs,
+    spec: CodeSpec,
+    cfg: TiledDecoderConfig = TiledDecoderConfig(),
+    precision: AcsPrecision = AcsPrecision(),
+    use_kernel: bool = True,
+    pack_survivors: bool = False,
+    one_pass: bool = False,
+    time_tile: Optional[int] = None,
+    block_frames: Optional[int] = None,
+    time_parallel: Optional[bool] = None,
+    transfer_tile: Optional[int] = None,
+    device=None,
+) -> torch.Tensor:
+    """Decode one long LLR stream (n, beta) as overlapping windows.
+
+    The stream is zero-LLR padded by ``overlap`` on both ends and cut
+    into ceil(n/frame_len) windows of frame_len + 2*overlap stages, all
+    decoded at once (uniform start metric, argmax end state); the centre
+    frame_len decisions of each window are stitched together.  Returns
+    (n,) int32 bits on ``device`` (None is the card).
+
+    With ``one_pass`` the windows go through K2 when the reference's
+    one-pass rule admits them (``_one_pass_window_plan``); else through
+    ``decode_frames``.  ``time_parallel`` follows the reference's
+    precedence, and a plan that picks the time-parallel path raises
+    ``NotImplementedError``: it belongs to the time-parallel slice.
+    """
+    dev = resolve_device(device)
+    llrs = torch.as_tensor(llrs, device=dev).to(torch.float32)
+    n, beta = llrs.shape
+    f, v = cfg.frame_len, cfg.overlap
+    n_windows = -(-n // f)
+    padded_len = n_windows * f + 2 * v
+    padded = torch.nn.functional.pad(llrs, (0, 0, v, padded_len - n - v))
+    idx = (
+        torch.arange(n_windows, device=dev)[:, None] * f
+        + torch.arange(cfg.window, device=dev)[None, :]
+    )
+    frames = padded[idx]  # (n_windows, window, beta)
+    tp_tile = time_parallel_plan(
+        n_windows, cfg.window // cfg.rho, spec.n_states,
+        time_parallel, transfer_tile,
+    )
+    plan = (
+        _one_pass_window_plan(spec, cfg, pack_survivors, time_tile, block_frames)
+        if one_pass else None
+    )
+    # an explicitly requested time-parallel path beats the one-pass plan;
+    # on auto, an eligible one-pass plan wins
+    if plan is not None and not (time_parallel is True and tp_tile):
+        center = _one_pass_windows(frames, spec, cfg, precision, *plan)
+        return center.reshape(-1)[:n]
+    if tp_tile is not None:
+        raise NotImplementedError(
+            "time-parallel decode (K3) is not ported yet: it belongs to "
+            "the time-parallel slice of the PyTorch/CUDA port"
+        )
+    decoded = decode_frames(
+        frames, spec, rho=cfg.rho, initial_state=None, final_state=None,
+        precision=precision, use_kernel=use_kernel,
+        pack_survivors=pack_survivors, device=dev,
+    )
+    return decoded[:, v:v + f].reshape(-1)[:n]

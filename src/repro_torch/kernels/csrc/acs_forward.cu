@@ -34,46 +34,19 @@
 //     order (k = 0 .. B+S-1, one fma each), no use of P's one-hot shape;
 //   * the renorm max is a warp shuffle reduction plus one shared-memory
 //     exchange between the S/32 warps of a frame.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// The step itself (dot, argmax, packing, renorm) is acs_step.cuh, shared
+// with K2 (acs_decode_fused.cu).
+#include "acs_step.cuh"
 
 namespace {
 
-constexpr int kStageSteps = 32;  // LLR steps staged into shared memory at once
-
-enum RoundTo { kF32 = 0, kBF16 = 1 };
-
-__device__ __forceinline__ float round_to(float x, int dtype) {
-  return dtype == kBF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-
-// R consecutive floats of W from shared memory, as 8- or 16-byte loads
-// (the column group j*R .. j*R+R-1 is aligned to its size).
-template <int R>
-__device__ __forceinline__ void load_cols(const float* p, float (&v)[R]) {
-  if constexpr (R == 2) {
-    const float2 a = *reinterpret_cast<const float2*>(p);
-    v[0] = a.x;
-    v[1] = a.y;
-  } else {
-#pragma unroll
-    for (int q = 0; q < R / 4; ++q) {
-      const float4 a = reinterpret_cast<const float4*>(p)[q];
-      v[4 * q + 0] = a.x;
-      v[4 * q + 1] = a.y;
-      v[4 * q + 2] = a.z;
-      v[4 * q + 3] = a.w;
-    }
-  }
-}
+using namespace acs;
 
 size_t smem_floats(int B, int S, int R, int BF) {
-  const int warps_per_frame = S >= 32 ? S / 32 : 1;
-  return (size_t)(B + S) * S * R          // W
-         + (size_t)kStageSteps * BF * B   // staged LLR blocks
-         + (size_t)BF * S                 // Lambda, rounded to the matmul dtype
-         + (size_t)BF * warps_per_frame;  // renorm partial maxima
+  return (size_t)(B + S) * S * R             // W
+         + (size_t)kStageSteps * BF * B      // staged LLR blocks
+         + (size_t)BF * S                    // Lambda, rounded to the matmul dtype
+         + (size_t)BF * warps_per_frame(S);  // renorm partial maxima
 }
 
 template <int R>
@@ -89,11 +62,10 @@ __global__ void __launch_bounds__(1024) acs_forward_kernel(
   extern __shared__ __align__(16) float smem[];
   const int K = B + S;
   const int SR = S * R;
-  const int warps_per_frame = S >= 32 ? S / 32 : 1;
   float* w_s = smem;                              // K * SR
   float* l_s = w_s + (size_t)K * SR;              // kStageSteps * BF * B
   float* x_s = l_s + (size_t)kStageSteps * BF * B;  // BF * S
-  float* red_s = x_s + (size_t)BF * S;            // BF * warps_per_frame
+  float* red_s = x_s + (size_t)BF * S;            // BF * warps_per_frame(S)
 
   const int tid = threadIdx.x;
   const int fl = tid / S;  // frame within the block
@@ -124,66 +96,18 @@ __global__ void __launch_bounds__(1024) acs_forward_kernel(
       x_s[fl * S + j] = round_to(lam, mm_dtype);
       __syncthreads();  // stage and x_s complete
 
-      float acc[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = 0.f;
-      const float* lrow = l_s + (tt * BF + fl) * B;
-      for (int k = 0; k < B; ++k) {
-        const float xv = lrow[k];
-        float wv[R];
-        load_cols<R>(wcol + (size_t)k * SR, wv);
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(xv, wv[r], acc[r]);
-      }
-      const float* xrow = x_s + fl * S;
-#pragma unroll 4
-      for (int k = 0; k < S; ++k) {
-        const float xv = xrow[k];
-        float wv[R];
-        load_cols<R>(wcol + (size_t)(B + k) * SR, wv);
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(xv, wv[r], acc[r]);
-      }
-
-      float best = acc[0];
-      int arg = 0;
-#pragma unroll
-      for (int r = 1; r < R; ++r) {
-        if (acc[r] > best) {  // strict: ties keep the first slot
-          best = acc[r];
-          arg = r;
-        }
-      }
+      int arg;
+      float best = acs_best<R>(l_s + (tt * BF + fl) * B, x_s + fl * S, wcol,
+                               B, S, arg);
 
       if (phi32 != nullptr) {
-        // 16 consecutive states of one frame share a word: OR their
-        // shifted slots across the 16 lanes, lane j%16 == 0 stores it.
-        unsigned v = (unsigned)arg << (slot_bits * (j & 15));
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1) v |= __shfl_xor_sync(0xffffffffu, v, off);
+        const unsigned v = pack_word(arg, j, slot_bits);
         if (live && (j & 15) == 0)
           phi32[(t * F + frame) * (S / 16) + (j >> 4)] = (int32_t)v;
       } else if (live) {
         phi8[(t * F + frame) * S + j] = (int8_t)arg;
       }
-
-      if (renorm) {
-        // max over the frame's S states: within a warp (groups of
-        // min(S, 32) lanes belong to one frame), then across its warps
-        float m = best;
-        const int width = S < 32 ? S : 32;
-        for (int off = width / 2; off > 0; off >>= 1)
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-        if (S > 32 && (tid & 31) == 0) red_s[fl * warps_per_frame + (j >> 5)] = m;
-        __syncthreads();  // partial maxima visible; all x_s/l_s reads done
-        if (S > 32) {
-          m = red_s[fl * warps_per_frame];
-          for (int q = 1; q < warps_per_frame; ++q) m = fmaxf(m, red_s[fl * warps_per_frame + q]);
-        }
-        best -= m;
-      } else {
-        __syncthreads();  // all x_s/l_s reads of this step done
-      }
+      best = renorm_sync(best, renorm, tid, j, S, fl, red_s);
       lam = round_to(best, carry_dtype);
     }
   }

@@ -1,19 +1,31 @@
-"""Public kernel wrappers bound to ``core.viterbi``.
+"""Public kernel wrappers bound to ``core.viterbi`` and ``core.decoder``.
 
 ``viterbi_forward`` is plug-compatible with ``core.viterbi.forward_fused``
 and is selected there by ``use_kernel=True``: the two-pass path, with the
 full survivor tensor written out and a plain PyTorch traceback after it.
+``viterbi_decode_fused`` is the one-pass time-tiled path (K2): ACS and a
+sliding-window traceback in one kernel, the survivors kept in its ring.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import kernel_geometry
+from repro_torch.core.kernel_geometry import DEFAULT_TIME_TILE
 from repro_torch.core.trellis import AcsTables
 from repro_torch.core.viterbi import AcsPrecision
 
-from .viterbi_acs import acs_forward
+from .viterbi_acs import acs_decode_fused, acs_forward
 
-__all__ = ["viterbi_forward"]
+__all__ = ["viterbi_forward", "viterbi_decode_fused", "ring_words", "ring_dtype"]
+
+
+def ring_words(tables: AcsTables, pack_survivors: bool) -> int:
+    """Last-axis width of a survivor ring entry for these tables."""
+    return kernel_geometry.ring_words(tables.n_states, pack_survivors)
+
+
+ring_dtype = kernel_geometry.ring_dtype
 
 
 def viterbi_forward(
@@ -44,4 +56,39 @@ def viterbi_forward(
         renorm=precision.renorm,
         pack_survivors=pack_survivors,
         semiring=semiring,
+    )
+
+
+def viterbi_decode_fused(
+    blocks: torch.Tensor,  # (T, F, B), T divisible by the time tile
+    lam0: torch.Tensor,  # (F, S)
+    hist0: torch.Tensor,  # (D, F, W) survivor ring (zeros for a fresh stream)
+    tables: AcsTables,
+    precision=None,
+    *,
+    time_tile: int = DEFAULT_TIME_TILE,
+    pack_survivors: bool = False,
+):
+    """K2-backed one-pass time-tiled streaming decode.
+
+    Returns (bits (T*rho, F) int8, lam (F, S) f32, hist (D, F, W)):
+    delayed decisions for steps [-D, T-D) plus the carried stream state,
+    the fused equivalent of T/time_tile two-pass chunk steps.
+    """
+    precision = precision or AcsPrecision()
+    w = torch.as_tensor(tables.fused_w, device=blocks.device)
+    return acs_decode_fused(
+        blocks.to(torch.float32).contiguous(),
+        lam0.to(torch.float32).contiguous(),
+        hist0.contiguous(),
+        w,
+        n_states=tables.n_states,
+        n_slots=tables.n_slots,
+        k=tables.spec.k,
+        rho=tables.rho,
+        time_tile=time_tile,
+        carry_dtype=precision.carry_dtype,
+        matmul_dtype=precision.matmul_dtype,
+        renorm=precision.renorm,
+        pack_survivors=pack_survivors,
     )

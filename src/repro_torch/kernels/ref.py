@@ -1,16 +1,18 @@
-"""Plain PyTorch version of K1 (``viterbi_acs.acs_forward``): the same
-contract, one radix step at a time.
+"""Plain PyTorch versions of K1 (``viterbi_acs.acs_forward``) and K2
+(``viterbi_acs.acs_decode_fused``): the same contracts, one radix step
+at a time.
 
-``acs_forward`` runs this for CPU tensors; the tests hold it against the
-reference's Pallas kernel, and ``chip_smoke.py`` holds the CUDA kernel
-against it on the card.  It repeats the kernel's arithmetic and is no
-yardstick of speed.
+The wrappers run these for CPU tensors; the tests hold them against the
+reference's Pallas kernels, and ``chip_smoke.py`` holds the CUDA kernels
+against them on the card.  They repeat the kernels' arithmetic and are
+no yardstick of speed.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.kernel_geometry import (
+    SLOT_BITS,
     check_packable,
     pack_slots,
     ring_dtype,
@@ -18,7 +20,7 @@ from repro_torch.core.kernel_geometry import (
 )
 from repro_torch.core.viterbi import dot_f32
 
-__all__ = ["acs_forward_ref"]
+__all__ = ["acs_forward_ref", "acs_decode_fused_ref"]
 
 
 def acs_forward_ref(
@@ -59,3 +61,76 @@ def acs_forward_ref(
             new = new - new.amax(dim=-1, keepdim=True)
         lam = new.to(carry_dtype)
     return lam.to(torch.float32), phis
+
+
+def _ring_select(row: torch.Tensor, state: torch.Tensor, n_slots: int,
+                 packed: bool) -> torch.Tensor:
+    """Slot of each frame's ``state`` in one ring step ``row`` (F, W):
+    a byte of the int8 ring, or a ``SLOT_BITS`` field of a packed word."""
+    if packed:
+        word = row.gather(1, (state >> 4)[:, None])[:, 0].to(torch.int64)
+        return (word >> (SLOT_BITS[n_slots] * (state & 15))) & (n_slots - 1)
+    return row.gather(1, state[:, None])[:, 0].to(torch.int64)
+
+
+def acs_decode_fused_ref(
+    blocks: torch.Tensor,  # (T, F, B), T a multiple of time_tile
+    lam0: torch.Tensor,  # (F, S)
+    hist0: torch.Tensor,  # (D, F, W) entry ring, chronological
+    w: torch.Tensor,  # (B+S, S*R)
+    *,
+    n_states: int,
+    n_slots: int,
+    k: int,
+    rho: int,
+    time_tile: int,
+    carry_dtype: torch.dtype = torch.float32,
+    matmul_dtype: torch.dtype = torch.float32,
+    renorm: bool = True,
+    pack_survivors: bool = False,
+):
+    """Returns (bits (T*rho, F) int8, lam (F, S) f32, hist (D, F, W)).
+
+    Per time tile of TT steps: the ACS steps of ``acs_forward_ref`` write
+    their survivors into a ring of D+TT steps (step s at slot s mod
+    (D+TT); the entry ring's steps -D..-1 at slots TT..), then a walk
+    from the argmax of the metrics over the newest D steps, then TT
+    emitting steps over the oldest tile, each giving the rho decided
+    bits LSB-first.  The exit ring is the newest D steps in time order.
+    """
+    T, F = blocks.shape[0], blocks.shape[1]
+    D, TT = hist0.shape[0], time_tile
+    RING = D + TT
+    n_ring_tiles = RING // TT
+    shift = k - 1 - rho
+    mask = (1 << shift) - 1
+    ring = torch.zeros(
+        (RING, F, hist0.shape[2]), dtype=hist0.dtype, device=hist0.device
+    )
+    ring[TT:] = hist0
+    bits = torch.empty((T * rho, F), dtype=torch.int8, device=blocks.device)
+    bit_idx = torch.arange(rho, device=blocks.device)
+    lam = lam0
+    n_tiles = T // TT
+    for j in range(n_tiles):
+        lam, phi = acs_forward_ref(
+            blocks[j * TT:(j + 1) * TT], lam, w, n_states=n_states,
+            n_slots=n_slots, carry_dtype=carry_dtype,
+            matmul_dtype=matmul_dtype, renorm=renorm,
+            pack_survivors=pack_survivors,
+        )
+        write_base = (j % n_ring_tiles) * TT
+        ring[write_base:write_base + TT] = phi
+        read_base = ((j + 1) % n_ring_tiles) * TT  # slot of the window's oldest step
+        state = lam.argmax(dim=-1)
+        for i in range(RING - 1, -1, -1):
+            if i < TT:  # the oldest tile: emit the rho bits of step i
+                v = state >> shift
+                rows = slice((j * TT + i) * rho, (j * TT + i + 1) * rho)
+                bits[rows] = ((v[None, :] >> bit_idx[:, None]) & 1).to(torch.int8)
+            slot = (read_base + i) % RING
+            sel = _ring_select(ring[slot], state, n_slots, pack_survivors)
+            state = ((state & mask) << rho) | sel
+    base = ((n_tiles + 1) % n_ring_tiles) * TT
+    order = (base + torch.arange(D, device=ring.device)) % RING
+    return bits, lam, ring[order]

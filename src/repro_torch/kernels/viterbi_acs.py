@@ -1,20 +1,27 @@
-"""K1 — the fused ACS forward pass as a hand-written CUDA kernel for Hopper.
+"""K1 and K2 — the ACS kernels of the reference, hand-written in CUDA for
+Hopper.
 
-Replaces ``acs_forward_pallas`` (body ``_acs_kernel``) of the reference's
-``src/repro/kernels/viterbi_acs.py``.  The kernel source is
-``csrc/acs_forward.cu``; its header comment gives the design and what
-bounds it on an H100.
+  * K1, ``acs_forward`` (``csrc/acs_forward.cu``), replaces
+    ``acs_forward_pallas`` (body ``_acs_kernel``) of the reference's
+    ``src/repro/kernels/viterbi_acs.py``: the fused ACS forward pass.
+  * K2, ``acs_decode_fused`` (``csrc/acs_decode_fused.cu``), replaces
+    ``acs_decode_fused_pallas`` (body ``_fused_decode_kernel``): the
+    one-pass time-tiled decode, ACS and sliding-window traceback in one
+    kernel.
+
+Both share the ACS step of ``csrc/acs_step.cuh``; each source's header
+comment gives its design and what bounds it on an H100.
 
 Build and binding: at the first call on a CUDA tensor, ``nvcc`` compiles
-the source for ``sm_90a`` into a shared library with a plain C interface
-under ``build/torch_ext/`` of the checkout (named by a hash of the source
-and flags, so an edited source is rebuilt), and ``ctypes`` loads it.
-Nothing is built or loaded at import, so this module imports where there
-is no ``nvcc``.  A failed build or launch raises; nothing runs the plain
-version in its place on the card.
+each kernel's source for ``sm_90a`` into a shared library of its own with
+a plain C interface under ``build/torch_ext/`` of the checkout (named by
+a hash of the source, the shared header and the flags, so an edited
+source is rebuilt), and ``ctypes`` loads it.  Nothing is built or loaded at import, so this
+module imports where there is no ``nvcc``.  A failed build or launch
+raises; nothing runs the plain version in its place on the card.
 
-``acs_forward`` takes the plain version (``ref.acs_forward_ref``) only
-for tensors that lie on the CPU.
+The wrappers take the plain versions (``ref.py``) only for tensors that
+lie on the CPU.
 """
 from __future__ import annotations
 
@@ -24,25 +31,33 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.core.backend import is_hopper
 from repro_torch.core.kernel_geometry import (
     SLOT_BITS,
+    SMEM_LIMIT_BYTES,
     check_packable,
     k1_block_frames,
+    k2_block_frames,
+    k2_smem_bytes,
     ring_dtype,
     ring_words,
 )
 from repro_torch.core.semiring import check_semiring
 
-from .ref import acs_forward_ref
+from .ref import acs_decode_fused_ref, acs_forward_ref
 
-__all__ = ["acs_forward", "build", "SMEM_LIMIT_BYTES"]
+__all__ = [
+    "acs_forward", "acs_decode_fused", "build", "SMEM_LIMIT_BYTES",
+]
 
-_SOURCES = (Path(__file__).resolve().parent / "csrc" / "acs_forward.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+# one shared library per kernel, each built from its own source
+KERNELS = ("acs_forward", "acs_decode_fused")
+_HEADERS = (_CSRC / "acs_step.cuh",)
 # the checkout's build/ directory (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 _NVCC_FLAGS = (
@@ -54,11 +69,9 @@ _NVCC_FLAGS = (
     "-fPIC",
     "-Xptxas=-v",
 )
-# dynamic shared memory one H100 block may opt in to
-SMEM_LIMIT_BYTES = 232448
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _find_nvcc() -> Optional[str]:
@@ -70,52 +83,106 @@ def _find_nvcc() -> Optional[str]:
     return cand if os.path.isfile(cand) else None
 
 
-def build() -> Path:
-    """Compile ``csrc/acs_forward.cu`` (once per source content) and return
-    the shared library's path.  ``nvcc``'s report (registers, shared
-    memory, spills) is kept beside it as ``<name>.log``."""
+def build(name: str = "acs_forward") -> Path:
+    """Compile ``csrc/<name>.cu`` (once per content of the source and the
+    shared header) and return the shared library's path.  ``nvcc``'s
+    report (registers, shared memory, spills) is kept beside it as
+    ``<library>.log``."""
+    if name not in KERNELS:
+        raise ValueError(f"unknown kernel {name!r}; one of {KERNELS}")
+    src = _CSRC / f"{name}.cu"
     digest = hashlib.sha256()
-    for src in _SOURCES:
-        digest.update(src.read_bytes())
+    for path in (src, *_HEADERS):
+        digest.update(path.read_bytes())
     digest.update(" ".join(_NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"acs_forward_{digest.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
     nvcc = _find_nvcc()
     if nvcc is None:
         raise RuntimeError(
             "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
-            "the K1 CUDA kernel cannot be built"
+            f"the CUDA kernel {name} cannot be built"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     res = subprocess.run(
-        [nvcc, *_NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)],
+        [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(src)],
         capture_output=True, text=True,
     )
     if res.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed with exit code {res.returncode}:\n{res.stderr}"
+            f"nvcc failed on {src.name} with exit code {res.returncode}:\n"
+            f"{res.stderr}"
         )
     out.with_suffix(".log").write_text(res.stdout + res.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return out
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+def _library(name: str) -> ctypes.CDLL:
+    if name in _libs:
+        return _libs[name]
+    lib = ctypes.CDLL(str(build(name)))
+    if name == "acs_forward":
         lib.acs_forward_launch.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         )
         lib.acs_forward_launch.restype = ctypes.c_int
         lib.acs_forward_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.acs_forward_smem_bytes.restype = ctypes.c_longlong
-        lib.acs_forward_error_string.argtypes = [ctypes.c_int]
-        lib.acs_forward_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    else:
+        lib.acs_decode_fused_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+        )
+        lib.acs_decode_fused_launch.restype = ctypes.c_int
+    err_string = getattr(lib, f"{name}_error_string")
+    err_string.argtypes = [ctypes.c_int]
+    err_string.restype = ctypes.c_char_p
+    _libs[name] = lib
+    return lib
+
+
+def _check_card(dev: torch.device, kernel: str) -> None:
+    if not is_hopper(dev):
+        raise RuntimeError(
+            f"{kernel} is compiled for sm_90a; "
+            f"{torch.cuda.get_device_name(dev)} has compute capability "
+            f"{torch.cuda.get_device_capability(dev)}"
+        )
+
+
+def _check_dtypes(who: str, **dtypes) -> None:
+    for name, dt in dtypes.items():
+        if dt not in _DTYPE_CODES:
+            raise ValueError(f"{who}: {name}={dt}; the kernel takes float32 or bfloat16")
+
+
+def _check_inputs(who: str, **named) -> None:
+    """Each value is (tensor, expected shape, expected dtype)."""
+    for name, (x, shape, dtype) in named.items():
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{who}: {name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+        if x.dtype != dtype:
+            raise ValueError(f"{who}: {name} must be {dtype}, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{who}: {name} must be contiguous")
+
+
+def _one_device(who: str, *tensors) -> torch.device:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{who}: inputs on several devices {devices}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who}: unsupported device {dev}")
+    return dev
+
+
+def _raise_on(lib, name: str, err: int) -> None:
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg}")
 
 
 def acs_forward(
@@ -139,56 +206,40 @@ def acs_forward(
     ``acs_forward_ref``.
     """
     check_semiring(semiring)
-    devices = {blocks.device, lam0.device, w.device}
-    if len(devices) != 1:
-        raise ValueError(f"acs_forward: inputs on several devices {devices}")
+    dev = _one_device("acs_forward", blocks, lam0, w)
     kw = dict(
         n_states=n_states, n_slots=n_slots, carry_dtype=carry_dtype,
         matmul_dtype=matmul_dtype, renorm=renorm,
         pack_survivors=pack_survivors,
     )
-    if blocks.device.type == "cpu":
+    if dev.type == "cpu":
         return acs_forward_ref(blocks, lam0, w, **kw)
-    if blocks.device.type != "cuda":
-        raise ValueError(f"acs_forward: unsupported device {blocks.device}")
-    return _launch(blocks, lam0, w, **kw)
+    return _launch_k1(blocks, lam0, w, **kw)
 
 
 acs_forward.launches = 0  # K1 launches in this process (set to 0 to count a run)
 
 
-def _launch(blocks, lam0, w, *, n_states, n_slots, carry_dtype,
-            matmul_dtype, renorm, pack_survivors):
+def _launch_k1(blocks, lam0, w, *, n_states, n_slots, carry_dtype,
+               matmul_dtype, renorm, pack_survivors):
     dev = blocks.device
-    if not is_hopper(dev):
-        raise RuntimeError(
-            f"K1 is compiled for sm_90a; {torch.cuda.get_device_name(dev)} "
-            f"has compute capability {torch.cuda.get_device_capability(dev)}"
-        )
+    _check_card(dev, "K1")
     S, R = n_states, n_slots
     if R not in SLOT_BITS:
         raise ValueError(f"acs_forward: n_slots must be one of {list(SLOT_BITS)}")
-    for name, dt in (("matmul_dtype", matmul_dtype), ("carry_dtype", carry_dtype)):
-        if dt not in _DTYPE_CODES:
-            raise ValueError(f"acs_forward: {name}={dt}; K1 takes float32 or bfloat16")
+    _check_dtypes("acs_forward", matmul_dtype=matmul_dtype, carry_dtype=carry_dtype)
     if pack_survivors:
         check_packable(S, R)
     if blocks.dim() != 3:
         raise ValueError(f"acs_forward: blocks must be (T, F, B), got {tuple(blocks.shape)}")
     T, F, B = blocks.shape
-    for name, x, shape in (
-        ("blocks", blocks, (T, F, B)),
-        ("lam0", lam0, (F, S)),
-        ("w", w, (B + S, S * R)),
-    ):
-        if tuple(x.shape) != shape:
-            raise ValueError(f"acs_forward: {name} has shape {tuple(x.shape)}, expected {shape}")
-        if x.dtype != torch.float32:
-            raise ValueError(f"acs_forward: {name} must be float32, got {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"acs_forward: {name} must be contiguous")
+    f32 = torch.float32
+    _check_inputs(
+        "acs_forward", blocks=(blocks, (T, F, B), f32),
+        lam0=(lam0, (F, S), f32), w=(w, (B + S, S * R), f32),
+    )
     BF = k1_block_frames(S)
-    lib = _library()
+    lib = _library("acs_forward")
     smem = lib.acs_forward_smem_bytes(B, S, R, BF)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(
@@ -202,18 +253,129 @@ def _launch(blocks, lam0, w, *, n_states, n_slots, carry_dtype,
     )
     if F == 0:
         return lam_out, phi
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
     err = lib.acs_forward_launch(
         blocks.data_ptr(), lam0.data_ptr(), w.data_ptr(),
         lam_out.data_ptr(), phi.data_ptr(),
         T, F, B, S, R, BF,
         _DTYPE_CODES[matmul_dtype], _DTYPE_CODES[carry_dtype],
-        int(renorm), int(pack_survivors), index,
+        int(renorm), int(pack_survivors), _device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(
-            f"K1 launch failed: {lib.acs_forward_error_string(err).decode()}"
-        )
+    _raise_on(lib, "acs_forward", err)
     acs_forward.launches += 1
     return lam_out, phi
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def acs_decode_fused(
+    blocks: torch.Tensor,  # (T, F, B) float32, T a multiple of the tile
+    lam0: torch.Tensor,  # (F, S) float32
+    hist0: torch.Tensor,  # (D, F, W) entry ring, chronological
+    w: torch.Tensor,  # (B+S, S*R) float32
+    *,
+    n_states: int,
+    n_slots: int,
+    k: int,
+    rho: int,
+    time_tile: int,
+    carry_dtype: torch.dtype = torch.float32,
+    matmul_dtype: torch.dtype = torch.float32,
+    renorm: bool = True,
+    pack_survivors: bool = False,
+):
+    """One-pass time-tiled decode.  Returns (bits (T*rho, F) int8,
+    lam (F, S) f32, hist (D, F, W)).
+
+    bits row r is the decision for step r//rho - D of this call (rows of
+    negative steps replay ``hist0``); hist is the exit ring, the newest
+    D steps in time order, int8 (W = S) or packed int32 (W = S//16).
+    The tile is ``min(time_tile, T)`` and must divide both T and D.  On
+    CUDA tensors this launches K2 and adds one to
+    ``acs_decode_fused.launches``; on CPU tensors it runs
+    ``acs_decode_fused_ref``.
+    """
+    dev = _one_device("acs_decode_fused", blocks, lam0, hist0, w)
+    S, R = n_states, n_slots
+    if blocks.dim() != 3 or hist0.dim() != 3:
+        raise ValueError(
+            "acs_decode_fused: blocks must be (T, F, B) and hist0 (D, F, W), "
+            f"got {tuple(blocks.shape)} and {tuple(hist0.shape)}"
+        )
+    T, D = blocks.shape[0], hist0.shape[0]
+    if T <= 0:
+        raise ValueError("acs_decode_fused: needs at least one step")
+    TT = min(time_tile, T)
+    if TT <= 0 or T % TT:
+        raise ValueError(f"acs_decode_fused: T={T} not divisible by time_tile={TT}")
+    if D % TT:
+        raise ValueError(f"acs_decode_fused: depth D={D} steps not divisible by time_tile={TT}")
+    if pack_survivors:
+        check_packable(S, R)
+    W, ring_dt = ring_words(S, pack_survivors), ring_dtype(pack_survivors)
+    if hist0.shape[2] != W or hist0.dtype != ring_dt:
+        raise ValueError(
+            f"acs_decode_fused: hist0 {tuple(hist0.shape)}/{hist0.dtype} does "
+            f"not match pack_survivors={pack_survivors} (want (*, F, {W}) {ring_dt})"
+        )
+    kw = dict(
+        n_states=S, n_slots=R, k=k, rho=rho, time_tile=TT,
+        carry_dtype=carry_dtype, matmul_dtype=matmul_dtype, renorm=renorm,
+        pack_survivors=pack_survivors,
+    )
+    if dev.type == "cpu":
+        return acs_decode_fused_ref(blocks, lam0, hist0, w, **kw)
+    return _launch_k2(blocks, lam0, hist0, w, **kw)
+
+
+acs_decode_fused.launches = 0  # K2 launches in this process (set to 0 to count a run)
+
+
+def _launch_k2(blocks, lam0, hist0, w, *, n_states, n_slots, k, rho,
+               time_tile, carry_dtype, matmul_dtype, renorm, pack_survivors):
+    dev = blocks.device
+    _check_card(dev, "K2")
+    S, R, TT = n_states, n_slots, time_tile
+    if R not in SLOT_BITS or R != 1 << rho:
+        raise ValueError(f"acs_decode_fused: n_slots={R} must be 2**rho, rho in 1..4")
+    _check_dtypes("acs_decode_fused", matmul_dtype=matmul_dtype, carry_dtype=carry_dtype)
+    T, F, B = blocks.shape
+    D, W = hist0.shape[0], hist0.shape[2]
+    f32 = torch.float32
+    _check_inputs(
+        "acs_decode_fused", blocks=(blocks, (T, F, B), f32),
+        lam0=(lam0, (F, S), f32), hist0=(hist0, (D, F, W), hist0.dtype),
+        w=(w, (B + S, S * R), f32),
+    )
+    ring_frame = (D + TT) * W * hist0.element_size()
+    BF, in_smem = k2_block_frames(S, B, R, ring_frame)
+    smem = k2_smem_bytes(B, S, R, BF, ring_frame if in_smem else 0)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"acs_decode_fused: W and the staged blocks need {smem} bytes of "
+            f"shared memory, more than a block's {SMEM_LIMIT_BYTES}"
+        )
+    bits = torch.empty((T * rho, F), dtype=torch.int8, device=dev)
+    lam_out = torch.empty((F, S), dtype=torch.float32, device=dev)
+    hist_out = torch.empty((D, F, W), dtype=hist0.dtype, device=dev)
+    if F == 0:
+        return bits, lam_out, hist_out
+    ring = None
+    if not in_smem:  # one ring per frame of every block, in device memory
+        grid = -(-F // BF)
+        ring = torch.empty(grid * BF * ring_frame, dtype=torch.uint8, device=dev)
+    lib = _library("acs_decode_fused")
+    err = lib.acs_decode_fused_launch(
+        blocks.data_ptr(), lam0.data_ptr(), hist0.data_ptr(), w.data_ptr(),
+        bits.data_ptr(), lam_out.data_ptr(), hist_out.data_ptr(),
+        None if ring is None else ring.data_ptr(),
+        T, F, B, S, R, BF, D, TT, k, rho,
+        _DTYPE_CODES[matmul_dtype], _DTYPE_CODES[carry_dtype],
+        int(renorm), int(pack_survivors), smem, _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, "acs_decode_fused", err)
+    acs_decode_fused.launches += 1
+    return bits, lam_out, hist_out

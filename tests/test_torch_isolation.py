@@ -133,12 +133,23 @@ def test_later_slices_refuse():
         ViterbiDecoder.from_standard("wifi-11a-r34", device="cpu").decode_batch(
             torch.zeros(1, 8, 2)
         )
+    # streaming is ported; its time-parallel windows and punctured
+    # streams are not
+    from repro_torch.core import TiledDecoderConfig, tiled_decode_stream
+
+    with pytest.raises(NotImplementedError, match="time-parallel"):
+        tiled_decode_stream(
+            torch.zeros(2048, 2), CODE_K7_CCSDS,
+            TiledDecoderConfig(frame_len=1024, overlap=32),
+            time_parallel=True, device="cpu",
+        )
+    with pytest.raises(NotImplementedError, match="depuncturing"):
+        ViterbiDecoder.from_standard(
+            "wifi-11a-r34", device="cpu"
+        ).decode_stream_chunked(torch.zeros(1, 8, 2))
     for call in (
         lambda: dec.decode_tailbiting(llrs),
         lambda: dec.decode_soft(llrs),
-        lambda: dec.decode_stream_tiled(llrs[0]),
-        lambda: dec.init_stream_state(2),
-        lambda: dec.decode_stream_chunked(llrs),
     ):
         with pytest.raises(NotImplementedError):
             call()
@@ -156,8 +167,20 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
+@pytest.mark.parametrize("name", ["acs_forward", "acs_decode_fused"])
+def test_every_kernel_build_raises_without_nvcc(monkeypatch, tmp_path, name):
+    from repro_torch.kernels import viterbi_acs
+
+    assert name in viterbi_acs.KERNELS
+    monkeypatch.setattr(viterbi_acs, "_find_nvcc", lambda: None)
+    monkeypatch.setattr(viterbi_acs, "BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match=f"nvcc not found.*{name}"):
+        viterbi_acs.build(name)
+    assert not list(tmp_path.iterdir())
+
+
 def test_kernel_wrapper_refuses_other_devices():
-    from repro_torch.kernels import acs_forward
+    from repro_torch.kernels import acs_decode_fused, acs_forward
 
     meta = torch.zeros(4, 2, 4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -169,4 +192,16 @@ def test_kernel_wrapper_refuses_other_devices():
         acs_forward(
             meta, torch.zeros(2, 64), torch.zeros(68, 256),
             n_states=64, n_slots=4,
+        )
+    ring = torch.zeros(8, 2, 4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        acs_decode_fused(
+            meta, torch.zeros(2, 64, device="meta"), ring,
+            torch.zeros(68, 256, device="meta"), n_states=64, n_slots=4,
+            k=7, rho=2, time_tile=4, pack_survivors=True,
+        )
+    with pytest.raises(ValueError, match="several devices"):
+        acs_decode_fused(
+            meta, torch.zeros(2, 64), ring, torch.zeros(68, 256),
+            n_states=64, n_slots=4, k=7, rho=2, time_tile=4,
         )

@@ -1,11 +1,13 @@
-"""K1 (``repro_torch.kernels.viterbi_acs.acs_forward``) against the
-reference's Pallas kernel (``repro.kernels.ops.viterbi_forward``), which
-runs in interpret mode on the CPU as the reference's own tests run it.
+"""K1 (``repro_torch.kernels.viterbi_acs.acs_forward``) and K2
+(``acs_decode_fused``) against the reference's Pallas kernels
+(``repro.kernels.ops.viterbi_forward`` and ``viterbi_decode_fused``),
+which run in interpret mode on the CPU as the reference's own tests run
+them.
 
-On CPU tensors ``acs_forward`` runs its plain version, so these tests
-hold the kernel's contract; the CUDA kernel is held against the plain
-version on the card by ``test_cuda_kernel_matches_plain`` (marked
-``cuda``) and by ``chip_smoke.py``.
+On CPU tensors the wrappers run their plain versions, so these tests
+hold the kernels' contracts; the CUDA kernels are held against the plain
+versions on the card by the tests marked ``cuda`` and by
+``chip_smoke.py``.
 
 Tolerances: with integer-valued LLRs every f32 sum is exact in any
 order, so Lambda and phi must be bit-identical.  With Gaussian LLRs the
@@ -206,3 +208,151 @@ def test_cuda_kernel_matches_plain():
             lam_r, phi_r = acs_forward_ref(*args, **kw)
             torch.cuda.synchronize()
             assert torch.equal(lam_k, lam_r) and torch.equal(phi_k, phi_r)
+
+
+# -- K2: the one-pass time-tiled decode ---------------------------------
+
+def _k2_inputs(F, T, D, pack, seed):
+    """Integer (T, F, 4) blocks, a one-hot start metric and an entry ring
+    of random survivors (whole int32 words when packed)."""
+    from repro_torch.core.viterbi import NEG
+
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(-8, 9, (T, F, 4)).astype(np.float32)
+    lam0 = np.full((F, 64), NEG, np.float32)
+    lam0[:, 0] = 0.0
+    if pack:
+        hist0 = rng.integers(-2**31, 2**31, (D, F, 4)).astype(np.int32)
+    else:
+        hist0 = rng.integers(0, 4, (D, F, 64)).astype(np.int8)
+    return blocks, lam0, hist0
+
+
+@pytest.mark.parametrize("depth_tiles", [2, 4])
+@pytest.mark.parametrize("pack", [False, True], ids=["int8", "packed"])
+@pytest.mark.parametrize("renorm", [True, False], ids=["renorm", "raw"])
+@pytest.mark.parametrize("mm", DT, ids=["mmf32", "mmbf16"])
+def test_k2_bit_identical_to_reference(mm, renorm, pack, depth_tiles):
+    """bits, exit metrics and exit ring, with an entry ring carried in."""
+    import jax.numpy as jnp
+    from repro.core.trellis import build_acs_tables as ref_tables
+    from repro.core.viterbi import AcsPrecision as RefPrecision
+    from repro.kernels.ops import viterbi_decode_fused as ref_fused
+
+    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.core.viterbi import AcsPrecision
+    from repro_torch.kernels import viterbi_decode_fused
+
+    TT = 8
+    blocks, lam0, hist0 = _k2_inputs(5, 4 * TT, depth_tiles * TT, pack, 7)
+    mm_t, mm_j = _dtypes(mm)
+    ref = ref_fused(
+        jnp.asarray(blocks), jnp.asarray(lam0), jnp.asarray(hist0),
+        ref_tables(_ref_spec(CODE_K7_CCSDS), 2),
+        RefPrecision(matmul_dtype=mm_j, renorm=renorm),
+        time_tile=TT, pack_survivors=pack,
+    )
+    got = viterbi_decode_fused(
+        torch.from_numpy(blocks), torch.from_numpy(lam0),
+        torch.from_numpy(hist0), build_acs_tables(CODE_K7_CCSDS, 2),
+        AcsPrecision(matmul_dtype=mm_t, renorm=renorm),
+        time_tile=TT, pack_survivors=pack,
+    )
+    for r, g in zip(ref, got):
+        assert g.dtype == {np.dtype(np.int8): torch.int8,
+                           np.dtype(np.int32): torch.int32,
+                           np.dtype(np.float32): torch.float32}[np.asarray(r).dtype]
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def _ref_spec(spec):
+    from repro.core.trellis import CodeSpec as RefSpec
+
+    return RefSpec(k=spec.k, polys=spec.polys)
+
+
+def test_k2_refuses_what_the_reference_refuses():
+    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.kernels import acs_decode_fused
+
+    tb = build_acs_tables(CODE_K7_CCSDS, 2)
+    w = torch.as_tensor(tb.fused_w)
+    kw = dict(n_states=64, n_slots=4, k=7, rho=2, time_tile=8)
+    blocks, lam0 = torch.zeros(24, 3, 4), torch.zeros(3, 64)
+    ring8 = torch.zeros(16, 3, 64, dtype=torch.int8)
+    with pytest.raises(ValueError, match="not divisible by time_tile"):
+        acs_decode_fused(blocks[:20], lam0, ring8, w, **kw)
+    with pytest.raises(ValueError, match="depth D=12"):
+        acs_decode_fused(blocks, lam0, ring8[:12], w, **kw)
+    with pytest.raises(ValueError, match="does not match"):
+        acs_decode_fused(blocks, lam0, ring8, w, pack_survivors=True, **kw)
+    with pytest.raises(ValueError, match="does not match"):
+        acs_decode_fused(blocks, lam0, ring8.to(torch.int32), w, **kw)
+    with pytest.raises(ValueError, match="at least one step"):
+        acs_decode_fused(blocks[:0], lam0, ring8, w, **kw)
+    tb3 = build_acs_tables(CODE_K7_CCSDS, 3)
+    with pytest.raises(ValueError, match="rho <= 2"):
+        acs_decode_fused(
+            torch.zeros(8, 3, 6), lam0, torch.zeros(8, 3, 4, dtype=torch.int32),
+            torch.as_tensor(tb3.fused_w), n_states=64, n_slots=8, k=7, rho=3,
+            time_tile=8, pack_survivors=True,
+        )
+    # a tile longer than the call is cut to the call, as in the reference
+    bits, lam, hist = acs_decode_fused(blocks[:8], lam0, ring8, w, **dict(kw, time_tile=32))
+    assert bits.shape == (16, 3) and lam.shape == (3, 64) and hist.shape == ring8.shape
+
+
+@pytest.mark.parametrize("n_states,pack,depth,want", [
+    (64, True, 2560, (3, True)),  # default depth, packed: 3 frames fit
+    (64, True, 256, (4, True)),
+    (64, False, 256, (4, True)),
+    (64, False, 2560, (4, False)),  # 166 KB a frame: the ring goes to HBM
+    (64, True, 30720, (4, False)),
+    (4, False, 256, (64, True)),
+    (16, True, 20000, (2, True)),  # whole warps: two 16-state frames
+    (16, True, 60000, (16, False)),
+])
+def test_k2_block_frames(n_states, pack, depth, want):
+    """As many frames as fit beside W, whole warps, else the ring in
+    device memory at K1's frame count."""
+    from repro_torch.core.kernel_geometry import (
+        SMEM_LIMIT_BYTES, k1_block_frames, k2_block_frames, k2_smem_bytes,
+        ring_words,
+    )
+
+    ring = (depth + 32) * ring_words(n_states, pack) * (4 if pack else 1)
+    bf, in_smem = k2_block_frames(n_states, 4, 4, ring)
+    assert (bf, in_smem) == want
+    assert (bf * n_states) % 32 == 0 and bf <= k1_block_frames(n_states)
+    if in_smem:
+        assert k2_smem_bytes(4, n_states, 4, bf, ring) <= SMEM_LIMIT_BYTES
+        if bf < k1_block_frames(n_states):
+            assert k2_smem_bytes(4, n_states, 4, bf + 1, ring) > SMEM_LIMIT_BYTES
+    assert k2_smem_bytes(4, 64, 4, 3, 41472) == 72736 + 3 * 41472
+
+
+@pytest.mark.cuda
+def test_cuda_k2_matches_plain():
+    """K2 against its plain version on the card, bit for bit on integer
+    LLRs, with the ring in shared memory and in device memory, and at
+    the streaming path's geometry: the default depth of 2560 steps,
+    packed, 3 frames a block and a last block of 2 live frames (needs an
+    H100 and nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.kernels import acs_decode_fused
+    from repro_torch.kernels.ref import acs_decode_fused_ref
+
+    dev = torch.device("cuda")
+    w = torch.as_tensor(build_acs_tables(CODE_K7_CCSDS, 2).fused_w, device=dev)
+    for F, D, pack in ((37, 64, True), (37, 64, False), (9, 2560, False),
+                       (512, 2560, True)):
+        blocks, lam0, hist0 = _k2_inputs(F, 128, D, pack, 8)
+        args = [torch.from_numpy(x).to(dev) for x in (blocks, lam0, hist0)]
+        kw = dict(n_states=64, n_slots=4, k=7, rho=2, time_tile=32,
+                  pack_survivors=pack)
+        got = acs_decode_fused(*args, w, **kw)
+        want = acs_decode_fused_ref(*args, w, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, r) for g, r in zip(got, want))
