@@ -20,7 +20,8 @@ which ends the run with a non-zero exit when it fails:
                at f32 precision.  AWGN at Eb/N0 = 4 dB must decode to
                BER <= 1e-4 with K1 launched on that run; quantised
                integer LLRs must decode the first 8 frames bit for bit as
-               the plain path (``use_kernel=False``) does; a small input
+               the plain sequential path (``use_kernel=False``,
+               ``time_parallel=False``) does; a small input
                must match the scalar oracle.  Times (CUDA events, after a
                warm-up): K1, the traceback, decode_batch wall time and
                decoded Mb/s, K1's plain version and a torch.matmul
@@ -50,7 +51,33 @@ which ends the run with a non-zero exit when it fails:
                tiled path's;
   8. multi   — ``decode_chunk_multi``: two sessions at different stream
                positions emit on the card what each emits alone, and
-               reach the same metrics, ring and position.
+               reach the same metrics, ring and position;
+  9. timepar — K3 (``transfer_matrix``) against its plain version, bit
+               for bit on quantised integer LLRs, at F=16 x T=4096 radix
+               steps, tile 64, over f32/bf16 matmul x split_dot on/off x
+               f32/bf16 carry, at a frame count that is not a multiple of
+               K3's block, and at the latency shape below; then the
+               latency shape itself (cell decode_512k_f16): ccsds-k7,
+               rho=2, 16 zero-terminated frames x 2^19 stages through
+               ``decode_batch(time_parallel=True)``: dispatch label
+               ``time_parallel``, one K3 and one K1 launch, BER <= 1e-4
+               at 4 dB, the bits that differ from the sequential path
+               printed, and the sequential path's bits on the integer
+               LLRs.  Times: K3, the prefix and suffix scans, the
+               recovery K1, the traceback, the wall time (median of 3)
+               and decoded Mb/s, the sequential decode_batch once, K3's
+               plain version; the budget sweep of
+               ``backend.device_underfill_rows`` (decode_batch at 2^16
+               stages, time_parallel False and True, F in {1, 4, 16, 64,
+               256}, 3 samples each), with the bits in which the two paths
+               differ at each F on the AWGN input and on its integer copy,
+               and whether each difference is a path-metric tie; and which
+               path ``decode_batch`` picks on auto at F=16 and at the
+               decode_64k shape.
+
+Every kernel's ``bound_ms`` counts the operations its ACS step needs (the
+distinct branch metrics once, then an add and a compare per slot), not the
+fused matmul's dense multiply-adds: see ``acs_bound``.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -72,6 +99,9 @@ F_SWEEP, T_SWEEP = 512, 1024
 D_SWEEP, TT_SWEEP = 256, 32  # K2 sweep: ring depth and time tile, in steps
 CHUNK_LEN = 4096  # streaming chunk, in stages
 N_TILED = 2**20  # decode_1m: one stream of 2^20 stages
+F_TP, N_TP = 16, 2**19  # decode_512k_f16: the time-parallel latency shape
+T_K3, TT_K3 = 4096, 64  # K3 sweep: radix steps and transfer tile
+SWEEP_FRAMES = (1, 4, 16, 64, 256)  # budget sweep at N_FULL stages
 EBN0_DB, BER_LIMIT = 4.0, 1e-4
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet) at the 700 W limit
@@ -108,6 +138,49 @@ def host_ms(fn):
     return res, (time.perf_counter() - t0) * 1e3
 
 
+def acs_bound(w, n_llr, n_states, n_slots, frame_steps, entries, renorm,
+              bytes_moved, extra_ops=0):
+    """(bound_ms, bound_by) of ``frame_steps`` ACS steps of one frame each,
+    from the operations the step needs, not those the fused matmul does:
+    the distinct branch metrics of W's LLR half once (a multiply-add, 2
+    operations, per nonzero weight); then, for each of ``entries`` rows
+    and each state, the add of the one predecessor metric for each of its
+    ``n_slots`` slots and ``n_slots - 1`` compares (the slot max, whose
+    argmax comes with them); with ``renorm``, the frame max and the
+    subtraction (2S - 1).  W's metric half is one-hot (checked here): its
+    S - 1 zero products per potential add +-0 and are not counted."""
+    S, R = n_states, n_slots
+    pred = w[n_llr:]
+    if not (torch.equal((pred != 0).sum(dim=0), torch.ones_like(pred[0], dtype=torch.int64))
+            and torch.equal(pred.sum(dim=0), torch.ones_like(pred[0]))):
+        fail("W's metric half is not one-hot: the operation count does not hold")
+    branch = torch.unique(w[:n_llr].T, dim=0)
+    per_step = (2 * int((branch != 0).sum()) + entries * S * (2 * R - 1)
+                + ((2 * S - 1) if renorm else 0))
+    t_ops = (frame_steps * per_step + extra_ops) / PEAK_F32_FLOPS * 1e3
+    t_bytes = bytes_moved / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def path_metric_ties(llrs, bits_a, bits_b, spec):
+    """Where two decodes of the same LLRs differ: (frames that differ,
+    largest |metric_a - metric_b| over them, largest |metric|), the metric
+    being the float64 correlation of the LLRs with each decode's
+    re-encoded BPSK symbols, which an ML decoder maximises.  Equal
+    metrics mean both decodes are ML paths (a tie)."""
+    from repro_torch.core import conv_encode_torch
+    from repro_torch.core.channel import bpsk
+
+    rows = (bits_a != bits_b).any(dim=1).nonzero()[:, 0]
+    if rows.numel() == 0:
+        return 0, 0.0, 0.0
+    x = llrs[rows].double()
+    ma = (x * bpsk(conv_encode_torch(bits_a[rows], spec)).double()).sum(dim=(1, 2))
+    mb = (x * bpsk(conv_encode_torch(bits_b[rows], spec)).double()).sum(dim=(1, 2))
+    return (rows.numel(), (ma - mb).abs().max().item(),
+            torch.maximum(ma.abs(), mb.abs()).max().item())
+
+
 def library_forward(blocks, lam0, w, n_states, n_slots):
     """Yardstick only: the K1 step as stock PyTorch calls (torch.matmul,
     then torch.max for the slot max and argmax), one step at a time."""
@@ -131,7 +204,235 @@ def k2_random_ring(gen, D, F, pack, dev):
                          dtype=torch.int8)
 
 
+def dispatched(fn):
+    """(result of ``fn``, {path: count}) of the decoder dispatches it made."""
+    from repro_torch.obs import MetricsRegistry, set_default_registry
+
+    reg = MetricsRegistry()
+    old = set_default_registry(reg)
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        set_default_registry(old)
+    return out, {labels["path"]: int(n) for labels, n
+                 in reg.counter("decoder_dispatch_total").series()}
+
+
+def time_parallel_phase(decoder, llrs, gen, tables, w):
+    """Phase 9: K3 against its plain version, the time-parallel
+    decode_batch at the decode_512k_f16 shape, its stage times, the
+    underfill budget sweep and the auto-selection; returns K3's row of
+    the kernels line."""
+    from repro_torch.core import conv_encode_torch
+    from repro_torch.core import timeparallel as tp
+    from repro_torch.core.backend import device_underfill_rows
+    from repro_torch.core.channel import awgn, bpsk, llr
+    from repro_torch.core.kernel_geometry import k3_block_frames
+    from repro_torch.core.viterbi import blocks_from_llrs, init_metric, traceback
+    from repro_torch.kernels import viterbi_acs
+    from repro_torch.kernels.ref import transfer_matrix_ref
+
+    t_phase = time.perf_counter()
+    dev = llrs.device
+    spec = decoder.spec
+    S, R, B = tables.n_states, tables.n_slots, tables.llr_block
+    k3, k1 = viterbi_acs.transfer_matrix, viterbi_acs.acs_forward
+    k3_err = 0.0
+
+    def k3_case(label, blocks, **kw):
+        nonlocal k3_err
+        kw = dict(n_states=S, n_slots=R, **kw)
+        got = k3(blocks, w, **kw)
+        want = transfer_matrix_ref(blocks, w, **kw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        k3_err = max(k3_err, err)
+        same = torch.equal(got, want)
+        bf = k3_block_frames(S, B, R, 0, blocks.shape[1])
+        print(f"K3 vs plain {label} (F={blocks.shape[1]} T={blocks.shape[0]} "
+              f"TT={kw['transfer_tile']}; {bf} frames a block): "
+              f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
+        if not same:
+            fail(f"K3 differs from its plain version ({label}), max |M| diff {err}")
+        return got
+
+    blocks = torch.randint(
+        -8, 9, (T_K3, F_TP, B), generator=gen, device=dev
+    ).float()
+    for mm in (torch.float32, torch.bfloat16):
+        for split in (False, True):
+            for carry in (torch.float32, torch.bfloat16):
+                k3_case(f"mm={str(mm)[6:]} split_dot={split} "
+                        f"carry={str(carry)[6:]}", blocks,
+                        transfer_tile=TT_K3, matmul_dtype=mm,
+                        split_dot=split, carry_dtype=carry)
+    k3_case("ragged F", blocks[:, :F_TP - 3].contiguous(), transfer_tile=TT_K3)
+
+    # the latency shape: 16 zero-terminated frames x 2^19 stages
+    n_info = N_TP - (spec.k - 1)
+    info = torch.randint(0, 2, (F_TP, n_info), generator=gen, device=dev)
+    msg = torch.cat(
+        [info, torch.zeros(F_TP, spec.k - 1, dtype=info.dtype, device=dev)],
+        dim=1,
+    )
+    llrs_tp = llr(awgn(gen, bpsk(conv_encode_torch(msg, spec)), EBN0_DB,
+                       spec.rate), EBN0_DB, spec.rate)
+    quant = torch.clamp(torch.round(llrs_tp), -16, 16)
+    T = N_TP // 2
+    tt = decoder._time_parallel_tile(F_TP, T, True)
+    print(f"decode_512k_f16 input: llrs {tuple(llrs_tp.shape)} "
+          f"{llrs_tp.numel() * 4 / 2**20:.0f} MiB; transfer tile {tt} steps, "
+          f"{T // tt} tiles", flush=True)
+
+    k3.launches = k1.launches = 0
+    bits, paths = dispatched(lambda: decoder.decode_batch(llrs_tp, time_parallel=True))
+    k3_launches, k1_launches = k3.launches, k1.launches
+    print(f"decode_batch(time_parallel=True): dispatch {paths}; "
+          f"K3 launches {k3_launches}, K1 launches {k1_launches}")
+    if paths != {"time_parallel": 1}:
+        fail(f"decode_batch(time_parallel=True) dispatched {paths}")
+    if (k3_launches, k1_launches) != (1, 1):
+        fail(f"the time-parallel decode launched K3 {k3_launches} and K1 "
+             f"{k1_launches} times, not once each")
+    if bits.shape != (F_TP, N_TP) or bits.device.type != "cuda":
+        fail(f"time-parallel decode_batch returned {tuple(bits.shape)} on {bits.device}")
+    errors = int((bits[:, :n_info] != info).sum())
+    ber = errors / (F_TP * n_info)
+    print(f"time-parallel AWGN Eb/N0={EBN0_DB} dB: {errors} bit errors in "
+          f"{F_TP * n_info} bits, BER {ber:.3e} (limit {BER_LIMIT:g})")
+    if not ber <= BER_LIMIT:
+        fail(f"time-parallel BER {ber:.3e} above {BER_LIMIT:g}")
+    bits_seq, seq_ms = host_ms(
+        lambda: decoder.decode_batch(llrs_tp, time_parallel=False))
+    print(f"AWGN: {int((bits != bits_seq).sum())} bits differ from the "
+          "sequential path")
+    del bits_seq
+    bits_q = decoder.decode_batch(quant, time_parallel=True)
+    bits_qs = decoder.decode_batch(quant, time_parallel=False)
+    if not torch.equal(bits_q, bits_qs):
+        fail("integer LLRs: the time-parallel and the sequential path decode "
+             f"differently ({int((bits_q != bits_qs).sum())} bits)")
+    print("integer LLRs: time-parallel bits == sequential bits")
+    del bits_q, bits_qs
+    walls = sorted(
+        host_ms(lambda: decoder.decode_batch(llrs_tp, time_parallel=True))[1]
+        for _ in range(3)
+    )
+    wall = walls[1]
+
+    # the stages, on the integer LLRs, with CUDA events
+    blocks = blocks_from_llrs(quant, 2).contiguous()
+    prec = decoder.precision
+    kw = dict(n_states=S, n_slots=R, transfer_tile=tt)
+    k3_ms = cuda_ms(lambda: k3(blocks, w, **kw))
+    plain_ms = cuda_ms(lambda: transfer_matrix_ref(blocks, w, **kw),
+                       warmup=lambda: transfer_matrix_ref(blocks[:tt], w, **kw))
+    m = k3_case("decode_512k_f16 shape", blocks, transfer_tile=tt)
+    lam0 = init_metric(F_TP, S, 0, device=dev)
+    prefix_ms = cuda_ms(lambda: tp.prefix_entry_metrics(m, lam0))
+    entry = tp.prefix_entry_metrics(m, lam0)
+    recovery_ms = cuda_ms(lambda: tp._recovery(blocks, entry, tables, prec, tt, True, False))
+    lam_fin, phis = tp._recovery(blocks, entry, tables, prec, tt, True, False)
+    fs = lam_fin[-1].argmax(dim=-1)
+    suffix_ms = cuda_ms(lambda: tp._suffix_to_final(m, fs))
+    starts = (entry + tp._suffix_to_final(m, fs)).argmax(dim=-1)
+    exits = torch.cat([starts[1:], fs[None]], dim=0).reshape(-1)
+    tb_ms = cuda_ms(lambda: traceback(phis, exits, tables),
+                    warmup=lambda: traceback(phis[:8], exits, tables))
+    del phis, blocks, lam_fin
+    print(f"time K3 transfer_matrix: {k3_ms:.3f} ms (F={F_TP} x T={T} steps, TT={tt})")
+    print(f"time prefix scan (prefix_entry_metrics): {prefix_ms:.3f} ms")
+    print(f"time suffix scan (_suffix_to_final): {suffix_ms:.3f} ms")
+    print(f"time recovery (tile layout + K1 over {T // tt * F_TP} frames x {tt} steps): "
+          f"{recovery_ms:.3f} ms")
+    print(f"time time-parallel traceback ({tt} steps x {T // tt * F_TP} rows): {tb_ms:.3f} ms")
+    print(f"time time-parallel decode_batch wall: {wall:.3f} ms (median of "
+          f"{', '.join(f'{x:.3f}' for x in walls)}; K3 {k3_ms / wall:.1%})")
+    print(f"time-parallel decoded: {F_TP * N_TP / wall / 1e3:.3f} Mb/s")
+    print(f"sequential decode_batch at this shape (yardstick, one sample): "
+          f"{seq_ms:.3f} ms, {F_TP * N_TP / seq_ms / 1e3:.3f} Mb/s")
+    print(f"time K3 plain version (transfer_matrix_ref): {plain_ms:.3f} ms")
+    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    # K3's bound: the ACS step with S entry rows and no renorm, plus each
+    # (tile, frame)'s final max and subtraction over S x S
+    k3_bound, k3_bound_by = acs_bound(
+        w, B, S, R, F_TP * T, S, False,
+        quant.numel() * 4 + w.numel() * 4 + m.numel() * 4,
+        extra_ops=m.numel() * 2,
+    )
+    print(f"K3 bound: {k3_bound:.3f} ms ({k3_bound_by}); K3 at "
+          f"{k3_bound / k3_ms:.2%} of it")
+    del m, entry, quant, llrs_tp
+
+    # the budget of device_underfill_rows: time-parallel against sequential
+    # decode_batch at N_FULL stages, in turns, 3 samples each
+    budget = 0
+    decoder.decode_batch(llrs[:1], time_parallel=True)  # warm-up at this length
+    for F in SWEEP_FRAMES:
+        x = llrs[:F]
+        tps, seqs = [], []
+        for _ in range(3):
+            b_tp, ms = host_ms(lambda: decoder.decode_batch(x, time_parallel=True))
+            tps.append(ms)
+            b_seq, ms = host_ms(lambda: decoder.decode_batch(x, time_parallel=False))
+            seqs.append(ms)
+        faster = all(a < b for a, b in zip(tps, seqs))
+        if faster:
+            budget = max(budget, F * S)
+        print(f"budget sweep F={F} (F*S={F * S}) x {N_FULL} stages: "
+              f"time-parallel ms {', '.join(f'{t:.3f}' for t in tps)}; "
+              f"sequential ms {', '.join(f'{t:.3f}' for t in seqs)}; "
+              f"time-parallel faster in every sample: {faster}", flush=True)
+        # the bits of the two paths, on the AWGN input and on its
+        # integer-quantised copy; where they differ, whether by a tie
+        xq = torch.clamp(torch.round(x), -16, 16)
+        b_qtp = decoder.decode_batch(xq, time_parallel=True)
+        b_qseq = decoder.decode_batch(xq, time_parallel=False)
+        for label, xin, a, b in (("AWGN", x, b_tp, b_seq),
+                                 ("integer", xq, b_qtp, b_qseq)):
+            rows, gap, mag = path_metric_ties(xin, a, b, spec)
+            print(f"  F={F} {label} LLRs: {int((a != b).sum())} bits in "
+                  f"{rows} frames differ from the sequential path"
+                  + (f"; largest path-metric gap {gap!r} at |metric| up to "
+                     f"{mag!r} (0.0 is a tie: both are ML paths)" if rows else ""))
+        del b_tp, b_seq, b_qtp, b_qseq, xq
+    rows = device_underfill_rows(dev)
+    print(f"budget from this sweep: {budget} rows; device_underfill_rows(cuda) "
+          f"= {rows} ({'agrees' if budget == rows else 'differs'})")
+
+    # auto-selection: the path the budget implies at F_TP, batch at decode_64k
+    want = "time_parallel" if F_TP * S <= rows else "batch"
+    _, paths = dispatched(lambda: decoder.decode_batch(llrs[:F_TP]))
+    _, paths_64k = dispatched(lambda: decoder.decode_batch(llrs))
+    print(f"auto-selection: F={F_TP} x {N_FULL} stages dispatches {paths} "
+          f"(budget implies {want}); decode_64k dispatches {paths_64k}")
+    if paths != {want: 1}:
+        fail(f"auto-selection at F={F_TP} dispatched {paths}, not {want}")
+    if paths_64k != {"batch": 1}:
+        fail(f"decode_64k dispatched {paths_64k}, not batch")
+    print(f"phase 9 (timepar) took {time.perf_counter() - t_phase:.1f} s")
+
+    return {
+        "name": "K3 transfer_matrix",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/transfer_matrix.cu",
+        "replaces": "src/repro/kernels/viterbi_acs.py:624",
+        "launches": k3_launches,
+        "max_abs_err": k3_err,
+        "ms": k3_ms,
+        "shape": f"decode_batch(time_parallel=True): F={F_TP} x {N_TP} stages, "
+                 f"T={T} steps, TT={tt}, N={T // tt}",
+        "plain_ms": plain_ms,
+        "bound_ms": k3_bound,
+        "bound_by": k3_bound_by,
+        "library_ms": None,
+    }
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -253,7 +554,7 @@ def main() -> None:
     quant = torch.clamp(torch.round(llrs), -16, 16)  # quantised integer LLRs
     bits_q = decoder.decode_batch(quant)
     plain = ViterbiDecoder.from_standard("ccsds-k7", use_kernel=False)
-    bits_plain = plain.decode_batch(quant[:8])
+    bits_plain = plain.decode_batch(quant[:8], time_parallel=False)
     torch.cuda.synchronize()
     if not torch.equal(bits_q[:8], bits_plain):
         fail("integer LLRs: K1 path and plain path decode frames 0-7 differently")
@@ -315,11 +616,13 @@ def main() -> None:
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    T = N_FULL // 2
-    flops = 2 * F_FULL * (B + S) * S * R * T
-    bytes_moved = (blocks.numel() * 4 + lam0.numel() * 4 + w.numel() * 4
-                   + phi_k.numel() * phi_k.element_size() + lam_k.numel() * 4)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, bytes_moved / PEAK_HBM_BYTES * 1e3
+    k1_bound, k1_bound_by = acs_bound(
+        w, B, S, R, F_FULL * (N_FULL // 2), 1, True,
+        blocks.numel() * 4 + lam0.numel() * 4 + w.numel() * 4
+        + phi_k.numel() * phi_k.element_size() + lam_k.numel() * 4,
+    )
+    print(f"K1 bound: {k1_bound:.3f} ms ({k1_bound_by}); K1 at "
+          f"{k1_bound / k1_ms:.2%} of it")
     del phi_k
     k1_row = {
         "name": "K1 acs_forward",
@@ -330,8 +633,8 @@ def main() -> None:
         "max_abs_err": max_abs_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": k1_bound,
+        "bound_by": k1_bound_by,
         "library_ms": lib_ms,
     }
 
@@ -495,14 +798,17 @@ def main() -> None:
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # K2's bound over the stream: K1's ACS operations; bytes: LLRs in,
-    # bits out, and each launch's entry and exit ring
-    k2_flops = 2 * F_FULL * (B + S) * S * R * (N_FULL // 2)
+    # K2's bound over the stream: K1's ACS step with renorm (the sliding
+    # traceback's integer work is not counted); bytes: LLRs in, bits out,
+    # and each launch's entry and exit ring
     ring_bytes = hist_end.numel() * hist_end.element_size()
-    k2_bytes = (llrs.numel() * 4 + F_FULL * N_FULL  # int8 bits
-                + n_chunks * 2 * ring_bytes + n_chunks * 2 * lam_end.numel() * 4)
-    k2_t_ops = k2_flops / PEAK_F32_FLOPS * 1e3
-    k2_t_bytes = k2_bytes / PEAK_HBM_BYTES * 1e3
+    k2_bound, k2_bound_by = acs_bound(
+        w, B, S, R, F_FULL * (N_FULL // 2), 1, True,
+        llrs.numel() * 4 + F_FULL * N_FULL  # int8 bits
+        + n_chunks * 2 * ring_bytes + n_chunks * 2 * lam_end.numel() * 4,
+    )
+    print(f"K2 bound over the stream: {k2_bound:.3f} ms ({k2_bound_by}); "
+          f"K2 at {k2_bound / k2_stream_ms:.2%} of it")
     del hist_end, blocks_s
 
     # -- 7. tiled streaming at the decode_1m stream length ----------------
@@ -563,6 +869,9 @@ def main() -> None:
     print(f"decode_chunk_multi: two sessions at positions 512 and 0 (steps) "
           f"emit what each emits alone, over 2 rounds (K2 launches {k2.launches})")
 
+    k3_row = time_parallel_phase(decoder, llrs, gen, tables, w)
+    print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s")
+
     print(json.dumps({"kernels": [k1_row, {
         "name": "K2 acs_decode_fused",
         "route": "cuda",
@@ -576,10 +885,10 @@ def main() -> None:
         "plain_ms": k2_plain_ms,
         "plain_shape": sweep_shape,
         "ms_at_plain_shape": k2_sweep_ms,
-        "bound_ms": max(k2_t_ops, k2_t_bytes),
-        "bound_by": "operations" if k2_t_ops >= k2_t_bytes else "bytes",
+        "bound_ms": k2_bound,
+        "bound_by": k2_bound_by,
         "library_ms": None,
-    }]}))
+    }, k3_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))

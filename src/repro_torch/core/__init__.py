@@ -1,6 +1,7 @@
 """Core library: the paper's tensor-formulated Viterbi decoder, as far as
-the port goes (batch decode of zero-terminated frames, tiled and chunked
-streaming of unpunctured open-trellis codes)."""
+the port goes (batch decode of zero-terminated frames, sequential or
+time-parallel; tiled and chunked streaming of unpunctured open-trellis
+codes)."""
 from .trellis import (  # noqa: F401
     AcsTables,
     CodeSpec,
@@ -17,6 +18,13 @@ from .viterbi import (  # noqa: F401
     tiled_decode_stream,
     traceback,
     traceback_with_state,
+)
+from .timeparallel import (  # noqa: F401
+    decode_time_parallel,
+    prefix_entry_metrics,
+    timeparallel_forward,
+    transfer_matrices,
+    tropical_matmul,
 )
 from .decoder import (  # noqa: F401
     DEFAULT_DECISION_DEPTH,

@@ -42,13 +42,25 @@ def is_hopper(device: torch.device) -> bool:
     )
 
 
-def device_underfill_rows() -> int:
-    """Parallel-row budget below which the time-parallel decode would be
-    auto-selected (``kernel_geometry.time_parallel_plan``).
+# Rows (frames x states) at or under which the time-parallel decode beats
+# the sequential one on an H100, re-derived on the card by
+# ``chip_smoke.py``'s budget sweep (``PERF.md`` §5): decode_batch at
+# 2^16 stages of ccsds-k7, time_parallel False against True, at
+# F in {1, 4, 16, 64, 256}; the budget is the largest F x S at which the
+# time-parallel path was faster in every sample.  The win comes mostly
+# from the sequential path's plain traceback (one Python step per radix
+# step), not from the depth of the ACS: re-derive the budget once the
+# traceback is a kernel.
+CUDA_ROW_BUDGET = 16384
 
-    The reference's 1024 is "8 TPU cores x 128 lanes" and says nothing
-    about an H100's 132 SMs.  The time-parallel path (and its transfer
-    matrix kernel) belongs to a later slice of the port, so until then
-    the budget is 0 and auto-selection never engages it.
-    """
-    return 0
+
+def device_underfill_rows(device=None) -> int:
+    """Parallel-row budget of ``device`` (``None`` is the card) for the
+    time-parallel auto-selection (``kernel_geometry.time_parallel_plan``):
+    shapes with ``n_frames * n_states`` at or under it take the
+    time-parallel path.  0 on the CPU, as in the reference off an
+    accelerator, so auto-selection never engages there; on the card, the
+    budget measured on an H100 (``CUDA_ROW_BUDGET``), not the
+    reference's 1024 of "8 TPU cores x 128 lanes"."""
+    dev = torch.device("cuda" if device is None else device)
+    return CUDA_ROW_BUDGET if dev.type == "cuda" else 0

@@ -3,8 +3,12 @@
 Ported so far, for unpunctured open-trellis codes:
 
   * ``decode_batch`` — one-shot decode of independent zero-terminated
-    frames (the paper's §IX workload) on the sequential path, the
-    forward pass in K1 and a plain PyTorch traceback;
+    frames (the paper's §IX workload): on the sequential path, the
+    forward pass in K1 and a plain PyTorch traceback; or on the
+    time-parallel path (``core/timeparallel.py``: transfer matrices in
+    K3, a log-depth scan, every tile re-run at once in K1 and one
+    traceback over all tiles), on request or when the frames alone leave
+    the card idle (``backend.device_underfill_rows``);
   * ``decode_stream_tiled`` — overlapping-window decode of one stream
     (paper §III), through K2 when the one-pass rule admits the window;
   * ``init_stream_state`` / ``decode_chunk`` / ``decode_chunk_multi`` /
@@ -17,8 +21,8 @@ Ported so far, for unpunctured open-trellis codes:
     the ring and the chunk).
 
 The other entry points of the reference (tail-biting, punctured input,
-soft output, sharding, time-parallel decode) belong to later slices and
-raise ``NotImplementedError`` naming theirs.
+soft output, sharding) belong to later slices and raise
+``NotImplementedError`` naming theirs.
 
 Entry points run on the card: ``device=None`` resolves to ``"cuda"`` and
 raises where there is none; the CPU is used only when asked for.
@@ -31,7 +35,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as tnf
 
-from .backend import resolve_device
+from .backend import device_underfill_rows, resolve_device
 from .kernel_geometry import (
     one_pass_time_tile,
     ring_auto_packed,
@@ -191,6 +195,9 @@ class ViterbiDecoder:
     ``use_kernel``) sends streaming chunks and tiled windows through K2
     where the one-pass rule admits them; ``time_tile`` and
     ``block_frames`` are that rule's inputs, as in the reference.
+    ``time_parallel`` (None: auto) and ``transfer_tile`` are the inputs
+    of the time-parallel plan (``kernel_geometry.time_parallel_plan``),
+    which reckons with this device's budget.
     """
 
     def __init__(
@@ -207,6 +214,7 @@ class ViterbiDecoder:
         time_tile: Optional[int] = None,
         block_frames: Optional[int] = None,
         time_parallel: Optional[bool] = None,
+        transfer_tile: Optional[int] = None,
         validate_inputs: bool = True,
         sanitize: bool = False,
         device=None,
@@ -221,8 +229,6 @@ class ViterbiDecoder:
             raise ValueError(
                 f"puncture beta={puncture.beta} != code beta={spec.beta}"
             )
-        if time_parallel:
-            _later("time-parallel decode (K3)", "time-parallel")
         self.device = resolve_device(device)
         self.spec = spec
         self.rho = rho
@@ -238,6 +244,7 @@ class ViterbiDecoder:
         self.time_tile = time_tile
         self.block_frames = block_frames
         self.time_parallel = time_parallel
+        self.transfer_tile = transfer_tile
         # the streaming ring is packed whenever the state count allows and
         # one-pass is on; batch survivors pack only on request
         self.ring_packed = (
@@ -277,6 +284,7 @@ class ViterbiDecoder:
         time_tile: Optional[int] = None,
         block_frames: Optional[int] = None,
         time_parallel: Optional[bool] = None,
+        transfer_tile: Optional[int] = None,
         validate_inputs: bool = True,
         sanitize: bool = False,
         device=None,
@@ -300,6 +308,7 @@ class ViterbiDecoder:
             time_tile=time_tile,
             block_frames=block_frames,
             time_parallel=time_parallel,
+            transfer_tile=transfer_tile,
             validate_inputs=validate_inputs,
             sanitize=sanitize,
             device=device,
@@ -322,6 +331,21 @@ class ViterbiDecoder:
             _later("depuncturing", "standard-codes")
         return llrs
 
+    def _time_parallel_tile(
+        self, n_frames: int, t_steps: int, time_parallel: Optional[bool]
+    ) -> Optional[int]:
+        """Transfer tile of the time-parallel path for this shape, or None
+        to stay sequential: the per-call choice beats the decoder's, then
+        ``time_parallel_plan`` (tile grid, and on auto this device's
+        budget)."""
+        resolved = (
+            self.time_parallel if time_parallel is None else time_parallel
+        )
+        return time_parallel_plan(
+            n_frames, t_steps, self.spec.n_states, resolved,
+            self.transfer_tile, device_underfill_rows(self.device),
+        )
+
     def decode_batch(
         self,
         llrs,
@@ -337,6 +361,11 @@ class ViterbiDecoder:
         padded internally (information-free) unless a final-state pin
         would land on the padding.  Returns (F, n) int32 bits on the
         decoder's device.
+
+        ``time_parallel`` (None: the decoder's choice, which defaults to
+        auto) decodes through the time-parallel path — the same bits,
+        sequential depth O(tile + log2 tiles) instead of n/rho — on
+        request, or on auto when the frames underfill the card.
         """
         term = termination or self.termination
         if term == "tailbiting":
@@ -368,23 +397,37 @@ class ViterbiDecoder:
                     f"got n={n} (the pin would land on padded stages)"
                 )
             llrs = tnf.pad(llrs, (0, 0, 0, pad))
-        resolved = self.time_parallel if time_parallel is None else time_parallel
-        if resolved or time_parallel_plan(
-            F, (n + pad) // self.rho, self.spec.n_states, resolved
-        ) is not None:
-            _later("time-parallel decode (K3)", "time-parallel")
-        _count_dispatch("batch")
-        out = decode_frames(
-            llrs,
-            self.spec,
-            rho=self.rho,
-            initial_state=initial_state,
-            final_state=final_state,
-            precision=self.precision,
-            use_kernel=self.use_kernel,
-            pack_survivors=self.pack_survivors,
-            device=self.device,
+        tp_tile = self._time_parallel_tile(
+            F, (n + pad) // self.rho, time_parallel
         )
+        _count_dispatch("time_parallel" if tp_tile is not None else "batch")
+        if tp_tile is not None:
+            from .timeparallel import decode_time_parallel
+
+            out = decode_time_parallel(
+                llrs,
+                self.spec,
+                rho=self.rho,
+                initial_state=initial_state,
+                final_state=final_state,
+                precision=self.precision,
+                transfer_tile=tp_tile,
+                use_kernel=self.use_kernel,
+                pack_survivors=self.pack_survivors,
+                device=self.device,
+            )
+        else:
+            out = decode_frames(
+                llrs,
+                self.spec,
+                rho=self.rho,
+                initial_state=initial_state,
+                final_state=final_state,
+                precision=self.precision,
+                use_kernel=self.use_kernel,
+                pack_survivors=self.pack_survivors,
+                device=self.device,
+            )
         return out[:, :n] if pad else out
 
     # -- tiled stream (stateless, latency-optimal) ------------------------
@@ -432,6 +475,7 @@ class ViterbiDecoder:
             time_tile=self.time_tile,
             block_frames=self.block_frames,
             time_parallel=self.time_parallel,
+            transfer_tile=self.transfer_tile,
             device=self.device,
         )
 

@@ -1,7 +1,7 @@
 """Kernel geometry shared by the decoder and the kernel wrappers: the
 survivor layout (int8 slots, or 16 slots packed per int32 word), the CUDA
-block shapes of K1 and K2, the one-pass eligibility rule of the streaming
-entry points, and the time-parallel eligibility rule.
+block shapes of K1, K2 and K3, the one-pass eligibility rule of the
+streaming entry points, and the time-parallel eligibility rule.
 
 The one-pass rule (``one_pass_time_tile``) keeps the reference's numbers
 on purpose: it decides whether a chunk takes the one-pass or the two-pass
@@ -26,6 +26,7 @@ __all__ = [
     "MIN_TIME_PARALLEL_TILES",
     "SLOT_BITS",
     "K1_THREADS",
+    "K3_THREADS",
     "SMEM_LIMIT_BYTES",
     "STAGE_STEPS",
     "ring_words",
@@ -36,6 +37,8 @@ __all__ = [
     "k1_block_frames",
     "k2_smem_bytes",
     "k2_block_frames",
+    "k3_smem_bytes",
+    "k3_block_frames",
     "pick_time_tile",
     "fused_ring_bytes",
     "one_pass_time_tile",
@@ -68,6 +71,10 @@ SLOT_BITS = {2: 1, 4: 2, 8: 3, 16: 4}
 # threads per K1 block: one thread per (frame, state) pair, so a block
 # holds K1_THREADS // S frames
 K1_THREADS = 256
+
+# threads per K3 block (kThreads in csrc/transfer_matrix.cu): they loop
+# over the block's (frame, entry, state) triples, so any frame count fits
+K3_THREADS = 1024
 
 # dynamic shared memory one H100 block may opt in to
 SMEM_LIMIT_BYTES = 232448
@@ -185,6 +192,53 @@ def k2_block_frames(
     return bf_max, False
 
 
+def k3_smem_bytes(
+    llr_block: int, n_states: int, n_slots: int, block_frames: int
+) -> int:
+    """Dynamic shared memory of one K3 block, in bytes: W, the staged LLR
+    steps, the BF x S x S matrix carry twice (read one, write the other),
+    then the warp maxima and the frame maxima of the final
+    normalisation.  The wrapper launches K3 with this many bytes; the
+    launcher refuses a count that does not hold its layout."""
+    S, B, BF = n_states, llr_block, block_frames
+    floats = (
+        (B + S) * S * n_slots
+        + STAGE_STEPS * BF * B
+        + 2 * BF * S * S
+        + K3_THREADS // 32
+        + BF
+    )
+    return floats * 4
+
+
+def k3_block_frames(
+    n_states: int,
+    llr_block: int,
+    n_slots: int,
+    block_frames: int = 0,
+    n_frames: int = 0,
+) -> int:
+    """Frames per K3 block: ``block_frames`` (0: the reference's 512/S
+    rows' worth), at most ``n_frames`` when given, then as many as fit in
+    shared memory.  The reference's rule shrinks its frame block to a
+    VMEM budget; here the carry is S x S floats a frame twice over, so
+    its 8 frames at S = 64 (256 KiB) become 4.  Raises ``ValueError``
+    when not even one frame fits, as the reference does.  Frames are
+    independent, so the block shape changes the layout, never the bits."""
+    bf = block_frames or max(1, 512 // n_states)
+    if n_frames:
+        bf = min(bf, n_frames)
+    while bf > 1 and k3_smem_bytes(llr_block, n_states, n_slots, bf) > SMEM_LIMIT_BYTES:
+        bf -= 1
+    need = k3_smem_bytes(llr_block, n_states, n_slots, bf)
+    if need > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"K3 needs {need} bytes of shared memory even at {bf} frame(s) "
+            f"a block (limit {SMEM_LIMIT_BYTES}): {n_states} states do not fit"
+        )
+    return bf
+
+
 def pick_time_tile(d_steps: int, t_steps: int, target=None) -> int:
     """Largest time tile <= ``target`` dividing both ``d_steps`` and
     ``t_steps``.  Always >= 1."""
@@ -271,9 +325,9 @@ def time_parallel_plan(
     n_frames: int,
     t_steps: int,
     n_states: int,
-    time_parallel=None,
-    transfer_tile=None,
-    underfill_rows=None,
+    time_parallel,
+    transfer_tile,
+    underfill_rows: int,
 ):
     """Time-parallel eligibility, as in the reference: the transfer tile
     (in radix steps) to decode with, or None to stay on the sequential
@@ -281,8 +335,8 @@ def time_parallel_plan(
 
     ``time_parallel=False`` forces sequential; ``True`` engages whenever
     a usable tile grid exists; ``None`` engages only when
-    ``n_frames * n_states`` fits ``underfill_rows`` (default: the
-    device's budget, ``backend.device_underfill_rows``).
+    ``n_frames * n_states`` fits ``underfill_rows``, the budget of the
+    device the caller decodes on (``backend.device_underfill_rows``).
     """
     if time_parallel is False:
         return None
@@ -293,8 +347,4 @@ def time_parallel_plan(
         return None
     if time_parallel:
         return tt
-    if underfill_rows is None:
-        from .backend import device_underfill_rows
-
-        underfill_rows = device_underfill_rows()
     return tt if n_frames * n_states <= underfill_rows else None

@@ -15,8 +15,10 @@ contract: blocks through ``channel_dtype`` first, ``split_dot`` honoured.
 The traceback is plain PyTorch, as it is plain jnp in the reference.
 
 ``tiled_decode_stream`` decodes one long stream as overlapping windows
-(paper §III), through K2 (one pass, the traceback in the kernel) when
-the reference's one-pass rule admits the window, else two-pass.
+(paper §III): through K2 (one pass, the traceback in the kernel) when
+the reference's one-pass rule admits the window, through the
+time-parallel decode (``core/timeparallel.py``) when its plan picks it,
+else two-pass.
 
 Precision follows the paper's Fig. 13 axes (``AcsPrecision``): matmul
 inputs may be bf16, products and sums are f32, and the carry may be
@@ -30,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from .backend import resolve_device
+from .backend import device_underfill_rows, resolve_device
 from .kernel_geometry import (
     SLOT_BITS,
     check_packable,
@@ -151,7 +153,9 @@ def init_metric(
     initial_state: Optional[int],
     device: Optional[torch.device] = None,
 ) -> torch.Tensor:
-    """Metric at t=0: one-hot (known encoder start) or uniform (truncated)."""
+    """Metric at t=0: one-hot (known encoder start) or uniform (truncated),
+    on ``device`` (None is the card)."""
+    device = resolve_device(device)
     if initial_state is None:
         return torch.zeros((n_frames, n_states), dtype=torch.float32, device=device)
     lam = torch.full(
@@ -393,10 +397,12 @@ def tiled_decode_stream(
     (n,) int32 bits on ``device`` (None is the card).
 
     With ``one_pass`` the windows go through K2 when the reference's
-    one-pass rule admits them (``_one_pass_window_plan``); else through
-    ``decode_frames``.  ``time_parallel`` follows the reference's
-    precedence, and a plan that picks the time-parallel path raises
-    ``NotImplementedError``: it belongs to the time-parallel slice.
+    one-pass rule admits them (``_one_pass_window_plan``).  Otherwise they
+    go through ``decode_time_parallel`` (K3, then K1) when
+    ``time_parallel_plan`` picks it for this device, and else through
+    ``decode_frames``.  An explicit ``time_parallel=True`` beats an
+    eligible one-pass plan; on auto the one-pass plan wins, as in the
+    reference.
     """
     dev = resolve_device(device)
     llrs = torch.as_tensor(llrs, device=dev).to(torch.float32)
@@ -412,7 +418,7 @@ def tiled_decode_stream(
     frames = padded[idx]  # (n_windows, window, beta)
     tp_tile = time_parallel_plan(
         n_windows, cfg.window // cfg.rho, spec.n_states,
-        time_parallel, transfer_tile,
+        time_parallel, transfer_tile, device_underfill_rows(dev),
     )
     plan = (
         _one_pass_window_plan(spec, cfg, pack_survivors, time_tile, block_frames)
@@ -424,13 +430,17 @@ def tiled_decode_stream(
         center = _one_pass_windows(frames, spec, cfg, precision, *plan)
         return center.reshape(-1)[:n]
     if tp_tile is not None:
-        raise NotImplementedError(
-            "time-parallel decode (K3) is not ported yet: it belongs to "
-            "the time-parallel slice of the PyTorch/CUDA port"
+        from .timeparallel import decode_time_parallel
+
+        decoded = decode_time_parallel(
+            frames, spec, rho=cfg.rho, initial_state=None, final_state=None,
+            precision=precision, transfer_tile=tp_tile,
+            use_kernel=use_kernel, pack_survivors=pack_survivors, device=dev,
         )
-    decoded = decode_frames(
-        frames, spec, rho=cfg.rho, initial_state=None, final_state=None,
-        precision=precision, use_kernel=use_kernel,
-        pack_survivors=pack_survivors, device=dev,
-    )
+    else:
+        decoded = decode_frames(
+            frames, spec, rho=cfg.rho, initial_state=None, final_state=None,
+            precision=precision, use_kernel=use_kernel,
+            pack_survivors=pack_survivors, device=dev,
+        )
     return decoded[:, v:v + f].reshape(-1)[:n]

@@ -6,5 +6,13 @@ Layout: ``csrc/`` (CUDA C++ sources, built with ``nvcc`` at first use),
 ``ops.py`` (the wrappers ``core`` calls), ``ref.py`` (the plain
 versions).  Nothing is built or loaded at import.
 """
-from .ops import viterbi_decode_fused, viterbi_forward  # noqa: F401
-from .viterbi_acs import acs_decode_fused, acs_forward  # noqa: F401
+from .ops import (  # noqa: F401
+    viterbi_decode_fused,
+    viterbi_forward,
+    viterbi_transfer_matrices,
+)
+from .viterbi_acs import (  # noqa: F401
+    acs_decode_fused,
+    acs_forward,
+    transfer_matrix,
+)

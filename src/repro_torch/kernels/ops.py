@@ -5,6 +5,9 @@ and is selected there by ``use_kernel=True``: the two-pass path, with the
 full survivor tensor written out and a plain PyTorch traceback after it.
 ``viterbi_decode_fused`` is the one-pass time-tiled path (K2): ACS and a
 sliding-window traceback in one kernel, the survivors kept in its ring.
+``viterbi_transfer_matrices`` is the formation of the time-parallel
+decode (K3), plug-compatible with ``core.timeparallel.transfer_matrices``
+and selected there by ``use_kernel=True``.
 """
 from __future__ import annotations
 
@@ -15,9 +18,12 @@ from repro_torch.core.kernel_geometry import DEFAULT_TIME_TILE
 from repro_torch.core.trellis import AcsTables
 from repro_torch.core.viterbi import AcsPrecision
 
-from .viterbi_acs import acs_decode_fused, acs_forward
+from .viterbi_acs import acs_decode_fused, acs_forward, transfer_matrix
 
-__all__ = ["viterbi_forward", "viterbi_decode_fused", "ring_words", "ring_dtype"]
+__all__ = [
+    "viterbi_forward", "viterbi_decode_fused", "viterbi_transfer_matrices",
+    "ring_words", "ring_dtype",
+]
 
 
 def ring_words(tables: AcsTables, pack_survivors: bool) -> int:
@@ -91,4 +97,31 @@ def viterbi_decode_fused(
         matmul_dtype=precision.matmul_dtype,
         renorm=precision.renorm,
         pack_survivors=pack_survivors,
+    )
+
+
+def viterbi_transfer_matrices(
+    blocks: torch.Tensor,  # (T, F, B), T divisible by transfer_tile
+    tables: AcsTables,
+    precision=None,
+    *,
+    transfer_tile: int,
+    semiring: str = "tropical",
+):
+    """K3-backed transfer-matrix formation: per-tile tropical transfer
+    matrices M (N, F, S, S) f32, each (tile, frame) normalised by its
+    max.  The blocks are rounded to ``precision.channel_dtype`` first, as
+    in the reference; ``split_dot`` is honoured."""
+    precision = precision or AcsPrecision()
+    w = torch.as_tensor(tables.fused_w, device=blocks.device)
+    return transfer_matrix(
+        blocks.to(precision.channel_dtype).to(torch.float32).contiguous(),
+        w,
+        n_states=tables.n_states,
+        n_slots=tables.n_slots,
+        transfer_tile=transfer_tile,
+        carry_dtype=precision.carry_dtype,
+        matmul_dtype=precision.matmul_dtype,
+        split_dot=precision.split_dot,
+        semiring=semiring,
     )

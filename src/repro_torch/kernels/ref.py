@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of K1 (``viterbi_acs.acs_forward``) and K2
-(``viterbi_acs.acs_decode_fused``): the same contracts, one radix step
-at a time.
+"""Plain PyTorch versions of K1 (``viterbi_acs.acs_forward``), K2
+(``viterbi_acs.acs_decode_fused``) and K3 (``viterbi_acs.transfer_matrix``):
+the same contracts, one radix step at a time.
 
 The wrappers run these for CPU tensors; the tests hold them against the
 reference's Pallas kernels, and ``chip_smoke.py`` holds the CUDA kernels
@@ -18,9 +18,10 @@ from repro_torch.core.kernel_geometry import (
     ring_dtype,
     ring_words,
 )
-from repro_torch.core.viterbi import dot_f32
+from repro_torch.core.semiring import TROPICAL
+from repro_torch.core.viterbi import AcsPrecision, dot_f32, fused_potentials
 
-__all__ = ["acs_forward_ref", "acs_decode_fused_ref"]
+__all__ = ["acs_forward_ref", "acs_decode_fused_ref", "transfer_matrix_ref"]
 
 
 def acs_forward_ref(
@@ -134,3 +135,46 @@ def acs_decode_fused_ref(
     base = ((n_tiles + 1) % n_ring_tiles) * TT
     order = (base + torch.arange(D, device=ring.device)) % RING
     return bits, lam, ring[order]
+
+
+def transfer_matrix_ref(
+    blocks: torch.Tensor,  # (T, F, B), T a multiple of transfer_tile
+    w: torch.Tensor,  # (B+S, S*R)
+    *,
+    n_states: int,
+    n_slots: int,
+    transfer_tile: int,
+    carry_dtype: torch.dtype = torch.float32,
+    matmul_dtype: torch.dtype = torch.float32,
+    split_dot: bool = False,
+):
+    """Returns M (N, F, S, S) f32, N = T / transfer_tile: per tile, the
+    tropical transfer matrices, each (tile, frame) normalised by its max.
+
+    Every tile starts from the identity (0 on the diagonal, -1e9 off it)
+    and runs ``transfer_tile`` fused steps with the entry axis folded
+    into N*F*S rows: pot = [L_t | M] @ W in f32 (with ``split_dot`` the
+    M half in f32, unrounded), slot max, carry rounded to
+    ``carry_dtype``.  No per-row renorm: an offset per entry state would
+    change the products."""
+    T, F, B = blocks.shape
+    S, R, TT = n_states, n_slots, transfer_tile
+    if TT <= 0 or T % TT:
+        raise ValueError(f"T'={T} steps not divisible by transfer_tile={TT}")
+    N = T // TT
+    rows = N * F * S
+    precision = AcsPrecision(
+        matmul_dtype=matmul_dtype, carry_dtype=carry_dtype, split_dot=split_dot
+    )
+    w_mm = w.to(matmul_dtype)
+    w_pred = w[B:].to(torch.float32)
+    tiles = blocks.reshape(N, TT, F, B)
+    m = TROPICAL.identity(S, device=blocks.device).expand(N, F, S, S)
+    for t in range(TT):
+        l_t = tiles[:, t, :, None, :].expand(N, F, S, B).reshape(rows, B)
+        pot = fused_potentials(
+            l_t, m.reshape(rows, S), w_mm, w_mm[:B], w_pred, precision
+        )
+        new = TROPICAL.sum(pot.view(rows, S, R), dim=-1)
+        m = new.to(carry_dtype).to(torch.float32).view(N, F, S, S)
+    return m - m.amax(dim=(-2, -1), keepdim=True)

@@ -1,4 +1,4 @@
-"""K1 and K2 — the ACS kernels of the reference, hand-written in CUDA for
+"""K1, K2 and K3 — the kernels of the reference, hand-written in CUDA for
 Hopper.
 
   * K1, ``acs_forward`` (``csrc/acs_forward.cu``), replaces
@@ -8,8 +8,11 @@ Hopper.
     ``acs_decode_fused_pallas`` (body ``_fused_decode_kernel``): the
     one-pass time-tiled decode, ACS and sliding-window traceback in one
     kernel.
+  * K3, ``transfer_matrix`` (``csrc/transfer_matrix.cu``), replaces
+    ``transfer_matrix_pallas`` (body ``_transfer_kernel``): the per-tile
+    tropical transfer matrices of the time-parallel decode.
 
-Both share the ACS step of ``csrc/acs_step.cuh``; each source's header
+All three share the ACS step of ``csrc/acs_step.cuh``; each source's header
 comment gives its design and what bounds it on an H100.
 
 Build and binding: at the first call on a CUDA tensor, ``nvcc`` compiles
@@ -43,20 +46,23 @@ from repro_torch.core.kernel_geometry import (
     k1_block_frames,
     k2_block_frames,
     k2_smem_bytes,
+    k3_block_frames,
+    k3_smem_bytes,
     ring_dtype,
     ring_words,
 )
 from repro_torch.core.semiring import check_semiring
 
-from .ref import acs_decode_fused_ref, acs_forward_ref
+from .ref import acs_decode_fused_ref, acs_forward_ref, transfer_matrix_ref
 
 __all__ = [
-    "acs_forward", "acs_decode_fused", "build", "SMEM_LIMIT_BYTES",
+    "acs_forward", "acs_decode_fused", "transfer_matrix", "build",
+    "SMEM_LIMIT_BYTES",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # one shared library per kernel, each built from its own source
-KERNELS = ("acs_forward", "acs_decode_fused")
+KERNELS = ("acs_forward", "acs_decode_fused", "transfer_matrix")
 _HEADERS = (_CSRC / "acs_step.cuh",)
 # the checkout's build/ directory (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
@@ -131,11 +137,17 @@ def _library(name: str) -> ctypes.CDLL:
         lib.acs_forward_launch.restype = ctypes.c_int
         lib.acs_forward_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.acs_forward_smem_bytes.restype = ctypes.c_longlong
-    else:
+    elif name == "acs_decode_fused":
         lib.acs_decode_fused_launch.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
         )
         lib.acs_decode_fused_launch.restype = ctypes.c_int
+    else:
+        lib.transfer_matrix_launch.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        )
+        lib.transfer_matrix_launch.restype = ctypes.c_int
     err_string = getattr(lib, f"{name}_error_string")
     err_string.argtypes = [ctypes.c_int]
     err_string.restype = ctypes.c_char_p
@@ -379,3 +391,79 @@ def _launch_k2(blocks, lam0, hist0, w, *, n_states, n_slots, k, rho,
     _raise_on(lib, "acs_decode_fused", err)
     acs_decode_fused.launches += 1
     return bits, lam_out, hist_out
+
+
+def transfer_matrix(
+    blocks: torch.Tensor,  # (T, F, B) float32, T a multiple of the tile
+    w: torch.Tensor,  # (B+S, S*R) float32
+    *,
+    n_states: int,
+    n_slots: int,
+    transfer_tile: int,
+    block_frames: int = 0,
+    carry_dtype: torch.dtype = torch.float32,
+    matmul_dtype: torch.dtype = torch.float32,
+    split_dot: bool = False,
+    semiring: str = "tropical",
+):
+    """Per-tile tropical transfer matrices M (N, F, S, S) f32, each
+    (tile, frame) normalised by its max; the tile is
+    ``min(transfer_tile, T)`` and must divide T.  ``block_frames`` (0:
+    auto) is K3's frame block, shrunk to what fits in shared memory
+    (``kernel_geometry.k3_block_frames``, which raises where nothing
+    fits).  On CUDA tensors this launches K3 and adds one to
+    ``transfer_matrix.launches``; on CPU tensors it runs
+    ``transfer_matrix_ref``.
+    """
+    check_semiring(semiring)
+    dev = _one_device("transfer_matrix", blocks, w)
+    if blocks.dim() != 3:
+        raise ValueError(f"transfer_matrix: blocks must be (T, F, B), got {tuple(blocks.shape)}")
+    T, F, B = blocks.shape
+    TT = min(transfer_tile, T)
+    if TT <= 0 or T % TT:
+        raise ValueError(f"transfer_matrix: T'={T} not divisible by transfer_tile={TT}")
+    BF = k3_block_frames(n_states, B, n_slots, block_frames, F)
+    kw = dict(
+        n_states=n_states, n_slots=n_slots, transfer_tile=TT,
+        carry_dtype=carry_dtype, matmul_dtype=matmul_dtype,
+        split_dot=split_dot,
+    )
+    if dev.type == "cpu":
+        return transfer_matrix_ref(blocks, w, **kw)
+    return _launch_k3(blocks, w, block_frames=BF, **kw)
+
+
+transfer_matrix.launches = 0  # K3 launches in this process (set to 0 to count a run)
+
+
+def _launch_k3(blocks, w, *, n_states, n_slots, transfer_tile, block_frames,
+               carry_dtype, matmul_dtype, split_dot):
+    dev = blocks.device
+    _check_card(dev, "K3")
+    S, R, TT, BF = n_states, n_slots, transfer_tile, block_frames
+    if R not in SLOT_BITS:
+        raise ValueError(f"transfer_matrix: n_slots must be one of {list(SLOT_BITS)}")
+    _check_dtypes("transfer_matrix", matmul_dtype=matmul_dtype, carry_dtype=carry_dtype)
+    T, F, B = blocks.shape
+    f32 = torch.float32
+    _check_inputs(
+        "transfer_matrix", blocks=(blocks, (T, F, B), f32),
+        w=(w, (B + S, S * R), f32),
+    )
+    if -(-F // BF) > 65535:
+        raise ValueError(f"transfer_matrix: {F} frames need more than 65535 blocks of {BF}")
+    m = torch.empty((T // TT, F, S, S), dtype=torch.float32, device=dev)
+    if F == 0:
+        return m
+    lib = _library("transfer_matrix")
+    err = lib.transfer_matrix_launch(
+        blocks.data_ptr(), w.data_ptr(), m.data_ptr(),
+        T, F, B, S, R, TT, BF,
+        _DTYPE_CODES[matmul_dtype], _DTYPE_CODES[carry_dtype], int(split_dot),
+        k3_smem_bytes(B, S, R, BF), _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, "transfer_matrix", err)
+    transfer_matrix.launches += 1
+    return m

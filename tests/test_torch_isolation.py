@@ -102,18 +102,36 @@ def test_default_device_is_the_card_without_fallback():
         ViterbiDecoder(CODE_K7_CCSDS, device="meta")
 
 
+@pytest.mark.parametrize("builder", ["tropical_identity", "semiring_identity",
+                                     "init_metric"])
+def test_exported_tensor_builders_default_to_the_card(builder):
+    """The exported helpers that build a tensor follow the entry points:
+    ``device=None`` is the card, and only an explicit ``"cpu"`` is not."""
+    from repro_torch.core.semiring import TROPICAL
+    from repro_torch.core.timeparallel import tropical_identity
+    from repro_torch.core.viterbi import init_metric
+
+    build = {
+        "tropical_identity": lambda device=None: tropical_identity(4, device),
+        "semiring_identity": lambda device=None: TROPICAL.identity(4, device),
+        "init_metric": lambda device=None: init_metric(2, 4, 0, device),
+    }[builder]
+    if torch.cuda.is_available():
+        assert build().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    assert build("cpu").device.type == "cpu"
+
+
 def test_later_slices_refuse():
     from repro_torch.core import CODE_K7_CCSDS, ViterbiDecoder
     from repro_torch.core.semiring import Semiring
     from repro_torch.kernels import acs_forward, viterbi_forward
     from repro_torch.core.trellis import build_acs_tables
 
-    with pytest.raises(NotImplementedError, match="time-parallel"):
-        ViterbiDecoder(CODE_K7_CCSDS, time_parallel=True, device="cpu")
     dec = ViterbiDecoder(CODE_K7_CCSDS, device="cpu")
     llrs = torch.zeros(2, 8, 2)
-    with pytest.raises(NotImplementedError, match="time-parallel"):
-        dec.decode_batch(llrs, time_parallel=True)
     with pytest.raises(NotImplementedError, match="soft-output"):
         Semiring("logprob")
     tb = build_acs_tables(CODE_K7_CCSDS, 2)
@@ -133,20 +151,14 @@ def test_later_slices_refuse():
         ViterbiDecoder.from_standard("wifi-11a-r34", device="cpu").decode_batch(
             torch.zeros(1, 8, 2)
         )
-    # streaming is ported; its time-parallel windows and punctured
-    # streams are not
-    from repro_torch.core import TiledDecoderConfig, tiled_decode_stream
-
-    with pytest.raises(NotImplementedError, match="time-parallel"):
-        tiled_decode_stream(
-            torch.zeros(2048, 2), CODE_K7_CCSDS,
-            TiledDecoderConfig(frame_len=1024, overlap=32),
-            time_parallel=True, device="cpu",
-        )
+    # streaming and time-parallel decode are ported; punctured streams
+    # and time-parallel WAVA circulations are not
     with pytest.raises(NotImplementedError, match="depuncturing"):
         ViterbiDecoder.from_standard(
             "wifi-11a-r34", device="cpu"
         ).decode_stream_chunked(torch.zeros(1, 8, 2))
+    with pytest.raises(NotImplementedError, match="standard-codes"):
+        dec.decode_tailbiting(llrs, time_parallel=True)
     for call in (
         lambda: dec.decode_tailbiting(llrs),
         lambda: dec.decode_soft(llrs),
@@ -167,7 +179,9 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
-@pytest.mark.parametrize("name", ["acs_forward", "acs_decode_fused"])
+@pytest.mark.parametrize(
+    "name", ["acs_forward", "acs_decode_fused", "transfer_matrix"]
+)
 def test_every_kernel_build_raises_without_nvcc(monkeypatch, tmp_path, name):
     from repro_torch.kernels import viterbi_acs
 
@@ -180,7 +194,7 @@ def test_every_kernel_build_raises_without_nvcc(monkeypatch, tmp_path, name):
 
 
 def test_kernel_wrapper_refuses_other_devices():
-    from repro_torch.kernels import acs_decode_fused, acs_forward
+    from repro_torch.kernels import acs_decode_fused, acs_forward, transfer_matrix
 
     meta = torch.zeros(4, 2, 4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -204,4 +218,14 @@ def test_kernel_wrapper_refuses_other_devices():
         acs_decode_fused(
             meta, torch.zeros(2, 64), ring, torch.zeros(68, 256),
             n_states=64, n_slots=4, k=7, rho=2, time_tile=4,
+        )
+    with pytest.raises(ValueError, match="unsupported device"):
+        transfer_matrix(
+            meta, torch.zeros(68, 256, device="meta"), n_states=64,
+            n_slots=4, transfer_tile=4,
+        )
+    with pytest.raises(ValueError, match="several devices"):
+        transfer_matrix(
+            meta, torch.zeros(68, 256), n_states=64, n_slots=4,
+            transfer_tile=4,
         )

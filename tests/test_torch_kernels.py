@@ -1,6 +1,7 @@
-"""K1 (``repro_torch.kernels.viterbi_acs.acs_forward``) and K2
-(``acs_decode_fused``) against the reference's Pallas kernels
-(``repro.kernels.ops.viterbi_forward`` and ``viterbi_decode_fused``),
+"""K1 (``repro_torch.kernels.viterbi_acs.acs_forward``), K2
+(``acs_decode_fused``) and K3 (``transfer_matrix``) against the
+reference's Pallas kernels (``repro.kernels.ops.viterbi_forward``,
+``viterbi_decode_fused`` and ``viterbi_acs.transfer_matrix_pallas``),
 which run in interpret mode on the CPU as the reference's own tests run
 them.
 
@@ -12,7 +13,8 @@ versions on the card by the tests marked ``cuda`` and by
 Tolerances: with integer-valued LLRs every f32 sum is exact in any
 order, so Lambda and phi must be bit-identical.  With Gaussian LLRs the
 sums round in the matmul's order: decoded bits must be identical and
-Lambda must agree to atol=1e-5, rtol=1e-6.
+Lambda must agree to atol=1e-5, rtol=1e-6; K3's matrices come out
+bit-identical on Gaussian LLRs as well.
 """
 import numpy as np
 import pytest
@@ -356,3 +358,127 @@ def test_cuda_k2_matches_plain():
         want = acs_decode_fused_ref(*args, w, **kw)
         torch.cuda.synchronize()
         assert all(torch.equal(g, r) for g, r in zip(got, want))
+
+
+# -- K3: the transfer-matrix formation ----------------------------------
+
+def _k3_run_pair(blocks, mm, carry, split, transfer_tile):
+    """(reference M via the interpret-mode Pallas K3, port M via
+    ``transfer_matrix`` on CPU tensors)."""
+    import jax.numpy as jnp
+    from repro.core.trellis import build_acs_tables as ref_tables
+    from repro.kernels.viterbi_acs import transfer_matrix_pallas
+
+    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.kernels import transfer_matrix
+
+    mm_t, mm_j = _dtypes(mm)
+    c_t, c_j = _dtypes(carry)
+    tb = build_acs_tables(CODE_K7_CCSDS, 2)
+    ref = transfer_matrix_pallas(
+        jnp.asarray(blocks), jnp.asarray(ref_tables(_ref_spec(CODE_K7_CCSDS), 2).fused_w),
+        n_states=64, n_slots=4, transfer_tile=transfer_tile,
+        carry_dtype=c_j, matmul_dtype=mm_j, split_dot=split, interpret=True,
+    )
+    got = transfer_matrix(
+        torch.from_numpy(blocks), torch.from_numpy(tb.fused_w), n_states=64,
+        n_slots=4, transfer_tile=transfer_tile, carry_dtype=c_t,
+        matmul_dtype=mm_t, split_dot=split,
+    )
+    return np.asarray(ref), got.numpy()
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["fused", "split"])
+@pytest.mark.parametrize("carry", DT, ids=["cf32", "cbf16"])
+@pytest.mark.parametrize("mm", DT, ids=["mmf32", "mmbf16"])
+def test_k3_bit_identical_on_integer_llrs(mm, carry, split):
+    """K3's plain version against the reference's Pallas K3 in interpret
+    mode: M bit for bit on integer LLRs, over the precision policies,
+    with a frame count (5) that is not a multiple of either block."""
+    blocks, _ = _inputs(_spec_k7(), 2, 5, 32, 11, True, None)
+    ref, got = _k3_run_pair(blocks, mm, carry, split, 8)
+    assert got.shape == ref.shape == (4, 5, 64, 64) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_k3_gaussian_llrs():
+    """On Gaussian LLRs the B LLR terms of a potential are summed in the
+    same order by both, so M is bit-identical here too."""
+    blocks, _ = _inputs(_spec_k7(), 2, 3, 64, 12, False, None)
+    ref, got = _k3_run_pair(blocks, "f32", "f32", False, 16)
+    np.testing.assert_array_equal(got, ref)
+
+
+def _spec_k7():
+    from repro_torch.core import CODE_K7_CCSDS
+
+    return CODE_K7_CCSDS
+
+
+@pytest.mark.parametrize("n_states,block_frames,n_frames,want", [
+    (64, 0, 0, 4),  # the reference's 8 frames: 256 KiB of carry, cut to 4
+    (64, 0, 3, 3),
+    (64, 2, 0, 2),
+    (16, 0, 0, 32),
+    (4, 0, 0, 128),
+])
+def test_k3_block_frames(n_states, block_frames, n_frames, want):
+    from repro_torch.core.kernel_geometry import (
+        SMEM_LIMIT_BYTES, k3_block_frames, k3_smem_bytes,
+    )
+
+    bf = k3_block_frames(n_states, 4, 4, block_frames, n_frames)
+    assert bf == want
+    assert k3_smem_bytes(4, n_states, 4, bf) <= SMEM_LIMIT_BYTES
+    assert k3_smem_bytes(4, 64, 4, 4) == 202896
+    assert k3_smem_bytes(4, 64, 4, 5) > SMEM_LIMIT_BYTES
+
+
+def test_k3_refuses_what_it_cannot_hold():
+    """A shape that fits at no frame count raises ValueError, as in the
+    reference; so do a ragged tile grid and LOGPROB (soft-output slice)."""
+    from repro_torch.core import CODE_K7_CCSDS, CodeSpec, build_acs_tables
+    from repro_torch.kernels import transfer_matrix
+
+    k9 = build_acs_tables(CodeSpec(k=9, polys=(0o561, 0o753)), 2)
+    with pytest.raises(ValueError, match="do not fit"):
+        transfer_matrix(
+            torch.zeros(8, 2, 4), torch.as_tensor(k9.fused_w),
+            n_states=256, n_slots=4, transfer_tile=4,
+        )
+    w = torch.as_tensor(build_acs_tables(CODE_K7_CCSDS, 2).fused_w)
+    with pytest.raises(ValueError, match="not divisible by transfer_tile"):
+        transfer_matrix(torch.zeros(12, 2, 4), w, n_states=64, n_slots=4,
+                        transfer_tile=8)
+    with pytest.raises(NotImplementedError, match="soft-output"):
+        transfer_matrix(torch.zeros(8, 2, 4), w, n_states=64, n_slots=4,
+                        transfer_tile=8, semiring="logprob")
+    # a tile longer than the call is cut to the call, as in the reference
+    assert transfer_matrix(torch.zeros(8, 2, 4), w, n_states=64, n_slots=4,
+                           transfer_tile=32).shape == (1, 2, 64, 64)
+
+
+@pytest.mark.cuda
+def test_cuda_k3_matches_plain():
+    """K3 against its plain version on the card, bit for bit on integer
+    LLRs, over the precision policies and a ragged last block (needs an
+    H100 and nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.kernels import transfer_matrix
+    from repro_torch.kernels.ref import transfer_matrix_ref
+
+    dev = torch.device("cuda")
+    w = torch.as_tensor(build_acs_tables(CODE_K7_CCSDS, 2).fused_w, device=dev)
+    blocks, _ = _inputs(CODE_K7_CCSDS, 2, 13, 256, 13, True, None)
+    blocks = torch.from_numpy(blocks).to(dev)
+    for mm in (torch.float32, torch.bfloat16):
+        for split in (False, True):
+            kw = dict(n_states=64, n_slots=4, transfer_tile=32,
+                      matmul_dtype=mm, carry_dtype=torch.bfloat16,
+                      split_dot=split)
+            got = transfer_matrix(blocks, w, **kw)
+            want = transfer_matrix_ref(blocks, w, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)

@@ -23,13 +23,24 @@ def test_time_parallel_plan_equals_reference():
                     assert ours.time_parallel_plan(*args) == ref.time_parallel_plan(*args)
 
 
-def test_device_underfill_is_zero_until_the_time_parallel_slice():
-    from repro_torch.core.backend import device_underfill_rows
+def test_device_underfill_is_zero_on_the_cpu_and_auto_stays_off():
+    """The CPU has no idle rows to trade into, so auto-selection never
+    takes the time-parallel path there (the reference's
+    ``test_decoder_auto_select_off_on_cpu``); the card's budget is the
+    one measured on an H100, and decode_64k's 512 frames stay on the
+    batch path under it."""
+    from repro_torch.core import CODE_K7_CCSDS, ViterbiDecoder
+    from repro_torch.core.backend import CUDA_ROW_BUDGET, device_underfill_rows
     from repro_torch.core.kernel_geometry import time_parallel_plan
 
-    assert device_underfill_rows() == 0
-    assert time_parallel_plan(1, 4096, 64) is None  # auto never engages
-    assert time_parallel_plan(1, 4096, 64, underfill_rows=1024) == 64
+    assert device_underfill_rows(torch.device("cpu")) == 0
+    assert device_underfill_rows("cpu") == 0
+    assert device_underfill_rows("cuda") == device_underfill_rows() == CUDA_ROW_BUDGET
+    assert 16 * 64 <= CUDA_ROW_BUDGET < 512 * 64
+    d = ViterbiDecoder(CODE_K7_CCSDS, device="cpu")
+    assert d._time_parallel_tile(1, 4096, None) is None
+    assert d._time_parallel_tile(1, 4096, True) is not None
+    assert time_parallel_plan(1, 4096, 64, None, None, 1024) == 64
 
 
 def test_ring_layout_and_packing_equal_reference():

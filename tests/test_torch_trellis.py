@@ -71,7 +71,7 @@ def test_tables_carried_across_decode_like_built_ones():
     llrs = torch.from_numpy(rng.normal(0, 2, (6, 40, 2)).astype(np.float32))
     for use_kernel in (True, False):
         lam, phis = forward_fused(
-            blocks_from_llrs(llrs, 2), init_metric(6, 64, 0), carried,
+            blocks_from_llrs(llrs, 2), init_metric(6, 64, 0, "cpu"), carried,
             use_kernel=use_kernel,
         )
         bits = traceback(phis, lam.argmax(dim=-1), carried)

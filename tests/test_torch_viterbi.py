@@ -65,7 +65,7 @@ def _forward_both(llrs, rho, prec_name, use_kernel, pack, initial_state=0):
     )
     lam_p, phi_p = forward_fused(
         blocks_from_llrs(torch.from_numpy(llrs), rho),
-        init_metric(F, 64, initial_state), build_acs_tables(CODE_K7_CCSDS, rho),
+        init_metric(F, 64, initial_state, "cpu"), build_acs_tables(CODE_K7_CCSDS, rho),
         prec, use_kernel, pack,
     )
     return (np.array(lam_r), np.array(phi_r)), (lam_p.numpy(), phi_p.numpy())
