@@ -73,11 +73,47 @@ which ends the run with a non-zero exit when it fails:
                differ at each F on the AWGN input and on its integer copy,
                and whether each difference is a path-metric tie; and which
                path ``decode_batch`` picks on auto at F=16 and at the
-               decode_64k shape.
+               decode_64k shape;
+ 10. soft    — the soft-output path at full width (S=64):
+               ``decode_soft(output="llr")`` on 64 of phase 4's AWGN
+               frames x 65536 stages (T'=32768, TT=256, N=128): dispatch
+               ``soft``, one K3-LOGPROB launch, BER of ``llr < 0`` <= 1e-4,
+               the bits that differ from decode_batch's printed; K3-LOGPROB
+               against its plain version at that shape; K1-LOGPROB through
+               ``forward_fused(semiring=LOGPROB)`` on the same blocks (one
+               launch) against its plain version; both again at a depth
+               short enough (tiles of 8 steps, 8 steps) for the bound to
+               sit far under the tropical instantiation's distance, which
+               each of these gates (and K3's at TT=256) must reject.
+               Times: K3-LOGPROB, the
+               two LOGPROB compose scans, the alpha and beta scans and
+               ``_llrs_from_joints`` (CUDA events), the decode_soft wall
+               (median of 3), Mb/s, peak memory, K1-LOGPROB and both plain
+               versions.  Then ``decode_soft(output="list", n_list=4)`` at
+               64 x 4096 stages (times of ``list_forward`` and
+               ``list_traceback``; at n_list=1 the bits equal
+               ``decode_batch(time_parallel=False)``'s exactly, on the AWGN
+               and on the integer LLRs), and lte-tbcc, 512 tail-biting
+               frames x 64 bits through ``bcjr_circular_llrs``: K3-LOGPROB
+               at one step a tile (beta=3) against its plain version, BER,
+               times.
+
+Parity: at TROPICAL every kernel is held bit for bit to its plain version.
+At LOGPROB the slot reduction is a logsumexp, whose expf/logf (CUDA) and
+exp/log (PyTorch) need not round alike, so K1-LOGPROB and K3-LOGPROB are
+held to their plain versions within ``logprob_bound``, the difference f32
+rounding allows at the magnitudes the run reaches, on reachable entries;
+the -1e9 of unreachable entries must be equal, and K1-LOGPROB's survivors
+may differ only where the plain version's top two potentials are within
+1e-3 of each other.  Each LOGPROB gate also prints how far the tropical
+instantiation lands from the LOGPROB plain version on the same inputs;
+at K3's soft tile and at the short depths that distance must be beyond
+the bound, so a LOGPROB launch that reduced by the max fails the run.
 
 Every kernel's ``bound_ms`` counts the operations its ACS step needs (the
-distinct branch metrics once, then an add and a compare per slot), not the
-fused matmul's dense multiply-adds: see ``acs_bound``.
+distinct branch metrics once, then an add and a compare per slot, and at
+LOGPROB R - 1 exponentials at the special-function rate), not
+the fused matmul's dense multiply-adds: see ``acs_bound``.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -102,11 +138,23 @@ N_TILED = 2**20  # decode_1m: one stream of 2^20 stages
 F_TP, N_TP = 16, 2**19  # decode_512k_f16: the time-parallel latency shape
 T_K3, TT_K3 = 4096, 64  # K3 sweep: radix steps and transfer tile
 SWEEP_FRAMES = (1, 4, 16, 64, 256)  # budget sweep at N_FULL stages
+F_SOFT = 64  # decode_soft("llr"): decode_64k's frame length at 1/8 of its frames
+N_LIST, L_LIST = 4096, 4  # decode_soft("list"): stages and list size
+F_TBCC, N_TBCC = 512, 64  # lte-tbcc tail-biting frames x bits
 EBN0_DB, BER_LIMIT = 4.0, 1e-4
+TBCC_BER_LIMIT = 1e-3  # 32768 tail-biting bits: the frames decode
+# the separating gates: K3-LOGPROB at tiles of TT_SEP steps over the first
+# T_SEP steps of the soft blocks, K1-LOGPROB's metrics after T1_SEP steps
+T_SEP, TT_SEP, T1_SEP = 2048, 8, 8
+PHI_TIE = 1e-3  # K1-LOGPROB's survivors may differ only at potential gaps under this
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet) at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # non-tensor float32
 PEAK_HBM_BYTES = 3.35e12
+# special functions (expf, logf): 16 results a clock per SM for compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput), 132 SMs, 1.98 GHz boost clock
+PEAK_SFU_OPS = 16 * 132 * 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -139,7 +187,7 @@ def host_ms(fn):
 
 
 def acs_bound(w, n_llr, n_states, n_slots, frame_steps, entries, renorm,
-              bytes_moved, extra_ops=0):
+              bytes_moved, extra_ops=0, semiring="tropical"):
     """(bound_ms, bound_by) of ``frame_steps`` ACS steps of one frame each,
     from the operations the step needs, not those the fused matmul does:
     the distinct branch metrics of W's LLR half once (a multiply-add, 2
@@ -147,8 +195,15 @@ def acs_bound(w, n_llr, n_states, n_slots, frame_steps, entries, renorm,
     and each state, the add of the one predecessor metric for each of its
     ``n_slots`` slots and ``n_slots - 1`` compares (the slot max, whose
     argmax comes with them); with ``renorm``, the frame max and the
-    subtraction (2S - 1).  W's metric half is one-hot (checked here): its
-    S - 1 zero products per potential add +-0 and are not counted."""
+    subtraction (2S - 1).  At ``"logprob"`` each (row, state) also takes
+    ``n_slots - 1`` exponentials (exp(best - best) = 1 needs none),
+    counted at the special-function rate (``PEAK_SFU_OPS``), and 2 *
+    ``n_slots`` f32 operations: the R - 1 differences, the R - 1 adds of
+    1 + sum, the logarithm counted as one operation (a floor whichever
+    pipe the accurate logf runs on) and the final add.  The f32 and the
+    special-function times are each a floor, and the larger counts.  W's
+    metric half is one-hot (checked here): its S - 1 zero products per
+    potential add +-0 and are not counted."""
     S, R = n_states, n_slots
     pred = w[n_llr:]
     if not (torch.equal((pred != 0).sum(dim=0), torch.ones_like(pred[0], dtype=torch.int64))
@@ -157,9 +212,39 @@ def acs_bound(w, n_llr, n_states, n_slots, frame_steps, entries, renorm,
     branch = torch.unique(w[:n_llr].T, dim=0)
     per_step = (2 * int((branch != 0).sum()) + entries * S * (2 * R - 1)
                 + ((2 * S - 1) if renorm else 0))
-    t_ops = (frame_steps * per_step + extra_ops) / PEAK_F32_FLOPS * 1e3
+    sfu = 0
+    if semiring == "logprob":
+        per_step += entries * S * 2 * R
+        sfu = frame_steps * entries * S * (R - 1)
+    t_ops = max((frame_steps * per_step + extra_ops) / PEAK_F32_FLOPS,
+                sfu / PEAK_SFU_OPS) * 1e3
     t_bytes = bytes_moved / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def logprob_bound(steps, scale, n_llr, n_slots, renorm):
+    """The largest |kernel - plain| difference that f32 rounding allows
+    after ``steps`` LOGPROB ACS steps (u = 2^-24, the unit roundoff).  With
+    ``renorm`` (K1) the reachable values stay within +-``scale`` at every
+    step; without it (K3, from the identity) they grow by at most
+    ``scale`` a step, so X_t = t * scale at step t.  Per step and per side,
+    a_t = (n_llr + 2 + renorm) u X_t + (2R + 6) u: the potential rounds at
+    most n_llr + 1 times at |value| <= X_t (the LLR terms in whatever
+    order that side sums them, then the metric), the final add and a
+    renorm subtraction once each; the R differences, exponentials (expf
+    and exp each within 2 ulp) and their sum round relative to values of
+    at most R, which moves the log by at most (R + 5) u, and the log
+    rounds by at most u ln R < (R + 1) u.  The logsumexp is monotone and
+    shifts with its inputs, so it widens the spread (max - min over the
+    entries) of the two sides' difference by nothing, and each step's
+    roundings widen it by at most 2 x 2 a_t.  Subtracting each side's own
+    max (a renorm, or K3's final shift) leaves the difference within its
+    spread, plus one rounding at |value| <= 2 X_T on each side."""
+    u = 2.0 ** -24
+    rounds = n_llr + 2 + int(renorm)
+    sum_x = steps * scale if renorm else scale * steps * (steps + 1) / 2
+    x_end = scale if renorm else steps * scale
+    return 4 * (rounds * u * sum_x + steps * (2 * n_slots + 6) * u) + 4 * u * x_end
 
 
 def path_metric_ties(llrs, bits_a, bits_b, spec):
@@ -429,6 +514,353 @@ def time_parallel_phase(decoder, llrs, gen, tables, w):
         "bound_by": k3_bound_by,
         "library_ms": None,
     }
+
+
+def logprob_case(label, got, want, steps, scale, n_llr, n_slots, renorm,
+                 control=None, separate=False):
+    """Hold a LOGPROB kernel's output to its plain version's: reachable
+    entries (> -1e8) the same on both sides and within ``logprob_bound``,
+    unreachable ones equal.  ``control`` is the tropical instantiation's
+    output on the same inputs, a stand-in for a LOGPROB launch that
+    reduces by the max: its distance from the plain version is printed
+    beside the bound, and with ``separate`` the gate must reject it (else
+    this gate could not tell the two semirings apart).  Returns (max abs
+    error, bound)."""
+    torch.cuda.synchronize()
+    reach = want > -1e8
+    if not torch.equal(got > -1e8, reach):
+        fail(f"{label}: the reachable entries differ from the plain version's")
+    if not torch.equal(got[~reach], want[~reach]):
+        fail(f"{label}: the -1e9 entries differ from the plain version's")
+    diff = (got - want)[reach].abs()
+    err = diff.max().item() if diff.numel() else 0.0
+    big = want[reach].abs() > 1.0
+    rel = (diff[big] / want[reach][big].abs()).max().item() if big.any() else 0.0
+    bound = logprob_bound(steps, scale, n_llr, n_slots, renorm)
+    print(f"{label}: max abs err {err!r}, max rel err {rel!r} (entries above 1 "
+          f"in magnitude) over {int(reach.sum())} reachable of {reach.numel()} "
+          f"entries; bound {bound!r} ({steps} steps at values up to "
+          f"{scale * (1 if renorm else steps):.1f}); "
+          f"{'within' if err <= bound else 'OUTSIDE'}", flush=True)
+    if not err <= bound:
+        fail(f"{label}: max abs err {err} beyond the f32 rounding bound {bound}")
+    if control is not None:
+        both = reach & (control > -1e8)
+        gap = (control - want)[both].abs().max().item() if both.any() else 0.0
+        print(f"  control, the tropical instantiation on the same inputs: max abs "
+              f"distance {gap!r} from the LOGPROB plain version; "
+              f"{'rejected' if gap > bound else 'NOT rejected'} by this gate"
+              + ("" if separate else " (printed, not required)"), flush=True)
+        if separate and not gap > bound:
+            fail(f"{label}: the gate does not reject the tropical instantiation "
+                 f"(distance {gap} within the bound {bound})")
+    return err, bound
+
+
+def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w):
+    """Phase 10: decode_soft at full width, K3-LOGPROB and K1-LOGPROB
+    against their plain versions, the list decode and lte-tbcc; returns
+    the K1-LOGPROB and K3-LOGPROB rows of the kernels line."""
+    import math
+
+    from repro_torch.core import ViterbiDecoder, conv_encode_torch
+    from repro_torch.core import soft
+    from repro_torch.core import timeparallel as tp
+    from repro_torch.core.channel import awgn, bpsk, llr
+    from repro_torch.core.kernel_geometry import pick_transfer_tile
+    from repro_torch.core.semiring import LOGPROB
+    from repro_torch.core.trellis import build_reverse_tables
+    from repro_torch.core.viterbi import blocks_from_llrs, forward_fused, init_metric
+    from repro_torch.kernels import viterbi_acs
+    from repro_torch.kernels.ref import acs_forward_ref, transfer_matrix_ref
+
+    t_phase = time.perf_counter()
+    dev = llrs.device
+    spec = decoder.spec
+    S, R, B = tables.n_states, tables.n_slots, tables.llr_block
+    k1, k3 = viterbi_acs.acs_forward, viterbi_acs.transfer_matrix
+    prec = decoder.precision
+    x = llrs[:F_SOFT]
+    n_info = N_FULL - (spec.k - 1)
+    T = N_FULL // 2
+    tt = pick_transfer_tile(T, decoder.transfer_tile)
+    N = T // tt
+    print(f"decode_soft input: llrs {tuple(x.shape)}, T'={T} steps, TT={tt}, "
+          f"N={N} tiles", flush=True)
+
+    # the main path: decode_soft(output="llr"), counts zeroed just before
+    for kernel in (k1, k3):
+        kernel.launches = kernel.logprob_launches = 0
+    out, paths = dispatched(lambda: decoder.decode_soft(x))
+    k3_launches, k3_all, k1_all = k3.logprob_launches, k3.launches, k1.launches
+    print(f"decode_soft(llr): dispatch {paths}; K3-LOGPROB launches "
+          f"{k3_launches} (K3 launches in all {k3_all}, K1 {k1_all})")
+    if paths != {"soft": 1}:
+        fail(f"decode_soft dispatched {paths}")
+    if (k3_launches, k3_all, k1_all) != (1, 1, 0):
+        fail(f"decode_soft launched K3-LOGPROB {k3_launches} times (K3 {k3_all}, "
+             f"K1 {k1_all}), not one K3-LOGPROB launch")
+    if out.shape != (F_SOFT, N_FULL) or out.dtype != torch.float32 \
+            or not bool(torch.isfinite(out).all()):
+        fail(f"decode_soft returned {tuple(out.shape)} {out.dtype}, or non-finite LLRs")
+    hard = (out < 0).to(torch.int32)
+    errors = int((hard[:, :n_info] != info[:F_SOFT]).sum())
+    ber = errors / (F_SOFT * n_info)
+    differ = int((hard != bits_batch[:F_SOFT]).sum())
+    print(f"soft AWGN Eb/N0={EBN0_DB} dB: {errors} bit errors in "
+          f"{F_SOFT * n_info} bits, BER {ber:.3e} (limit {BER_LIMIT:g}); "
+          f"{differ} bits differ from decode_batch's (MAP per bit against "
+          f"the ML sequence)")
+    if not ber <= BER_LIMIT:
+        fail(f"decode_soft BER {ber:.3e} above {BER_LIMIT:g}")
+    del hard
+
+    # K3-LOGPROB against its plain version on decode_soft's own blocks
+    blocks = (blocks_from_llrs(x, 2) * 0.5).contiguous()
+    m_scale = blocks.abs().sum(dim=-1).max().item() + math.log(R)
+    kw = dict(n_states=S, n_slots=R, transfer_tile=tt, semiring="logprob")
+    k3_ms = cuda_ms(lambda: k3(blocks, w, **kw))
+    m = k3(blocks, w, **kw)
+    res = {}
+    k3_plain_ms = cuda_ms(
+        lambda: res.update(m=transfer_matrix_ref(blocks, w, **kw)),
+        warmup=lambda: transfer_matrix_ref(blocks[:tt], w, **kw))
+    kw_trop = dict(kw, semiring="tropical")
+    k3_err, _ = logprob_case(
+        f"K3-LOGPROB vs plain (F={F_SOFT} T={T} TT={tt})", m, res.pop("m"),
+        tt, m_scale, B, R, False, control=k3(blocks, w, **kw_trop), separate=True)
+    # the same instantiation at a tile short enough for the f32 bound to
+    # sit orders of magnitude under the control's distance (the tile is a
+    # runtime argument: this holds the dispatch the main path launched)
+    sep = blocks[:T_SEP].contiguous()
+    kw_sep = dict(kw, transfer_tile=TT_SEP)
+    err_sep, _ = logprob_case(
+        f"K3-LOGPROB vs plain (F={F_SOFT} T={T_SEP} TT={TT_SEP})",
+        k3(sep, w, **kw_sep), transfer_matrix_ref(sep, w, **kw_sep),
+        TT_SEP, m_scale, B, R, False,
+        control=k3(sep, w, **dict(kw_sep, semiring="tropical")), separate=True)
+    k3_err = max(k3_err, err_sep)
+    # the rest of decode_soft in its stages, CUDA events
+    lam0 = init_metric(F_SOFT, S, 0, device=dev)
+    beta_end = init_metric(F_SOFT, S, None, device=dev)
+    compose = tp._compose(prec.matmul_dtype, LOGPROB)
+    flip = tp._compose(prec.matmul_dtype, LOGPROB, flip=True)
+    prefix_ms = cuda_ms(lambda: tp.associative_scan(compose, m))
+    entry = tp.entry_from_prefix(tp.associative_scan(compose, m), lam0, LOGPROB)
+    suffix_ms = cuda_ms(lambda: tp.associative_scan(flip, m, reverse=True))
+    suffix = tp.associative_scan(flip, m, reverse=True)
+    beta_start = LOGPROB.sum(suffix + beta_end[None, :, None, :], dim=-1)
+    del suffix
+    beta_tile_end = torch.cat([beta_start[1:], beta_end[None]], dim=0)
+    tiles = tp.tiled_blocks(blocks, tt).reshape(tt, N * F_SOFT, B)
+    rev = build_reverse_tables(spec, 2)
+    alpha_ms = cuda_ms(lambda: soft._alpha_scan(
+        tiles, entry.reshape(N * F_SOFT, S), tables, prec))
+    alphas = soft._alpha_scan(tiles, entry.reshape(N * F_SOFT, S), tables, prec)
+    beta_ms = cuda_ms(lambda: soft._beta_scan(
+        tiles, beta_tile_end.reshape(N * F_SOFT, S), rev, prec))
+    alphas += soft._beta_scan(tiles, beta_tile_end.reshape(N * F_SOFT, S), rev, prec)
+    joint = alphas.view(tt, N, F_SOFT, S).permute(1, 0, 2, 3).reshape(T, F_SOFT, S)
+    del alphas
+    llr_ms = cuda_ms(lambda: soft._llrs_from_joints(joint, tables))
+    staged = soft._llrs_from_joints(joint, tables)
+    if not torch.equal(staged, out):
+        fail("decode_soft in stages gives other LLRs than the call (max |diff| "
+             f"{(staged - out).abs().max().item()!r}): the stage times describe "
+             "other code")
+    print("decode_soft in stages: the same LLRs as the call")
+    del joint, staged, m, entry, beta_start, beta_tile_end, tiles
+    torch.cuda.reset_peak_memory_stats()
+    walls = sorted(host_ms(lambda: decoder.decode_soft(x))[1] for _ in range(3))
+    wall = walls[1]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"time K3-LOGPROB transfer_matrix: {k3_ms:.3f} ms (F={F_SOFT} x "
+          f"T={T} steps, TT={tt})")
+    print(f"time LOGPROB prefix scan (associative_scan): {prefix_ms:.3f} ms")
+    print(f"time LOGPROB suffix scan (reverse associative_scan): {suffix_ms:.3f} ms")
+    print(f"time alpha scan ({tt} steps x {N * F_SOFT} rows): {alpha_ms:.3f} ms")
+    print(f"time beta scan ({tt - 1} steps x {N * F_SOFT} rows): {beta_ms:.3f} ms")
+    print(f"time _llrs_from_joints ({T} x {F_SOFT} x {S}): {llr_ms:.3f} ms")
+    print(f"time decode_soft(llr) wall: {wall:.3f} ms (median of "
+          f"{', '.join(f'{t:.3f}' for t in walls)}; K3-LOGPROB {k3_ms / wall:.1%})")
+    print(f"soft decoded: {F_SOFT * N_FULL / wall / 1e3:.3f} Mb/s")
+    print(f"peak device memory over the decode_soft calls: {peak:.2f} GiB")
+    print(f"time K3-LOGPROB plain version (transfer_matrix_ref): {k3_plain_ms:.3f} ms",
+          flush=True)
+    k3_bound, k3_bound_by = acs_bound(
+        w, B, S, R, F_SOFT * T, S, False,
+        blocks.numel() * 4 + w.numel() * 4 + N * F_SOFT * S * S * 4,
+        extra_ops=N * F_SOFT * S * S * 2, semiring="logprob",
+    )
+    print(f"K3-LOGPROB bound: {k3_bound:.3f} ms ({k3_bound_by}); K3-LOGPROB at "
+          f"{k3_bound / k3_ms:.2%} of it")
+
+    # K1-LOGPROB: forward_fused(semiring=LOGPROB) on the same blocks
+    k1.launches = k1.logprob_launches = 0
+    lam_k, phi_k = forward_fused(blocks, lam0, tables, prec, semiring=LOGPROB)
+    torch.cuda.synchronize()
+    k1_launches = k1.logprob_launches
+    print(f"forward_fused(semiring=LOGPROB): K1-LOGPROB launches {k1_launches} "
+          f"(K1 launches in all {k1.launches})")
+    if (k1_launches, k1.launches) != (1, 1):
+        fail(f"forward_fused(LOGPROB) launched K1-LOGPROB {k1_launches} times")
+    kw1 = dict(n_states=S, n_slots=R, semiring="logprob")
+    k1l_ms = cuda_ms(lambda: k1(blocks, lam0, w, **kw1))
+    k1l_plain_ms = cuda_ms(
+        lambda: res.update(p=acs_forward_ref(blocks, lam0, w, **kw1)),
+        warmup=lambda: acs_forward_ref(blocks[:16], lam0, w, **kw1))
+    lam_p, phi_p = res.pop("p")
+    d = -(-(spec.k - 1) // 2)  # steps in which every state reaches every state
+    k1_scale = d * (2 * m_scale) + m_scale
+    k1_err, _ = logprob_case(
+        f"K1-LOGPROB vs plain metrics (F={F_SOFT} T={T})", lam_k, lam_p,
+        T, k1_scale, B, R, True,
+        control=k1(blocks, lam0, w, **dict(kw1, semiring="tropical"))[0])
+    # the metrics' gate at a depth where the bound tells the semirings apart
+    err_sep, _ = logprob_case(
+        f"K1-LOGPROB vs plain metrics (F={F_SOFT} T={T1_SEP})",
+        k1(blocks[:T1_SEP], lam0, w, **kw1)[0],
+        acs_forward_ref(blocks[:T1_SEP], lam0, w, **kw1)[0],
+        T1_SEP, k1_scale, B, R, True,
+        control=k1(blocks[:T1_SEP], lam0, w, **dict(kw1, semiring="tropical"))[0],
+        separate=True)
+    k1_err = max(k1_err, err_sep)
+    # survivors: a slot may differ only where the plain potentials' top two
+    # are within PHI_TIE (the metrics differ by rounding)
+    mism = (phi_k != phi_p).nonzero()
+    gap = 0.0
+    if mism.numel():
+        alphas = soft._alpha_scan(blocks, lam0, tables, prec)
+        t_i, f_i, j_i = mism.unbind(1)
+        prev = torch.where((t_i > 0)[:, None], alphas[(t_i - 1).clamp(min=0), f_i],
+                           lam0[f_i])
+        xcat = torch.cat([blocks[t_i, f_i], prev], dim=1)
+        cols = j_i[:, None] * R + torch.arange(R, device=dev)[None]
+        pot = (xcat[:, :, None] * w[:, cols].permute(1, 0, 2)).sum(dim=1)
+        top = pot.topk(2, dim=-1).values
+        gap = (top[:, 0] - top[:, 1]).max().item()
+        del alphas
+    print(f"K1-LOGPROB survivors: {mism.shape[0]} of {phi_p.numel()} differ from "
+          f"the plain version's; largest top-two potential gap among them "
+          f"{gap!r} (limit {PHI_TIE})")
+    if not gap <= PHI_TIE:
+        fail(f"K1-LOGPROB survivors differ at a potential gap of {gap}")
+    print(f"time K1-LOGPROB acs_forward: {k1l_ms:.3f} ms (F={F_SOFT} x T={T} steps)")
+    print(f"time K1-LOGPROB plain version (acs_forward_ref): {k1l_plain_ms:.3f} ms")
+    k1l_bound, k1l_bound_by = acs_bound(
+        w, B, S, R, F_SOFT * T, 1, True,
+        blocks.numel() * 4 + lam0.numel() * 4 + w.numel() * 4
+        + phi_k.numel() * phi_k.element_size() + lam_k.numel() * 4,
+        semiring="logprob",
+    )
+    print(f"K1-LOGPROB bound: {k1l_bound:.3f} ms ({k1l_bound_by}); K1-LOGPROB at "
+          f"{k1l_bound / k1l_ms:.2%} of it", flush=True)
+    del phi_k, phi_p, blocks
+
+    # the list decode: 64 frames x N_LIST stages
+    xl = x[:, :N_LIST].contiguous()
+    (lbits, lmet), paths = dispatched(
+        lambda: decoder.decode_soft(xl, output="list", n_list=L_LIST))
+    if paths != {"soft_list": 1} or lbits.shape != (F_SOFT, L_LIST, N_LIST):
+        fail(f"decode_soft(list) dispatched {paths}, returned {tuple(lbits.shape)}")
+    for label, xin in (("AWGN", xl), ("integer", quant[:F_SOFT, :N_LIST])):
+        one, _ = decoder.decode_soft(xin, output="list", n_list=1)
+        hb = decoder.decode_batch(xin, time_parallel=False)
+        if not torch.equal(one[:, 0], hb):
+            fail(f"{label} LLRs: the L=1 list decode differs from "
+                 f"decode_batch(time_parallel=False) in "
+                 f"{int((one[:, 0] != hb).sum())} bits")
+        print(f"{label} LLRs: list decode at n_list=1 == decode_batch("
+              f"time_parallel=False), {F_SOFT} x {N_LIST} stages")
+    rank0 = int((lbits[:, 0] != decoder.decode_batch(xl, time_parallel=False)).sum())
+    print(f"list decode n_list={L_LIST}: rank-0 bits differ from decode_batch's "
+          f"in {rank0} bits")
+    _, list_wall = host_ms(lambda: decoder.decode_soft(xl, output="list",
+                                                       n_list=L_LIST))
+    blocks_l = blocks_from_llrs(xl, 2)
+    lam0_l = soft.init_list_metric(init_metric(F_SOFT, S, 0, device=dev), L_LIST)
+    lf_ms = cuda_ms(lambda: soft.list_forward(blocks_l, lam0_l, tables, prec, L_LIST))
+    lam_l, phis_l = soft.list_forward(blocks_l, lam0_l, tables, prec, L_LIST)
+    lt_ms = cuda_ms(lambda: soft.list_traceback(phis_l, lam_l, tables, L_LIST))
+    del phis_l
+    print(f"time list_forward ({N_LIST // 2} steps, n_list={L_LIST}): {lf_ms:.3f} ms")
+    print(f"time list_traceback ({N_LIST // 2} steps): {lt_ms:.3f} ms")
+    print(f"time decode_soft(list, n_list={L_LIST}) wall (one sample): "
+          f"{list_wall:.3f} ms", flush=True)
+
+    # lte-tbcc: tail-biting frames through the exact circular BCJR
+    tbd = ViterbiDecoder.from_standard("lte-tbcc")
+    spec3, tb3 = tbd.spec, tbd.tables
+    k = spec3.k
+    msg = torch.randint(0, 2, (F_TBCC, N_TBCC), generator=gen, device=dev)
+    # tail-biting: the register starts with the frame's last k-1 bits
+    coded = conv_encode_torch(torch.cat([msg[:, -(k - 1):], msg], dim=1), spec3)
+    y = llr(awgn(gen, bpsk(coded[:, k - 1:]), EBN0_DB, spec3.rate),
+            EBN0_DB, spec3.rate)
+    for kernel in (k1, k3):
+        kernel.launches = kernel.logprob_launches = 0
+    out3, paths = dispatched(lambda: tbd.decode_soft(y))
+    tb_launches = k3.logprob_launches
+    print(f"lte-tbcc decode_soft: dispatch {paths}; K3-LOGPROB launches "
+          f"{tb_launches} (K3 {k3.launches}, K1 {k1.launches})")
+    if paths != {"soft": 1} or (tb_launches, k3.launches, k1.launches) != (1, 1, 0):
+        fail(f"lte-tbcc decode_soft dispatched {paths} with {tb_launches} "
+             "K3-LOGPROB launches")
+    if out3.shape != (F_TBCC, N_TBCC) or not bool(torch.isfinite(out3).all()):
+        fail(f"lte-tbcc decode_soft returned {tuple(out3.shape)} or non-finite LLRs")
+    err3 = int(((out3 < 0).to(msg.dtype) != msg).sum())
+    ber3 = err3 / msg.numel()
+    print(f"lte-tbcc AWGN Eb/N0={EBN0_DB} dB: {err3} bit errors in {msg.numel()} "
+          f"bits, BER {ber3:.3e} (limit {TBCC_BER_LIMIT:g})")
+    if not ber3 <= TBCC_BER_LIMIT:
+        fail(f"lte-tbcc BER {ber3:.3e} above {TBCC_BER_LIMIT:g}")
+    blocks3 = (blocks_from_llrs(y, 2) * 0.5).contiguous()
+    w3 = torch.as_tensor(tb3.fused_w, device=dev)
+    kw3 = dict(n_states=S, n_slots=R, transfer_tile=1, semiring="logprob")
+    k3_tb_ms = cuda_ms(lambda: k3(blocks3, w3, **kw3), reps=5)
+    a = k3(blocks3, w3, **kw3)
+    k3_tb_plain_ms = cuda_ms(lambda: res.update(a=transfer_matrix_ref(blocks3, w3, **kw3)))
+    err_tb, _ = logprob_case(
+        f"K3-LOGPROB vs plain, lte-tbcc (F={F_TBCC} T={N_TBCC // 2} TT=1, "
+        f"B={tb3.llr_block})", a, res.pop("a"), 1,
+        blocks3.abs().sum(dim=-1).max().item() + math.log(R), tb3.llr_block, R,
+        False, control=k3(blocks3, w3, **dict(kw3, semiring="tropical")))
+    walls3 = sorted(host_ms(lambda: tbd.decode_soft(y))[1] for _ in range(3))
+    print(f"time K3-LOGPROB at TT=1 (lte-tbcc, {F_TBCC} x {N_TBCC // 2} steps): "
+          f"{k3_tb_ms:.3f} ms; plain version {k3_tb_plain_ms:.3f} ms")
+    print(f"time lte-tbcc decode_soft wall: {walls3[1]:.3f} ms (median of "
+          f"{', '.join(f'{t:.3f}' for t in walls3)})")
+    print(f"phase 10 (soft) took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    shape = (f"decode_soft(llr): F={F_SOFT} x {N_FULL} stages, T={T} steps, "
+             f"TT={tt}, N={N}")
+    return [{
+        "name": "K1-LOGPROB acs_forward",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/acs_forward.cu",
+        "replaces": "src/repro/kernels/viterbi_acs.py:172",
+        "launches": k1_launches,
+        "max_abs_err": k1_err,
+        "ms": k1l_ms,
+        "shape": f"forward_fused(semiring=LOGPROB): F={F_SOFT} x T={T} steps",
+        "plain_ms": k1l_plain_ms,
+        "bound_ms": k1l_bound,
+        "bound_by": k1l_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "K3-LOGPROB transfer_matrix",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/transfer_matrix.cu",
+        "replaces": "src/repro/kernels/viterbi_acs.py:624",
+        "launches": k3_launches,
+        "max_abs_err": max(k3_err, err_tb),
+        "ms": k3_ms,
+        "shape": shape,
+        "plain_ms": k3_plain_ms,
+        "bound_ms": k3_bound,
+        "bound_by": k3_bound_by,
+        "library_ms": None,
+    }]
 
 
 def main() -> None:
@@ -870,6 +1302,7 @@ def main() -> None:
           f"emit what each emits alone, over 2 rounds (K2 launches {k2.launches})")
 
     k3_row = time_parallel_phase(decoder, llrs, gen, tables, w)
+    logprob_rows = soft_phase(decoder, llrs, info, bits, quant, gen, tables, w)
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [k1_row, {
@@ -888,7 +1321,7 @@ def main() -> None:
         "bound_ms": k2_bound,
         "bound_by": k2_bound_by,
         "library_ms": None,
-    }, k3_row]}))
+    }, k3_row, *logprob_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))

@@ -11,10 +11,12 @@ CPU.
 
 Subpackages ported so far:
   core     — trellis tables, encoder, channel, the matrix-form ACS scan,
-             traceback and the ``ViterbiDecoder`` front door (batch,
-             tiled and chunked streaming)
-  kernels  — K1, the fused ACS forward pass, and K2, the one-pass
-             ACS+traceback decode (CUDA), with their plain versions
+             traceback, the time-parallel decode, soft output (BCJR and
+             list-Viterbi) and the ``ViterbiDecoder`` front door (batch,
+             tiled and chunked streaming, soft)
+  kernels  — K1, the fused ACS forward pass, K2, the one-pass
+             ACS+traceback decode, and K3, the transfer-matrix formation
+             (CUDA; K1 and K3 also at LOGPROB), with their plain versions
   codes    — the standard-code registry (puncture patterns as data only)
   obs      — the metrics registry the decoder's dispatch counters use
 """

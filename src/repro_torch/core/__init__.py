@@ -1,7 +1,7 @@
 """Core library: the paper's tensor-formulated Viterbi decoder, as far as
 the port goes (batch decode of zero-terminated frames, sequential or
 time-parallel; tiled and chunked streaming of unpunctured open-trellis
-codes)."""
+codes; soft output: BCJR and list-Viterbi, open and tail-biting)."""
 from .trellis import (  # noqa: F401
     AcsTables,
     CodeSpec,

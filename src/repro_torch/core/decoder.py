@@ -18,10 +18,15 @@ Ported so far, for unpunctured open-trellis codes:
     ``decision_depth`` stages of lookahead.  A chunk takes K2 (one pass,
     the traceback in the kernel) when the reference's one-pass rule
     admits it, else the two-pass step (K1, then a plain traceback over
-    the ring and the chunk).
+    the ring and the chunk);
+  * ``decode_soft`` — BCJR per-bit LLRs or their hard decisions
+    (``core/soft.py``: LOGPROB transfer matrices in K3-LOGPROB, log-depth
+    scans, plain within-tile alpha and beta scans; the exact circular
+    BCJR for tail-biting frames), and top-L list-Viterbi (plain scans;
+    the WAVA list loop for tail-biting frames).
 
-The other entry points of the reference (tail-biting, punctured input,
-soft output, sharding) belong to later slices and raise
+The other entry points of the reference (tail-biting hard decode,
+punctured input, sharding) belong to later slices and raise
 ``NotImplementedError`` naming theirs.
 
 Entry points run on the card: ``device=None`` resolves to ``"cuda"`` and
@@ -198,6 +203,16 @@ class ViterbiDecoder:
     ``time_parallel`` (None: auto) and ``transfer_tile`` are the inputs
     of the time-parallel plan (``kernel_geometry.time_parallel_plan``),
     which reckons with this device's budget.
+
+    Auto-selection is per device: on the card the budget is
+    ``backend.CUDA_ROW_BUDGET`` (16,384 rows, measured on an H100), where
+    the reference uses 1,024 on any accelerator, so for 1,024 < F x S <=
+    16,384 the port's ``decode_batch`` on auto takes the time-parallel
+    path where the reference takes the sequential one.  On exactly tied
+    inputs the two paths can return different bits, and the
+    time-parallel one need not be an ML path.  Parity with the
+    reference is held per path: pass ``time_parallel=True`` or
+    ``False`` to compare like with like.
     """
 
     def __init__(
@@ -685,5 +700,121 @@ class ViterbiDecoder:
     def decode_tailbiting(self, llrs, max_iters=None, time_parallel=None):
         _later("tail-biting (WAVA) decode", "standard-codes")
 
-    def decode_soft(self, llrs, output: str = "llr", **kwargs):
-        _later("soft-output decode (BCJR, list-Viterbi)", "soft-output")
+    # -- soft output --------------------------------------------------------
+
+    def decode_soft(
+        self,
+        llrs,
+        output: str = "llr",
+        n_list: int = 4,
+        initial_state: Optional[int] = 0,
+        final_state: Optional[int] = None,
+        termination: Optional[str] = None,
+    ):
+        """Soft-output decode of (F, n, beta) LLRs on the decoder's device.
+
+        ``output`` selects:
+
+          * ``"llr"``  — (F, n) f32 per-bit BCJR LLRs (positive = bit 0,
+            the channel-LLR convention), through K3-LOGPROB when
+            ``use_kernel``;
+          * ``"bits"`` — (F, n) int32 MAP-per-bit hard decisions
+            (``llr < 0``; they may differ from ``decode_batch``'s
+            ML-sequence decisions where the channel is poor);
+          * ``"list"`` — (bits (F, L, n) int32, metrics (F, L) f32), the
+            top-``n_list`` list-Viterbi paths, metric-sorted and
+            distinct; L=1 is bit-exact with ``decode_batch`` on the
+            sequential path.
+
+        Tail-biting frames go to the exact circular BCJR (llr, bits) or
+        the WAVA list loop (list), with rho=1 tables for odd lengths;
+        ``initial_state`` and ``final_state`` are then ignored, as in
+        ``decode_batch``.  Open frames of a length not divisible by rho
+        are zero-LLR padded, and a ``final_state`` pin on padded stages
+        is refused.  Punctured codes raise through ``depunctured`` until
+        the standard-codes slice.
+        """
+        if output not in ("llr", "bits", "list"):
+            raise ValueError(
+                f"output must be 'llr', 'bits' or 'list', got {output!r}"
+            )
+        term = termination or self.termination
+        llrs = self.depunctured(
+            torch.as_tensor(llrs, device=self.device).to(torch.float32)
+        )
+        if llrs.dim() != 3 or llrs.shape[2] != self.spec.beta:
+            raise InvalidInputError(
+                f"decode_soft expects (F, n, beta={self.spec.beta}) LLRs, "
+                f"got shape {tuple(llrs.shape)}",
+                reason="shape",
+            )
+        llrs = self._harden(llrs)
+        F, n, _ = llrs.shape
+        if self.validate_inputs and not self.precision.renorm:
+            batch_headroom_check(
+                self.precision,
+                -(-n // self.rho),
+                float(llrs.abs().max()) if llrs.numel() else 0.0,
+                self.rho,
+                llrs.shape[2],
+            )
+        if term == "tailbiting":
+            tables = (
+                self.tables if n % self.rho == 0
+                else build_acs_tables(self.spec, 1)
+            )
+            if output == "list":
+                from .soft import wava_list_decode
+
+                _count_dispatch("soft_list")
+                bits, metrics, _ = wava_list_decode(
+                    llrs, tables, n_list, self.precision, device=self.device
+                )
+                return bits, metrics
+            from .soft import bcjr_circular_llrs
+
+            _count_dispatch("soft")
+            out = bcjr_circular_llrs(
+                llrs, tables, self.precision, use_kernel=self.use_kernel,
+                device=self.device,
+            )
+            return out if output == "llr" else (out < 0).to(torch.int32)
+        pad = (-n) % self.rho
+        if pad:
+            if final_state is not None:
+                raise ValueError(
+                    f"final_state requires n divisible by rho={self.rho}; "
+                    f"got n={n} (the pin would land on padded stages)"
+                )
+            llrs = tnf.pad(llrs, (0, 0, 0, pad))
+        if output == "list":
+            from .soft import list_decode
+
+            _count_dispatch("soft_list")
+            bits, metrics = list_decode(
+                llrs,
+                self.spec,
+                n_list=n_list,
+                rho=self.rho,
+                initial_state=initial_state,
+                final_state=final_state,
+                precision=self.precision,
+                device=self.device,
+            )
+            return (bits[:, :, :n] if pad else bits), metrics
+        from .soft import bcjr_llrs
+
+        _count_dispatch("soft")
+        out = bcjr_llrs(
+            llrs,
+            self.spec,
+            rho=self.rho,
+            initial_state=initial_state,
+            final_state=final_state,
+            precision=self.precision,
+            transfer_tile=self.transfer_tile,
+            use_kernel=self.use_kernel,
+            device=self.device,
+        )
+        out = out[:, :n] if pad else out
+        return out if output == "llr" else (out < 0).to(torch.int32)

@@ -1,10 +1,19 @@
 """Semiring of the fused ACS recurrence (paper §V; the reference's
 ``core/semiring.py``).
 
-Only ``TROPICAL`` (max-plus: hard-decision Viterbi) is ported.
-``LOGPROB`` (log-sum-exp, the BCJR alpha recursion) comes with the
-soft-output slice, together with the LOGPROB variants of K1 and K3;
-asking for it raises ``NotImplementedError`` until then.
+Two instances, as in the reference:
+
+  * ``TROPICAL`` — max-plus: sum = max.  Hard-decision Viterbi, and the
+    bit-exact default everywhere;
+  * ``LOGPROB`` — log-sum-exp: sum = ``m + log(sum(exp(x - m)))`` with
+    ``m = max(x)``, the BCJR forward-backward recursions
+    (``core/soft.py``).  It is written out in the reference's form, not
+    as ``torch.logsumexp``, so that both packages and the CUDA kernels
+    (K1 and K3 at LOGPROB) round the same steps.
+
+Both share the additive identity ``NEG`` (the off-trellis score, a
+finite stand-in for -inf whose ``exp(NEG - m)`` is exactly 0) and the
+multiplicative identity 0.
 """
 from __future__ import annotations
 
@@ -15,7 +24,10 @@ import torch
 
 from .backend import resolve_device
 
-__all__ = ["NEG", "Semiring", "TROPICAL", "check_semiring", "COMPOSE_TEMP_BYTES"]
+__all__ = [
+    "NEG", "Semiring", "TROPICAL", "LOGPROB", "get_semiring",
+    "check_semiring", "COMPOSE_TEMP_BYTES",
+]
 
 # the off-trellis score: a finite stand-in for -inf that keeps the
 # arithmetic NaN-free (the reference's value, as an f32)
@@ -26,30 +38,35 @@ NEG = -1.0e9
 # time-parallel stream is gigabytes
 COMPOSE_TEMP_BYTES = 256 * 2**20
 
+# the semirings' names, also the kernels' selectors; ``_BY_NAME`` is built from them
+_NAMES = ("logprob", "tropical")
+
 
 def check_semiring(name: str) -> None:
-    """Raise unless ``name`` is a semiring the port implements."""
-    if name == "logprob":
-        raise NotImplementedError(
-            "the LOGPROB semiring (and the logsumexp variants of K1 and K3) "
-            "belongs to the soft-output slice of the port"
+    """Raise ``ValueError`` unless ``name`` is a semiring of the port."""
+    if name not in _NAMES:
+        raise ValueError(
+            f"unknown semiring {name!r}; expected one of {list(_NAMES)}"
         )
-    if name != "tropical":
-        raise ValueError(f"unknown semiring {name!r}; expected 'tropical'")
 
 
 @dataclasses.dataclass(frozen=True)
 class Semiring:
-    """A commutative semiring on log-domain f32 scores; ``prod`` is ``+``."""
+    """A commutative semiring on log-domain f32 scores; ``prod`` is ``+``,
+    so only the reductions (``sum``) differ between the instances."""
 
-    name: str  # also the kernel-side selector
+    name: str  # "tropical" | "logprob", also the kernel-side selector
 
     def __post_init__(self):
         check_semiring(self.name)
 
     def sum(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """Semiring sum-reduce along ``dim``: max."""
-        return x.amax(dim=dim)
+        """Semiring sum-reduce along ``dim``: max, or the max-normalised
+        logsumexp ``m + log(sum(exp(x - m)))``."""
+        m = x.amax(dim=dim)
+        if self.name == "tropical":
+            return m
+        return m + torch.log(torch.exp(x - m.unsqueeze(dim)).sum(dim=dim))
 
     def matmul(
         self,
@@ -62,8 +79,8 @@ class Semiring:
         Operands are quantised to ``matmul_dtype`` and the sums taken in
         f32, as in the reference.  The batch is worked through in chunks
         whose (chunk, n, k, m) temporary stays under ``COMPOSE_TEMP_BYTES``;
-        every output is a max over exact elementwise sums, so the chunking
-        leaves the bits unchanged.
+        every output is a reduction over its own elementwise sums, which
+        no chunk shares, so the chunking leaves every value unchanged.
         """
         a = a.to(matmul_dtype).to(torch.float32)
         b = b.to(matmul_dtype).to(torch.float32)
@@ -94,4 +111,12 @@ class Semiring:
         )
 
 
-TROPICAL = Semiring("tropical")
+_BY_NAME = {name: Semiring(name) for name in _NAMES}
+TROPICAL = _BY_NAME["tropical"]
+LOGPROB = _BY_NAME["logprob"]
+
+
+def get_semiring(name: str) -> Semiring:
+    """Resolve a semiring by its kernel-side name."""
+    check_semiring(name)
+    return _BY_NAME[name]

@@ -25,6 +25,10 @@ frames alone leave the card idle.
 ``associative_scan`` copies ``jax.lax.associative_scan``'s pairing tree:
 the compose quantises its operands to the matmul dtype, so which pairs
 are composed decides how the f32 entry metrics round.
+
+The formation and the scans take a ``Semiring``: at ``LOGPROB`` (the
+logsumexp compose, K3-LOGPROB) they are the blocked BCJR of
+``core/soft.py``.
 """
 from __future__ import annotations
 
@@ -118,11 +122,14 @@ def transfer_matrices(
     use_kernel: bool = True,
     semiring: Semiring = TROPICAL,
 ) -> torch.Tensor:
-    """Per-tile transfer matrices M (N, F, S, S), normalised per
-    (tile, frame) by their max entry (a constant per frame and tile,
-    invisible to every argmax downstream).  ``use_kernel`` (default)
-    forms them in K3 — the CUDA kernel on the card, its plain version on
-    the CPU; ``use_kernel=False`` runs the plain version directly."""
+    """Per-tile transfer matrices M (N, F, S, S) of ``semiring``: the
+    best path metric (TROPICAL) or the total log-score (LOGPROB, the
+    BCJR) from entry state i to exit state j over each tile, normalised
+    per (tile, frame) by their max entry (a constant per frame and tile,
+    invisible to every argmax downstream and cancelled per boundary in
+    the BCJR's LLRs).  ``use_kernel`` (default) forms them in K3 — the
+    CUDA kernel on the card, its plain version on the CPU;
+    ``use_kernel=False`` runs the plain version directly."""
     transfer_tile = transfer_tile or pick_transfer_tile(blocks.shape[0])
     if use_kernel:
         from repro_torch.kernels import ops as kernel_ops
@@ -142,10 +149,16 @@ def transfer_matrices(
         carry_dtype=precision.carry_dtype,
         matmul_dtype=precision.matmul_dtype,
         split_dot=precision.split_dot,
+        semiring=semiring.name,
     )
 
 
-def _compose(matmul_dtype, semiring: Semiring = TROPICAL):
+def _compose(matmul_dtype, semiring: Semiring = TROPICAL, flip: bool = False):
+    """The semiring matmul as a scan operator.  A reverse scan hands the
+    later element in as the left operand, so ``flip`` swaps the operands
+    to keep the products in stream order."""
+    if flip:
+        return lambda a, b: semiring.matmul(b, a, matmul_dtype=matmul_dtype)
     return functools.partial(semiring.matmul, matmul_dtype=matmul_dtype)
 
 
@@ -179,13 +192,9 @@ def _suffix_to_final(
 ) -> torch.Tensor:
     """v (N, F, S): best metric from state s at the start of tile p to
     ``final_state`` at the stream end — the reverse scan of the same
-    matmul, at the final state's column.  The reverse scan hands the
-    later element in as the left operand, so the compose is flipped to
-    keep the products in stream order: suffix_p = M_p o ... o M_{N-1}."""
-    def compose(a, b):
-        return tropical_matmul(b, a, matmul_dtype=matmul_dtype)
-
-    suffix = associative_scan(compose, m, reverse=True)
+    matmul, flipped, at the final state's column:
+    suffix_p = M_p o ... o M_{N-1}."""
+    suffix = associative_scan(_compose(matmul_dtype, flip=True), m, reverse=True)
     idx = final_state.to(device=m.device, dtype=torch.int64)
     idx = idx[None, :, None, None].expand(*suffix.shape[:-1], 1)
     return suffix.gather(-1, idx)[..., 0]

@@ -9,7 +9,8 @@ The fused ACS tables below are the decoder's only "parameters": the
 stacked operand W = [theta_t ; pred_onehot] of the per-step matmul.
 ``tables_from_numpy`` rebuilds them from arrays made elsewhere (for
 example by the JAX reference), so the two packages can be held to the
-same tables.
+same tables; ``reverse_tables_from_numpy`` does the same for the
+time-reversed tables of the BCJR beta recursion (``ReverseTables``).
 """
 from __future__ import annotations
 
@@ -24,10 +25,13 @@ __all__ = [
     "CODE_K7_CCSDS",
     "Transitions",
     "AcsTables",
+    "ReverseTables",
     "build_transitions",
     "build_acs_tables",
+    "build_reverse_tables",
     "superbranch_output_bits",
     "tables_from_numpy",
+    "reverse_tables_from_numpy",
 ]
 
 
@@ -207,12 +211,110 @@ def build_acs_tables(spec: CodeSpec, rho: int = 2) -> AcsTables:
     )
 
 
+@dataclasses.dataclass(frozen=True, eq=False)  # arrays: compare by identity
+class ReverseTables:
+    """Tables for the time-reversed fused step (the BCJR beta recursion).
+
+        beta_t[i] = lse_v ( branch(i, v) + beta_{t+1}[succ(i, v)] )
+
+    is the forward step's matmul shape with predecessor and successor
+    swapped: column (i*R + v) of theta_rev holds the +-1 output pattern
+    of the super-branch leaving state i on the rho input bits of v
+    (chronological, LSB-first), and succ_onehot routes beta_{t+1} from
+    succ(i, v) = (v << (k-1-rho)) | (i >> rho).
+    """
+
+    spec: CodeSpec
+    rho: int
+    theta_rev: np.ndarray  # (rho*beta, S*R) float32, +-1
+    succ_onehot: np.ndarray  # (S, S*R) float32, one-hot
+    succ_state: np.ndarray  # (S, R) int32
+
+    @property
+    def n_states(self) -> int:
+        return self.spec.n_states
+
+    @property
+    def n_slots(self) -> int:
+        return 1 << self.rho
+
+    @property
+    def llr_block(self) -> int:
+        return self.rho * self.spec.beta
+
+    @property
+    def fused_w(self) -> np.ndarray:
+        """The stacked (B+S, S*R) operand of the reversed fused matmul."""
+        return np.concatenate([self.theta_rev, self.succ_onehot], axis=0)
+
+
+@functools.lru_cache(maxsize=64)
+def build_reverse_tables(spec: CodeSpec, rho: int = 2) -> ReverseTables:
+    _check_rho(spec, rho)
+    S = spec.n_states
+    R = 1 << rho
+    B = rho * spec.beta
+
+    theta_rev = np.zeros((B, S * R), dtype=np.float32)
+    succ_onehot = np.zeros((S, S * R), dtype=np.float32)
+    succ_state = np.zeros((S, R), dtype=np.int32)
+
+    tr = build_transitions(spec)
+    for i in range(S):
+        for v in range(R):
+            in_bits = [(v >> b) & 1 for b in range(rho)]  # chronological
+            s = i
+            for u in in_bits:
+                s = int(tr.next_state[s, u])
+            col = i * R + v
+            succ_state[i, v] = s
+            bits = superbranch_output_bits(spec, i, in_bits)
+            theta_rev[:, col] = [(-1.0) ** b for b in bits]
+            succ_onehot[s, col] = 1.0
+
+    return ReverseTables(
+        spec=spec,
+        rho=rho,
+        theta_rev=theta_rev,
+        succ_onehot=succ_onehot,
+        succ_state=succ_state,
+    )
+
+
 _TABLE_DTYPES = {
     "theta_t": np.float32,
     "pred_onehot": np.float32,
     "pred_state": np.int32,
     "dec_bits": np.int32,
+    "theta_rev": np.float32,
+    "succ_onehot": np.float32,
+    "succ_state": np.int32,
 }
+
+
+def _carry_arrays(who, spec, rho, arrays, shapes):
+    """The named arrays, shape-checked against (spec, rho) and cast to
+    the tables' dtypes."""
+    missing = sorted(set(shapes) - set(arrays))
+    if missing:
+        raise ValueError(f"{who}: missing arrays {missing}")
+    fields = {}
+    for name, shape in shapes.items():
+        a = np.asarray(arrays[name])
+        if a.shape != shape:
+            raise ValueError(
+                f"{who}: {name} has shape {a.shape}, "
+                f"expected {shape} for k={spec.k}, rho={rho}"
+            )
+        fields[name] = np.array(a, dtype=_TABLE_DTYPES[name])
+    return fields
+
+
+def _check_fused_w(who, arrays, tables):
+    if "fused_w" in arrays and not np.array_equal(
+        np.asarray(arrays["fused_w"], np.float32), tables.fused_w
+    ):
+        raise ValueError(f"{who}: fused_w is not the stack of its halves")
 
 
 def tables_from_numpy(
@@ -231,23 +333,30 @@ def tables_from_numpy(
         "pred_state": (S, R),
         "dec_bits": (S, rho),
     }
-    missing = sorted(set(shapes) - set(arrays))
-    if missing:
-        raise ValueError(f"tables_from_numpy: missing arrays {missing}")
-    fields = {}
-    for name, shape in shapes.items():
-        a = np.asarray(arrays[name])
-        if a.shape != shape:
-            raise ValueError(
-                f"tables_from_numpy: {name} has shape {a.shape}, "
-                f"expected {shape} for k={spec.k}, rho={rho}"
-            )
-        fields[name] = np.array(a, dtype=_TABLE_DTYPES[name])
-    tables = AcsTables(spec=spec, rho=rho, **fields)
-    if "fused_w" in arrays and not np.array_equal(
-        np.asarray(arrays["fused_w"], np.float32), tables.fused_w
-    ):
-        raise ValueError(
-            "tables_from_numpy: fused_w is not [theta_t ; pred_onehot]"
-        )
+    who = "tables_from_numpy"
+    tables = AcsTables(
+        spec=spec, rho=rho, **_carry_arrays(who, spec, rho, arrays, shapes)
+    )
+    _check_fused_w(who, arrays, tables)
+    return tables
+
+
+def reverse_tables_from_numpy(
+    spec: CodeSpec, rho: int, arrays: Dict[str, np.ndarray]
+) -> ReverseTables:
+    """``tables_from_numpy`` for ``ReverseTables``: ``arrays`` holds
+    ``theta_rev``, ``succ_onehot`` and ``succ_state``, and may hold
+    ``fused_w``, which must then equal their stack."""
+    _check_rho(spec, rho)
+    S, R, B = spec.n_states, 1 << rho, rho * spec.beta
+    shapes = {
+        "theta_rev": (B, S * R),
+        "succ_onehot": (S, S * R),
+        "succ_state": (S, R),
+    }
+    who = "reverse_tables_from_numpy"
+    tables = ReverseTables(
+        spec=spec, rho=rho, **_carry_arrays(who, spec, rho, arrays, shapes)
+    )
+    _check_fused_w(who, arrays, tables)
     return tables

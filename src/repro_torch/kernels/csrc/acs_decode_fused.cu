@@ -15,14 +15,20 @@
 // (the newest D steps) is written back in time order.  The survivors never
 // reach device memory except as that ring.
 //
-// What bounds it on this card: the ACS operations, as for K1
-// (2*(B+S)*S*R flops per frame and step, 5.8e11 over 512 frames x 32768
-// steps, about 8.7 ms at the 67 TFLOP/s non-tensor f32 peak), against
-// the LLRs in, the bits out and one ring in and out per call (under
-// 0.5 GB at that shape).  What this simple design runs into instead: the
-// W reads from shared memory in the ACS (as K1), and the walk, a chain of
-// D+TT dependent loads per tile that one thread per frame follows while
-// the rest of the block waits.
+// Tropical only: the reference's K2 has no semiring argument, and its
+// wrapper takes none.
+//
+// What bounds it on this card, counted from the work the step needs
+// (chip_smoke.py's `acs_bound`), not from the dense matmul: K1's step,
+// 703 f32 operations per frame-step at ccsds-k7, rho=2 (the walk's
+// integer work is not counted), 0.176 ms over the decode_64k stream
+// (512 frames x 32768 steps) at the 67 TFLOP/s non-tensor f32 peak,
+// against 0.292 ms for the bytes (256 MiB of LLRs in, 32 MiB of bits out,
+// and the entry and exit ring of each of its 16 launches, 640 MiB, at
+// 3.35 TB/s): bound by bytes.  What this simple design runs into instead:
+// the dense product's W reads from shared memory in the ACS (as K1), and
+// the walk, a chain of D+TT dependent loads per tile that one thread per
+// frame follows while the rest of the block waits.
 //
 // Design (simple and right first):
 //   * one block owns BF frames for the whole T loop, as K1 does, so the

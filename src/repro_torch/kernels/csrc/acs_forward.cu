@@ -2,11 +2,11 @@
 // (sm_90a).
 //
 // Replaces the Pallas TPU kernel `acs_forward_pallas` (body `_acs_kernel`)
-// in src/repro/kernels/viterbi_acs.py.  Same contract: for each of T radix
-// steps, per frame f and state j,
+// in src/repro/kernels/viterbi_acs.py, both of its semirings.  Same
+// contract: for each of T radix steps, per frame f and state j,
 //
 //     pot[r]   = sum_k x[k] * W[k, j*R + r],   x = [L_t | Lambda] (B+S)
-//     Lambda'  = max_r pot[r]
+//     Lambda'  = max_r pot[r]     (LOGPROB: the logsumexp over r)
 //     phi[t,f,j] = first argmax_r pot[r]
 //
 // with x rounded to the matmul dtype, products and sums in f32 (no TF32),
@@ -14,13 +14,31 @@
 // carry dtype.  phi is written as int8 slots, or 16 slots per int32 word at
 // SLOT_BITS[R] bits each.
 //
-// What bounds it on this card: the dot products.  A step does
-// 2*(B+S)*S*R flops per frame (5.8e11 flops over the 512-frame x
-// 32768-step benchmark shape, about 8.7 ms at the 67 TFLOP/s non-tensor
-// f32 peak), against 1.25 GiB of HBM traffic (about 0.4 ms), so it is
-// bound by operations; and since every thread streams its R columns of W
-// from shared memory for every step, shared-memory bandwidth is what the
-// simple design below actually runs into.
+// LOGPROB variant (the same kernel, instantiated with kLogprob): the
+// slot max becomes the max-normalised logsumexp of acs_step.cuh, as the
+// reference's `_acs_kernel` does with semiring="logprob" (its
+// `forward_fused(semiring=LOGPROB, use_kernel=True)`, the BCJR alpha
+// recursion); phi still carries the first argmax, the renorm is still
+// the frame max.  expf/logf, no fast math (see acs_step.cuh).
+//
+// What bounds it on this card, counted from the work the step needs
+// (chip_smoke.py's `acs_bound`), not from the dense matmul below: per
+// frame-step the 16 distinct branch metrics once (2 operations per
+// nonzero weight: 128 at ccsds-k7, rho=2), then per state R adds and R-1
+// compares, and the renorm's 2S-1: 703 f32 operations.  At the decode_64k
+// shape (512 frames x 32768 steps) that is 0.176 ms at the 67 TFLOP/s
+// non-tensor f32 peak, against 0.401 ms for the bytes (256 MiB of LLRs
+// in, 1 GiB of int8 survivors out, at 3.35 TB/s): bound by bytes.  The
+// LOGPROB variant adds per state R-1 expf (exp(best - best) = 1 needs
+// none), counted at the special-function rate (16 a clock per SM, 132
+// SMs at 1.98 GHz: 4.18e12/s), and 2R f32 operations (the differences,
+// the sum, the logf counted as one, the final add); at 64 frames x 32768
+// steps that is 0.096 ms of special functions against 0.045 ms of bytes
+// and 0.038 ms of f32 work: bound by operations.  The kernel does the
+// dense product instead, 2*(B+S)*S*R flops per frame-step (50x the
+// tropical count at ccsds-k7), and every thread streams its R columns of
+// W from shared memory each step, so shared-memory bandwidth is what
+// this simple design runs into.
 //
 // Design (simple and right first):
 //   * one block per tile of BF = 256/S frames, one thread per (frame, state);
@@ -49,7 +67,7 @@ size_t smem_floats(int B, int S, int R, int BF) {
          + (size_t)BF * warps_per_frame(S);  // renorm partial maxima
 }
 
-template <int R>
+template <int R, int SEMI>
 __global__ void __launch_bounds__(1024) acs_forward_kernel(
     const float* __restrict__ blocks,  // (T, F, B)
     const float* __restrict__ lam0,    // (F, S)
@@ -97,8 +115,8 @@ __global__ void __launch_bounds__(1024) acs_forward_kernel(
       __syncthreads();  // stage and x_s complete
 
       int arg;
-      float best = acs_best<R>(l_s + (tt * BF + fl) * B, x_s + fl * S, wcol,
-                               B, S, arg);
+      float best = acs_best<R, SEMI>(l_s + (tt * BF + fl) * B, x_s + fl * S,
+                                     wcol, B, S, arg);
 
       if (phi32 != nullptr) {
         const unsigned v = pack_word(arg, j, slot_bits);
@@ -114,18 +132,19 @@ __global__ void __launch_bounds__(1024) acs_forward_kernel(
   if (live) lam_out[frame * S + j] = lam;
 }
 
-template <int R>
+template <int R, int SEMI>
 cudaError_t launch(const float* blocks, const float* lam0, const float* w,
                    float* lam_out, void* phi, int T, int F, int B, int S,
                    int BF, int mm_dtype, int carry_dtype, int renorm,
                    int packed, int slot_bits, cudaStream_t stream) {
   const size_t smem = smem_floats(B, S, R, BF) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      acs_forward_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      acs_forward_kernel<R, SEMI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((F + BF - 1) / BF));
   const dim3 block((unsigned)(BF * S));
-  acs_forward_kernel<R><<<grid, block, smem, stream>>>(
+  acs_forward_kernel<R, SEMI><<<grid, block, smem, stream>>>(
       blocks, lam0, w, lam_out,
       packed ? nullptr : static_cast<int8_t*>(phi),
       packed ? static_cast<int32_t*>(phi) : nullptr,
@@ -145,30 +164,23 @@ long long acs_forward_smem_bytes(int B, int S, int R, int BF) {
 // Launches K1 on `stream` (a cudaStream_t) and returns the launch's
 // cudaError_t.  Does not synchronise and allocates nothing: the caller
 // owns every buffer.  BF * S threads per block; BF*S must be a multiple
-// of 32 and at most 1024, and S % 16 == 0 when `packed`.
+// of 32 and at most 1024, and S % 16 == 0 when `packed`.  `semiring` is
+// kTropical (0) or kLogprob (1).
 int acs_forward_launch(const float* blocks, const float* lam0, const float* w,
                        float* lam_out, void* phi, int T, int F, int B, int S,
                        int R, int BF, int mm_dtype, int carry_dtype,
-                       int renorm, int packed, int device, void* stream) {
+                       int renorm, int packed, int semiring, int device,
+                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (R) {
-    case 2:
-      return (int)launch<2>(blocks, lam0, w, lam_out, phi, T, F, B, S, BF,
-                            mm_dtype, carry_dtype, renorm, packed, 1, s);
-    case 4:
-      return (int)launch<4>(blocks, lam0, w, lam_out, phi, T, F, B, S, BF,
-                            mm_dtype, carry_dtype, renorm, packed, 2, s);
-    case 8:
-      return (int)launch<8>(blocks, lam0, w, lam_out, phi, T, F, B, S, BF,
-                            mm_dtype, carry_dtype, renorm, packed, 3, s);
-    case 16:
-      return (int)launch<16>(blocks, lam0, w, lam_out, phi, T, F, B, S, BF,
-                             mm_dtype, carry_dtype, renorm, packed, 4, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)with_radix_and_semiring(R, semiring, [&](auto r, auto semi) {
+    constexpr int kR = decltype(r)::value;
+    constexpr int kSlotBits = kR == 2 ? 1 : kR == 4 ? 2 : kR == 8 ? 3 : 4;
+    return launch<kR, decltype(semi)::value>(
+        blocks, lam0, w, lam_out, phi, T, F, B, S, BF, mm_dtype, carry_dtype,
+        renorm, packed, kSlotBits, s);
+  });
 }
 
 const char* acs_forward_error_string(int err) {

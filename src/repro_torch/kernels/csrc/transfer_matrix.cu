@@ -1,26 +1,49 @@
-// K3 — per-tile tropical transfer matrices of the time-parallel decode,
-// hand-written for Hopper (sm_90a).
+// K3 — per-tile semiring transfer matrices of the time-parallel decode
+// (tropical) and of the blocked BCJR (LOGPROB), hand-written for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel `transfer_matrix_pallas` (body
-// `_transfer_kernel`) in src/repro/kernels/viterbi_acs.py.  Same contract:
+// `_transfer_kernel`) in src/repro/kernels/viterbi_acs.py, both of its
+// semirings.  Same contract:
 // for tile n of TT radix steps and frame f, start from the identity
 // (0 on the diagonal, -1e9 elsewhere) and run TT fused ACS steps with the
 // entry-state axis folded into the rows, so that row (f, i) carries the
 // best metric from entry state i:
 //
 //     pot[r]     = sum_k x[k] * W[k, j*R + r],   x = [L_t(f) | M(f, i, :)]
-//     M'(f,i,j)  = max_r pot[r]
+//     M'(f,i,j)  = max_r pot[r]     (LOGPROB: the logsumexp over r)
 //
 // with x rounded to the matmul dtype (with split_dot the M half stays f32,
 // and so do W's routing rows), products and sums in f32 (no TF32), the
 // carry rounded to the carry dtype after every step and no renorm.  At the
 // end each (tile, frame) matrix is shifted by its own max over S x S.
 //
-// What bounds it on this card: the dot products.  A step does
-// 2*S*(B+S)*S*R flops per frame, S times K1's: at the time-parallel
-// latency shape (16 frames x 262,144 steps of ccsds-k7) that is 9.35e12
-// flops, 139.5 ms at the 67 TFLOP/s non-tensor f32 peak, against 64 MiB
-// of LLRs in and 128 MiB of matrices out (0.06 ms).  As in K1, every
+// LOGPROB variant (the same kernel, instantiated with kLogprob): the slot
+// max becomes the max-normalised logsumexp of acs_step.cuh, as the
+// reference's `_transfer_kernel` does with semiring="logprob".  Its
+// callers are the BCJR paths: `soft.bcjr_llrs` (tiles of
+// `pick_transfer_tile` steps) and `soft.bcjr_circular_llrs` (one step a
+// tile).  The identity's -1e9 entries stay unreachable: expf(-1e9 - m)
+// is exactly 0, so they add nothing to a reachable entry, and an entry
+// with no reachable predecessor stays within rounding of -1e9.  expf/logf,
+// no fast math (see acs_step.cuh).
+//
+// What bounds it on this card, counted from the work the step needs
+// (chip_smoke.py's `acs_bound`), not from the dense matmul below: per
+// frame-step the 16 distinct branch metrics once (128 operations at
+// ccsds-k7, rho=2), then for each of the S entry rows and each state R
+// adds and R-1 compares (28,672), no renorm, and each (tile, frame)'s
+// final max and subtraction over S x S.  At the time-parallel latency
+// shape (16 frames x 262,144 steps) that is 1.804 ms at the 67 TFLOP/s
+// non-tensor f32 peak, against 0.06 ms for the bytes (64 MiB of LLRs in,
+// 128 MiB of matrices out): bound by operations.  The LOGPROB variant
+// adds per (entry row, state) R-1 expf (exp(best - best) = 1 needs
+// none), counted at the special-function rate (16 a clock per SM, 132
+// SMs at 1.98 GHz: 4.18e12/s), and 2R f32 operations (the logf counted
+// as one): at the soft shape (64 frames x 32,768 steps) 6.16 ms of
+// special functions against 1.9 ms of f32 work, so bound by operations.
+// The kernel does the dense product instead, 2*S*(B+S)*S*R flops per
+// frame-step (78x the tropical count at ccsds-k7); as in K1, every
 // (row, state) pair streams its R columns of W from shared memory each
 // step, so shared-memory bandwidth is what this design runs into.
 //
@@ -58,7 +81,7 @@ size_t smem_floats(int B, int S, int R, int BF) {
          + (size_t)BF;                     // frame maxima
 }
 
-template <int R>
+template <int R, int SEMI>
 __global__ void __launch_bounds__(kThreads) transfer_matrix_kernel(
     const float* __restrict__ blocks,  // (T, F, B)
     const float* __restrict__ w,       // (B+S, S*R)
@@ -111,9 +134,9 @@ __global__ void __launch_bounds__(kThreads) transfer_matrix_kernel(
         const int j = e - row * S;
         const int fl = row / S;
         int arg;
-        float best = acs_best<R>(l_s + (tt * BF + fl) * B,
-                                 cur + (size_t)row * S, w_s + j * R, B, S,
-                                 arg);
+        float best = acs_best<R, SEMI>(l_s + (tt * BF + fl) * B,
+                                       cur + (size_t)row * S, w_s + j * R,
+                                       B, S, arg);
         best = round_to(best, carry_dtype);
         // the next step's dot reads the carry in the matmul dtype
         nxt[e] = (last || split_dot) ? best : round_to(best, mm_dtype);
@@ -147,17 +170,17 @@ __global__ void __launch_bounds__(kThreads) transfer_matrix_kernel(
   for (int e = tid; e < items; e += blockDim.x) out[e] = cur[e] - peak_s[e / SS];
 }
 
-template <int R>
+template <int R, int SEMI>
 cudaError_t launch(const float* blocks, const float* w, float* m_out, int T,
                    int F, int B, int S, int TT, int BF, int mm_dtype,
                    int carry_dtype, int split_dot, size_t smem,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      transfer_matrix_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      transfer_matrix_kernel<R, SEMI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)(T / TT), (unsigned)((F + BF - 1) / BF));
-  transfer_matrix_kernel<R><<<grid, kThreads, smem, stream>>>(
+  transfer_matrix_kernel<R, SEMI><<<grid, kThreads, smem, stream>>>(
       blocks, w, m_out, F, B, S, TT, BF, mm_dtype, carry_dtype, split_dot);
   return cudaGetLastError();
 }
@@ -169,11 +192,13 @@ extern "C" {
 // Launches K3 on `stream` (a cudaStream_t) and returns the launch's
 // cudaError_t.  Does not synchronise and allocates nothing: the caller owns
 // every buffer.  T % TT == 0; `smem_bytes` is kernel_geometry.k3_smem_bytes
-// and must hold the layout above.
+// and must hold the layout above; `semiring` is kTropical (0) or
+// kLogprob (1).
 int transfer_matrix_launch(const float* blocks, const float* w, float* m_out,
                            int T, int F, int B, int S, int R, int TT, int BF,
                            int mm_dtype, int carry_dtype, int split_dot,
-                           long long smem_bytes, int device, void* stream) {
+                           int semiring, long long smem_bytes, int device,
+                           void* stream) {
   if (TT <= 0 || T % TT != 0 || BF <= 0 ||
       smem_bytes < (long long)(smem_floats(B, S, R, BF) * sizeof(float)))
     return (int)cudaErrorInvalidValue;
@@ -181,22 +206,11 @@ int transfer_matrix_launch(const float* blocks, const float* w, float* m_out,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = (size_t)smem_bytes;
-  switch (R) {
-    case 2:
-      return (int)launch<2>(blocks, w, m_out, T, F, B, S, TT, BF, mm_dtype,
-                            carry_dtype, split_dot, smem, s);
-    case 4:
-      return (int)launch<4>(blocks, w, m_out, T, F, B, S, TT, BF, mm_dtype,
-                            carry_dtype, split_dot, smem, s);
-    case 8:
-      return (int)launch<8>(blocks, w, m_out, T, F, B, S, TT, BF, mm_dtype,
-                            carry_dtype, split_dot, smem, s);
-    case 16:
-      return (int)launch<16>(blocks, w, m_out, T, F, B, S, TT, BF, mm_dtype,
-                             carry_dtype, split_dot, smem, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)with_radix_and_semiring(R, semiring, [&](auto r, auto semi) {
+    return launch<decltype(r)::value, decltype(semi)::value>(
+        blocks, w, m_out, T, F, B, S, TT, BF, mm_dtype, carry_dtype,
+        split_dot, smem, s);
+  });
 }
 
 const char* transfer_matrix_error_string(int err) {

@@ -43,7 +43,8 @@ def viterbi_forward(
     pack_survivors: bool = False,
     semiring: str = "tropical",
 ):
-    """K1-backed fused forward.
+    """K1-backed fused forward; ``semiring`` ("tropical" or "logprob")
+    selects the slot reduction.
 
     Returns (lam (F,S) f32, phi) with phi (T, F, S) int8 slot indices, or
     (T, F, S//16) int32 PACKED words when ``pack_survivors`` —
@@ -108,9 +109,9 @@ def viterbi_transfer_matrices(
     transfer_tile: int,
     semiring: str = "tropical",
 ):
-    """K3-backed transfer-matrix formation: per-tile tropical transfer
-    matrices M (N, F, S, S) f32, each (tile, frame) normalised by its
-    max.  The blocks are rounded to ``precision.channel_dtype`` first, as
+    """K3-backed transfer-matrix formation: per-tile transfer matrices
+    M (N, F, S, S) f32 of ``semiring``, each (tile, frame) normalised by
+    its max.  The blocks are rounded to ``precision.channel_dtype`` first, as
     in the reference; ``split_dot`` is honoured."""
     precision = precision or AcsPrecision()
     w = torch.as_tensor(tables.fused_w, device=blocks.device)

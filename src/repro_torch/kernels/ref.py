@@ -1,6 +1,8 @@
 """Plain PyTorch versions of K1 (``viterbi_acs.acs_forward``), K2
 (``viterbi_acs.acs_decode_fused``) and K3 (``viterbi_acs.transfer_matrix``):
-the same contracts, one radix step at a time.
+the same contracts, one radix step at a time.  K1 and K3 take the
+semiring of their slot reduction by name: ``"tropical"`` (the max) or
+``"logprob"`` (``Semiring.sum``'s max-normalised logsumexp).
 
 The wrappers run these for CPU tensors; the tests hold them against the
 reference's Pallas kernels, and ``chip_smoke.py`` holds the CUDA kernels
@@ -18,7 +20,7 @@ from repro_torch.core.kernel_geometry import (
     ring_dtype,
     ring_words,
 )
-from repro_torch.core.semiring import TROPICAL
+from repro_torch.core.semiring import get_semiring
 from repro_torch.core.viterbi import AcsPrecision, dot_f32, fused_potentials
 
 __all__ = ["acs_forward_ref", "acs_decode_fused_ref", "transfer_matrix_ref"]
@@ -35,12 +37,15 @@ def acs_forward_ref(
     matmul_dtype: torch.dtype = torch.float32,
     renorm: bool = True,
     pack_survivors: bool = False,
+    semiring: str = "tropical",
 ):
     """Returns (lam_final (F, S) f32, phi (T, F, S) int8 or packed
     (T, F, S//16) int32).  Per step: x = [L_t | Lambda] rounded to
-    ``matmul_dtype``, pot = x @ W in f32, Lambda' = slot max, phi = first
-    slot argmax, optional per-frame max subtraction, carry rounded to
+    ``matmul_dtype``, pot = x @ W in f32, Lambda' = the semiring's slot
+    reduction (max, or logsumexp), phi = first slot argmax at either
+    semiring, optional per-frame max subtraction, carry rounded to
     ``carry_dtype``."""
+    reduce = get_semiring(semiring).sum
     S, R = n_states, n_slots
     if pack_survivors:
         check_packable(S, R)
@@ -55,7 +60,7 @@ def acs_forward_ref(
     for t in range(T):
         x = torch.cat([blocks[t], lam.to(matmul_dtype)], dim=1)
         pot = dot_f32(x, w).view(F, S, R)
-        new = pot.amax(dim=-1)
+        new = reduce(pot, dim=-1)
         phi = pot.argmax(dim=-1)
         phis[t] = pack_slots(phi, R) if pack_survivors else phi
         if renorm:
@@ -147,16 +152,19 @@ def transfer_matrix_ref(
     carry_dtype: torch.dtype = torch.float32,
     matmul_dtype: torch.dtype = torch.float32,
     split_dot: bool = False,
+    semiring: str = "tropical",
 ):
     """Returns M (N, F, S, S) f32, N = T / transfer_tile: per tile, the
-    tropical transfer matrices, each (tile, frame) normalised by its max.
+    transfer matrices of ``semiring``, each (tile, frame) normalised by
+    its max.
 
     Every tile starts from the identity (0 on the diagonal, -1e9 off it)
     and runs ``transfer_tile`` fused steps with the entry axis folded
     into N*F*S rows: pot = [L_t | M] @ W in f32 (with ``split_dot`` the
-    M half in f32, unrounded), slot max, carry rounded to
-    ``carry_dtype``.  No per-row renorm: an offset per entry state would
+    M half in f32, unrounded), the slot reduction (max, or logsumexp),
+    carry rounded to ``carry_dtype``.  No per-row renorm: an offset per entry state would
     change the products."""
+    sr = get_semiring(semiring)
     T, F, B = blocks.shape
     S, R, TT = n_states, n_slots, transfer_tile
     if TT <= 0 or T % TT:
@@ -169,12 +177,12 @@ def transfer_matrix_ref(
     w_mm = w.to(matmul_dtype)
     w_pred = w[B:].to(torch.float32)
     tiles = blocks.reshape(N, TT, F, B)
-    m = TROPICAL.identity(S, device=blocks.device).expand(N, F, S, S)
+    m = sr.identity(S, device=blocks.device).expand(N, F, S, S)
     for t in range(TT):
         l_t = tiles[:, t, :, None, :].expand(N, F, S, B).reshape(rows, B)
         pot = fused_potentials(
             l_t, m.reshape(rows, S), w_mm, w_mm[:B], w_pred, precision
         )
-        new = TROPICAL.sum(pot.view(rows, S, R), dim=-1)
+        new = sr.sum(pot.view(rows, S, R), dim=-1)
         m = new.to(carry_dtype).to(torch.float32).view(N, F, S, S)
     return m - m.amax(dim=(-2, -1), keepdim=True)

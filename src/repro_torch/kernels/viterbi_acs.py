@@ -10,10 +10,14 @@ Hopper.
     kernel.
   * K3, ``transfer_matrix`` (``csrc/transfer_matrix.cu``), replaces
     ``transfer_matrix_pallas`` (body ``_transfer_kernel``): the per-tile
-    tropical transfer matrices of the time-parallel decode.
+    transfer matrices of the time-parallel decode and of the BCJR.
 
 All three share the ACS step of ``csrc/acs_step.cuh``; each source's header
-comment gives its design and what bounds it on an H100.
+comment gives its design and what bounds it on an H100.  K1 and K3 take
+``semiring``, as the reference's kernels do: ``"tropical"`` (the slot
+max) or ``"logprob"`` (the max-normalised logsumexp of the BCJR), two
+instantiations of one kernel.  ``launches`` counts every launch of a
+kernel, ``logprob_launches`` those of its LOGPROB variant.
 
 Build and binding: at the first call on a CUDA tensor, ``nvcc`` compiles
 each kernel's source for ``sm_90a`` into a shared library of its own with
@@ -76,6 +80,7 @@ _NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SEMIRING_CODES = {"tropical": 0, "logprob": 1}  # acs_step.cuh's SemiringCode
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -132,7 +137,7 @@ def _library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build(name)))
     if name == "acs_forward":
         lib.acs_forward_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         )
         lib.acs_forward_launch.restype = ctypes.c_int
         lib.acs_forward_smem_bytes.argtypes = [ctypes.c_int] * 4
@@ -144,7 +149,7 @@ def _library(name: str) -> ctypes.CDLL:
         lib.acs_decode_fused_launch.restype = ctypes.c_int
     else:
         lib.transfer_matrix_launch.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         )
         lib.transfer_matrix_launch.restype = ctypes.c_int
@@ -213,8 +218,11 @@ def acs_forward(
     """Run the fused forward pass.  Returns (lam_final (F, S) f32, phi).
 
     phi is (T, F, S) int8 slot indices, or (T, F, S//16) int32 when
-    ``pack_survivors`` (rho <= 2).  On CUDA tensors this launches K1 and
-    adds one to ``acs_forward.launches``; on CPU tensors it runs
+    ``pack_survivors`` (rho <= 2).  ``semiring`` is the slot reduction:
+    ``"tropical"`` (max) or ``"logprob"`` (logsumexp; phi still holds
+    the first argmax).  On CUDA tensors this launches K1 and adds one to
+    ``acs_forward.launches`` (and, at LOGPROB, to
+    ``acs_forward.logprob_launches``); on CPU tensors it runs
     ``acs_forward_ref``.
     """
     check_semiring(semiring)
@@ -222,7 +230,7 @@ def acs_forward(
     kw = dict(
         n_states=n_states, n_slots=n_slots, carry_dtype=carry_dtype,
         matmul_dtype=matmul_dtype, renorm=renorm,
-        pack_survivors=pack_survivors,
+        pack_survivors=pack_survivors, semiring=semiring,
     )
     if dev.type == "cpu":
         return acs_forward_ref(blocks, lam0, w, **kw)
@@ -230,10 +238,17 @@ def acs_forward(
 
 
 acs_forward.launches = 0  # K1 launches in this process (set to 0 to count a run)
+acs_forward.logprob_launches = 0  # of which K1-LOGPROB
+
+
+def _count_launch(kernel, semiring: str) -> None:
+    kernel.launches += 1
+    if semiring == "logprob":
+        kernel.logprob_launches += 1
 
 
 def _launch_k1(blocks, lam0, w, *, n_states, n_slots, carry_dtype,
-               matmul_dtype, renorm, pack_survivors):
+               matmul_dtype, renorm, pack_survivors, semiring):
     dev = blocks.device
     _check_card(dev, "K1")
     S, R = n_states, n_slots
@@ -270,11 +285,11 @@ def _launch_k1(blocks, lam0, w, *, n_states, n_slots, carry_dtype,
         lam_out.data_ptr(), phi.data_ptr(),
         T, F, B, S, R, BF,
         _DTYPE_CODES[matmul_dtype], _DTYPE_CODES[carry_dtype],
-        int(renorm), int(pack_survivors), _device_index(dev),
-        torch.cuda.current_stream(dev).cuda_stream,
+        int(renorm), int(pack_survivors), _SEMIRING_CODES[semiring],
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, "acs_forward", err)
-    acs_forward.launches += 1
+    _count_launch(acs_forward, semiring)
     return lam_out, phi
 
 
@@ -299,7 +314,8 @@ def acs_decode_fused(
     pack_survivors: bool = False,
 ):
     """One-pass time-tiled decode.  Returns (bits (T*rho, F) int8,
-    lam (F, S) f32, hist (D, F, W)).
+    lam (F, S) f32, hist (D, F, W)).  Tropical only: like the
+    reference's K2, it takes no ``semiring``.
 
     bits row r is the decision for step r//rho - D of this call (rows of
     negative steps replay ``hist0``); hist is the exit ring, the newest
@@ -406,13 +422,14 @@ def transfer_matrix(
     split_dot: bool = False,
     semiring: str = "tropical",
 ):
-    """Per-tile tropical transfer matrices M (N, F, S, S) f32, each
-    (tile, frame) normalised by its max; the tile is
-    ``min(transfer_tile, T)`` and must divide T.  ``block_frames`` (0:
-    auto) is K3's frame block, shrunk to what fits in shared memory
-    (``kernel_geometry.k3_block_frames``, which raises where nothing
-    fits).  On CUDA tensors this launches K3 and adds one to
-    ``transfer_matrix.launches``; on CPU tensors it runs
+    """Per-tile transfer matrices M (N, F, S, S) f32 of ``semiring``
+    (``"tropical"`` or ``"logprob"``), each (tile, frame) normalised by
+    its max; the tile is ``min(transfer_tile, T)`` and must divide T.
+    ``block_frames`` (0: auto) is K3's frame block, shrunk to what fits
+    in shared memory (``kernel_geometry.k3_block_frames``, which raises
+    where nothing fits).  On CUDA tensors this launches K3 and adds one
+    to ``transfer_matrix.launches`` (and, at LOGPROB, to
+    ``transfer_matrix.logprob_launches``); on CPU tensors it runs
     ``transfer_matrix_ref``.
     """
     check_semiring(semiring)
@@ -427,7 +444,7 @@ def transfer_matrix(
     kw = dict(
         n_states=n_states, n_slots=n_slots, transfer_tile=TT,
         carry_dtype=carry_dtype, matmul_dtype=matmul_dtype,
-        split_dot=split_dot,
+        split_dot=split_dot, semiring=semiring,
     )
     if dev.type == "cpu":
         return transfer_matrix_ref(blocks, w, **kw)
@@ -435,10 +452,11 @@ def transfer_matrix(
 
 
 transfer_matrix.launches = 0  # K3 launches in this process (set to 0 to count a run)
+transfer_matrix.logprob_launches = 0  # of which K3-LOGPROB
 
 
 def _launch_k3(blocks, w, *, n_states, n_slots, transfer_tile, block_frames,
-               carry_dtype, matmul_dtype, split_dot):
+               carry_dtype, matmul_dtype, split_dot, semiring):
     dev = blocks.device
     _check_card(dev, "K3")
     S, R, TT, BF = n_states, n_slots, transfer_tile, block_frames
@@ -461,9 +479,9 @@ def _launch_k3(blocks, w, *, n_states, n_slots, transfer_tile, block_frames,
         blocks.data_ptr(), w.data_ptr(), m.data_ptr(),
         T, F, B, S, R, TT, BF,
         _DTYPE_CODES[matmul_dtype], _DTYPE_CODES[carry_dtype], int(split_dot),
-        k3_smem_bytes(B, S, R, BF), _device_index(dev),
-        torch.cuda.current_stream(dev).cuda_stream,
+        _SEMIRING_CODES[semiring], k3_smem_bytes(B, S, R, BF),
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, "transfer_matrix", err)
-    transfer_matrix.launches += 1
+    _count_launch(transfer_matrix, semiring)
     return m

@@ -103,17 +103,18 @@ def test_default_device_is_the_card_without_fallback():
 
 
 @pytest.mark.parametrize("builder", ["tropical_identity", "semiring_identity",
-                                     "init_metric"])
+                                     "logprob_identity", "init_metric"])
 def test_exported_tensor_builders_default_to_the_card(builder):
     """The exported helpers that build a tensor follow the entry points:
     ``device=None`` is the card, and only an explicit ``"cpu"`` is not."""
-    from repro_torch.core.semiring import TROPICAL
+    from repro_torch.core.semiring import LOGPROB, TROPICAL
     from repro_torch.core.timeparallel import tropical_identity
     from repro_torch.core.viterbi import init_metric
 
     build = {
         "tropical_identity": lambda device=None: tropical_identity(4, device),
         "semiring_identity": lambda device=None: TROPICAL.identity(4, device),
+        "logprob_identity": lambda device=None: LOGPROB.identity(4, device),
         "init_metric": lambda device=None: init_metric(2, 4, 0, device),
     }[builder]
     if torch.cuda.is_available():
@@ -127,21 +128,29 @@ def test_exported_tensor_builders_default_to_the_card(builder):
 def test_later_slices_refuse():
     from repro_torch.core import CODE_K7_CCSDS, ViterbiDecoder
     from repro_torch.core.semiring import Semiring
-    from repro_torch.kernels import acs_forward, viterbi_forward
+    from repro_torch.kernels import acs_decode_fused, acs_forward, viterbi_forward
     from repro_torch.core.trellis import build_acs_tables
 
     dec = ViterbiDecoder(CODE_K7_CCSDS, device="cpu")
     llrs = torch.zeros(2, 8, 2)
-    with pytest.raises(NotImplementedError, match="soft-output"):
-        Semiring("logprob")
+    # LOGPROB is ported; an unknown semiring still raises
+    with pytest.raises(ValueError, match="unknown semiring"):
+        Semiring("maxplus")
     tb = build_acs_tables(CODE_K7_CCSDS, 2)
     blocks, lam0 = torch.zeros(4, 2, 4), torch.zeros(2, 64)
-    with pytest.raises(NotImplementedError, match="soft-output"):
-        viterbi_forward(blocks, lam0, tb, semiring="logprob")
-    with pytest.raises(NotImplementedError, match="soft-output"):
+    with pytest.raises(ValueError, match="unknown semiring"):
+        viterbi_forward(blocks, lam0, tb, semiring="maxplus")
+    with pytest.raises(ValueError, match="unknown semiring"):
         acs_forward(
             blocks, lam0, torch.as_tensor(tb.fused_w), n_states=64,
-            n_slots=4, semiring="logprob",
+            n_slots=4, semiring="maxplus",
+        )
+    # K2 has no LOGPROB variant, as the reference's has none
+    with pytest.raises(TypeError, match="semiring"):
+        acs_decode_fused(
+            blocks, lam0, torch.zeros(4, 2, 64, dtype=torch.int8),
+            torch.as_tensor(tb.fused_w), n_states=64, n_slots=4, k=7, rho=2,
+            time_tile=4, semiring="logprob",
         )
     with pytest.raises(NotImplementedError, match="tail-biting"):
         ViterbiDecoder.from_standard("lte-tbcc", device="cpu").decode_batch(
@@ -151,8 +160,8 @@ def test_later_slices_refuse():
         ViterbiDecoder.from_standard("wifi-11a-r34", device="cpu").decode_batch(
             torch.zeros(1, 8, 2)
         )
-    # streaming and time-parallel decode are ported; punctured streams
-    # and time-parallel WAVA circulations are not
+    # streaming, time-parallel and soft decode are ported; punctured
+    # streams and soft input, and time-parallel WAVA circulations are not
     with pytest.raises(NotImplementedError, match="depuncturing"):
         ViterbiDecoder.from_standard(
             "wifi-11a-r34", device="cpu"
@@ -161,7 +170,8 @@ def test_later_slices_refuse():
         dec.decode_tailbiting(llrs, time_parallel=True)
     for call in (
         lambda: dec.decode_tailbiting(llrs),
-        lambda: dec.decode_soft(llrs),
+        lambda: ViterbiDecoder.from_standard(
+            "wifi-11a-r34", device="cpu").decode_soft(torch.zeros(1, 8, 2)),
     ):
         with pytest.raises(NotImplementedError):
             call()

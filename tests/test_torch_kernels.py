@@ -1,6 +1,6 @@
 """K1 (``repro_torch.kernels.viterbi_acs.acs_forward``), K2
-(``acs_decode_fused``) and K3 (``transfer_matrix``) against the
-reference's Pallas kernels (``repro.kernels.ops.viterbi_forward``,
+(``acs_decode_fused``) and K3 (``transfer_matrix``), K1 and K3 also at
+LOGPROB, against the reference's Pallas kernels (``repro.kernels.ops.viterbi_forward``,
 ``viterbi_decode_fused`` and ``viterbi_acs.transfer_matrix_pallas``),
 which run in interpret mode on the CPU as the reference's own tests run
 them.
@@ -15,7 +15,17 @@ order, so Lambda and phi must be bit-identical.  With Gaussian LLRs the
 sums round in the matmul's order: decoded bits must be identical and
 Lambda must agree to atol=1e-5, rtol=1e-6; K3's matrices come out
 bit-identical on Gaussian LLRs as well.
+
+At LOGPROB the slot reduction is a logsumexp, whose exp and log round
+differently in each library: K1's metrics and K3's matrices agree to
+atol 1e-4 (the tolerance of the reference's soft tests) on reachable
+entries, the -1e9 entries of unreachable ones are equal on both sides,
+and K1's survivors are equal wherever the top two potentials differ by
+more than 1e-3.  On the card, ``chip_smoke.py`` holds the CUDA LOGPROB
+variants to their plain versions at a bound derived from f32 rounding.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -436,7 +446,7 @@ def test_k3_block_frames(n_states, block_frames, n_frames, want):
 
 def test_k3_refuses_what_it_cannot_hold():
     """A shape that fits at no frame count raises ValueError, as in the
-    reference; so do a ragged tile grid and LOGPROB (soft-output slice)."""
+    reference; so do a ragged tile grid and an unknown semiring."""
     from repro_torch.core import CODE_K7_CCSDS, CodeSpec, build_acs_tables
     from repro_torch.kernels import transfer_matrix
 
@@ -450,9 +460,9 @@ def test_k3_refuses_what_it_cannot_hold():
     with pytest.raises(ValueError, match="not divisible by transfer_tile"):
         transfer_matrix(torch.zeros(12, 2, 4), w, n_states=64, n_slots=4,
                         transfer_tile=8)
-    with pytest.raises(NotImplementedError, match="soft-output"):
+    with pytest.raises(ValueError, match="unknown semiring"):
         transfer_matrix(torch.zeros(8, 2, 4), w, n_states=64, n_slots=4,
-                        transfer_tile=8, semiring="logprob")
+                        transfer_tile=8, semiring="maxplus")
     # a tile longer than the call is cut to the call, as in the reference
     assert transfer_matrix(torch.zeros(8, 2, 4), w, n_states=64, n_slots=4,
                            transfer_tile=32).shape == (1, 2, 64, 64)
@@ -482,3 +492,203 @@ def test_cuda_k3_matches_plain():
             want = transfer_matrix_ref(blocks, w, **kw)
             torch.cuda.synchronize()
             assert torch.equal(got, want)
+
+
+# -- the LOGPROB variants of K1 and K3 ------------------------------------
+
+def _logprob_blocks(spec, F, T, seed):
+    """Half-scaled Gaussian scores (the BCJR's branch log-likelihoods)."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0.0, 3.0, (T, F, 2 * spec.beta)) * 0.5).astype(np.float32)
+
+
+@pytest.mark.parametrize("renorm,pack", [(True, False), (False, True)],
+                         ids=["renorm-int8", "raw-packed"])
+@pytest.mark.parametrize("init", [0, None], ids=["pinned", "uniform"])
+def test_k1_logprob_matches_reference(init, renorm, pack):
+    """K1's wrapper at LOGPROB (its plain version here) against the
+    reference's interpret-mode K1 at semiring="logprob"."""
+    import jax.numpy as jnp
+    from repro.core.trellis import build_acs_tables as ref_tables
+    from repro.core.viterbi import AcsPrecision as RefPrecision
+    from repro.kernels.ops import viterbi_forward as ref_forward
+
+    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.core.soft import _alpha_scan
+    from repro_torch.core.viterbi import AcsPrecision, fused_potentials
+    from repro_torch.kernels import acs_forward
+
+    spec = CODE_K7_CCSDS
+    blocks = _logprob_blocks(spec, 5, 48, 21)
+    _, lam0 = _inputs(spec, 2, 5, 1, 0, True, init)
+    lam_r, phi_r = ref_forward(
+        jnp.asarray(blocks), jnp.asarray(lam0), ref_tables(_ref_spec(spec), 2),
+        RefPrecision(renorm=renorm), pack_survivors=pack, semiring="logprob",
+    )
+    tb = build_acs_tables(spec, 2)
+    tb_args = (torch.from_numpy(blocks), torch.from_numpy(lam0),
+               torch.from_numpy(tb.fused_w))
+    lam_p, phi_p = acs_forward(*tb_args, n_states=64, n_slots=4, renorm=renorm,
+                               pack_survivors=pack, semiring="logprob")
+    np.testing.assert_allclose(lam_p.numpy(), np.asarray(lam_r), atol=1e-4, rtol=0)
+    # survivors: equal wherever the top two potentials differ by > 1e-3
+    prec = AcsPrecision(renorm=renorm)
+    alphas = _alpha_scan(tb_args[0], tb_args[1], tb, prec)
+    prev = torch.cat([tb_args[1][None], alphas[:-1]]).reshape(-1, 64)
+    w = tb_args[2]
+    pot = fused_potentials(tb_args[0].reshape(-1, 4), prev, w, w[:4], w[4:], prec)
+    top = pot.view(48, 5, 64, 4).topk(2, dim=-1).values
+    decided = ((top[..., 0] - top[..., 1]) > 1e-3).numpy()
+    phi_p, phi_r = phi_p.numpy(), np.asarray(phi_r)
+    if pack:  # a word is held where all 16 of its slots are decided
+        decided = decided.reshape(48, 5, 4, 16).all(axis=-1)
+    np.testing.assert_array_equal(phi_p[decided], phi_r[decided])
+    assert decided.mean() > 0.5
+
+
+def _k3_logprob_pair(code, F, T, tile, seed, mm="f32", split=False):
+    import jax.numpy as jnp
+    from repro.core.trellis import build_acs_tables as ref_tables
+    from repro.kernels.viterbi_acs import transfer_matrix_pallas
+
+    from repro_torch.codes import get_code
+    from repro_torch.core import build_acs_tables
+    from repro_torch.kernels import transfer_matrix
+
+    spec = get_code(code).spec
+    blocks = _logprob_blocks(spec, F, T, seed)
+    mm_t, mm_j = _dtypes(mm)
+    tb = build_acs_tables(spec, 2)
+    ref = transfer_matrix_pallas(
+        jnp.asarray(blocks), jnp.asarray(ref_tables(_ref_spec(spec), 2).fused_w),
+        n_states=64, n_slots=4, transfer_tile=tile, matmul_dtype=mm_j,
+        split_dot=split, semiring="logprob", interpret=True,
+    )
+    got = transfer_matrix(
+        torch.from_numpy(blocks), torch.from_numpy(tb.fused_w), n_states=64,
+        n_slots=4, transfer_tile=tile, matmul_dtype=mm_t, split_dot=split,
+        semiring="logprob",
+    )
+    return np.asarray(ref), got.numpy()
+
+
+@pytest.mark.parametrize("code,F,T,tile,mm,split", [
+    ("ccsds-k7", 5, 32, 8, "f32", False),
+    ("ccsds-k7", 3, 32, 16, "bf16", True),
+    ("lte-tbcc", 5, 6, 1, "f32", False),
+], ids=["k7-tile8", "k7-bf16-split", "tbcc-tile1"])
+def test_k3_logprob_matches_reference(code, F, T, tile, mm, split):
+    """K3's plain version at LOGPROB against the reference's Pallas K3 in
+    interpret mode: atol 1e-4 on reachable entries, the -1e9 of
+    unreachable ones equal (at one step a tile most entries are)."""
+    ref, got = _k3_logprob_pair(code, F, T, tile, F + T, mm, split)
+    assert got.shape == ref.shape == (T // tile, F, 64, 64)
+    reach = ref > -1e8
+    np.testing.assert_array_equal(got > -1e8, reach)
+    np.testing.assert_allclose(got[reach], ref[reach], atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(got[~reach], ref[~reach])
+    assert np.isfinite(got).all()
+    if tile == 1:
+        assert (~reach).mean() > 0.9
+
+
+def _cuda_logprob_bound(steps, scale, renorm):
+    """The f32 rounding a LOGPROB run of ``steps`` steps allows at B=4
+    LLRs and R=4 slots, values held within ``scale`` (``renorm``) or
+    growing by ``scale`` a step: chip_smoke.py's ``logprob_bound``, which
+    derives it."""
+    u = 2.0 ** -24
+    sum_x = steps * scale if renorm else scale * steps * (steps + 1) / 2
+    x_end = scale if renorm else steps * scale
+    return 4 * ((6 + int(renorm)) * u * sum_x + 14 * steps * u) + 4 * u * x_end
+
+
+def _max_reachable_diff(a, b):
+    both = (a > -1e8) & (b > -1e8)
+    return (a - b)[both].abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_k1_logprob_matches_plain():
+    """K1-LOGPROB against its plain version on the card (needs an H100
+    and nvcc): metrics within f32 rounding, survivors equal; after 8
+    steps the bound rejects the tropical instantiation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.kernels import acs_forward
+    from repro_torch.kernels.ref import acs_forward_ref
+
+    dev = torch.device("cuda")
+    tb = build_acs_tables(CODE_K7_CCSDS, 2)
+    blocks, lam0 = _inputs(CODE_K7_CCSDS, 2, 40, 100, 5, True, 0)
+    args = (torch.from_numpy(blocks).to(dev), torch.from_numpy(lam0).to(dev),
+            torch.as_tensor(tb.fused_w, device=dev))
+    kw = dict(n_states=64, n_slots=4, semiring="logprob")
+    before = acs_forward.logprob_launches
+    lam_k, phi_k = acs_forward(*args, **kw)
+    lam_r, phi_r = acs_forward_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert acs_forward.logprob_launches == before + 1
+    # renormalised metrics stay within 3 steps' spread (k-1 = 3 radix-4
+    # steps reach every state) of 0, the potentials one step beyond
+    m = args[0].abs().sum(dim=-1).max().item() + math.log(4)
+    scale = 3 * (2 * m) + m
+    diff = (lam_k - lam_r).abs().max().item()
+    assert diff <= _cuda_logprob_bound(100, scale, True)
+    assert (phi_k != phi_r).float().mean().item() < 1e-3
+    short = (args[0][:8], args[1], args[2])
+    bound = _cuda_logprob_bound(8, scale, True)
+    want = acs_forward_ref(*short, **kw)[0]
+    assert _max_reachable_diff(acs_forward(*short, **kw)[0], want) <= bound
+    trop = acs_forward(*short, **dict(kw, semiring="tropical"))[0]
+    assert _max_reachable_diff(trop, want) > bound
+
+
+@pytest.mark.cuda
+def test_cuda_k3_logprob_matches_plain():
+    """K3-LOGPROB against its plain version on the card (needs an H100
+    and nvcc), at tiles of 32 and 8 steps and at one step a tile; at 8
+    steps the bound rejects the tropical instantiation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.kernels import transfer_matrix
+    from repro_torch.kernels.ref import transfer_matrix_ref
+
+    dev = torch.device("cuda")
+    w = torch.as_tensor(build_acs_tables(CODE_K7_CCSDS, 2).fused_w, device=dev)
+    blocks = torch.from_numpy(_logprob_blocks(CODE_K7_CCSDS, 13, 256, 13)).to(dev)
+    m = blocks.abs().sum(dim=-1).max().item() + math.log(4)
+    for tile in (32, 8, 1):
+        kw = dict(n_states=64, n_slots=4, transfer_tile=tile, semiring="logprob")
+        got = transfer_matrix(blocks, w, **kw)
+        want = transfer_matrix_ref(blocks, w, **kw)
+        torch.cuda.synchronize()
+        reach = want > -1e8
+        assert torch.equal(got > -1e8, reach)
+        assert torch.equal(got[~reach], want[~reach])
+        bound = _cuda_logprob_bound(tile, m, False)
+        assert (got - want)[reach].abs().max().item() <= bound
+        if tile == 8:
+            trop = transfer_matrix(blocks, w, **dict(kw, semiring="tropical"))
+            assert _max_reachable_diff(trop, want) > bound
+
+
+def test_logprob_variants_build_without_fast_math():
+    """The logsumexp of K1-LOGPROB and K3-LOGPROB uses the accurate
+    expf/logf: no fast-math flag in the build, no __expf/__logf
+    intrinsics in the shared ACS step, and the semiring codes the
+    wrappers pass are the ones the kernels switch on."""
+    import re
+
+    from repro_torch.kernels import viterbi_acs
+
+    flags = " ".join(viterbi_acs._NVCC_FLAGS)
+    assert "fast" not in flags and "ftz=true" not in flags
+    step = (viterbi_acs._CSRC / "acs_step.cuh").read_text()
+    code = re.sub(r"//[^\n]*", "", step)  # the notes name the intrinsics
+    assert "expf(" in code and "logf(" in code
+    assert "__expf" not in code and "__logf" not in code
+    assert re.search(r"kTropical = 0, kLogprob = 1", code)
+    assert viterbi_acs._SEMIRING_CODES == {"tropical": 0, "logprob": 1}

@@ -13,6 +13,11 @@ in the same order here, so those too are held bit for bit.  Decoded
 bits must be identical
 everywhere: to the reference's time-parallel decode, and to the port's
 own sequential ``decode_frames`` (Gaussian LLRs, so no two paths tie).
+
+At LOGPROB (the BCJR's formation and scans) exp and log round
+differently in each library: matrices and metrics agree to atol 1e-4
+(the reference's soft tolerance) on reachable entries, and the -1e9 of
+unreachable entries are equal on both sides.
 """
 import functools
 
@@ -413,3 +418,95 @@ def test_decode_stream_tiled_time_parallel_matches_reference():
     assert paths == {"tiled": 1}
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(ref.decode_stream_tiled(jnp.asarray(stream), cfg)))
+
+
+# -- LOGPROB: the BCJR's formation and scans -------------------------------
+
+def _close_reachable(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    reach = want > -1e8
+    np.testing.assert_array_equal(got > -1e8, reach)
+    np.testing.assert_allclose(got[reach], want[reach], atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(got[~reach], want[~reach])
+
+
+@pytest.mark.parametrize("label", ["f32", "bf16-split"])
+def test_transfer_matrices_logprob_match_reference(label):
+    """The plain formation and K3's wrapper at LOGPROB against the
+    reference's XLA formation and its Pallas K3, on half-scaled
+    Gaussian scores, at a tile of 16 steps and at one step a tile."""
+    from repro.core.semiring import LOGPROB as REF_LOGPROB
+    from repro.core.timeparallel import transfer_matrices as ref_tm
+    from repro.kernels.ops import viterbi_transfer_matrices as ref_pallas
+
+    from repro_torch.core.semiring import LOGPROB
+    from repro_torch.core.timeparallel import transfer_matrices
+
+    tb, rtb = _tables()
+    prec, rprec = _precisions(label)
+    blocks, rblocks = _blocks(3, 64, seed=31)
+    for tile in (16, 1):
+        want = np.asarray(ref_tm(rblocks * 0.5, rtb, rprec, tile,
+                                 semiring=REF_LOGPROB))
+        _close_reachable(ref_pallas(rblocks * 0.5, rtb, rprec, transfer_tile=tile,
+                                    semiring="logprob"), want)
+        for use_kernel in (False, True):
+            got = transfer_matrices(blocks * 0.5, tb, prec, tile,
+                                    use_kernel=use_kernel, semiring=LOGPROB)
+            assert got.shape == (32 // tile, 3, 64, 64)
+            _close_reachable(got.numpy(), want)
+
+
+def test_logprob_scans_match_reference():
+    """``associative_scan`` of the LOGPROB compose both ways,
+    ``prefix_entry_metrics`` and ``transfer_prefix`` at LOGPROB."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core.semiring import LOGPROB as REF_LOGPROB
+    from repro.core.timeparallel import prefix_entry_metrics as ref_entry
+    from repro.core.timeparallel import transfer_prefix as ref_prefix
+
+    from repro_torch.core.semiring import LOGPROB
+    from repro_torch.core.timeparallel import (
+        associative_scan, prefix_entry_metrics, transfer_prefix,
+    )
+
+    m = _random_m(7, 2, 64, 3)
+    lam0 = np.random.default_rng(3).normal(0, 3, (2, 64)).astype(np.float32)
+    for reverse in (False, True):
+        got = associative_scan(LOGPROB.matmul, torch.from_numpy(m), reverse=reverse)
+        want = jax.lax.associative_scan(REF_LOGPROB.matmul, jnp.asarray(m),
+                                        reverse=reverse)
+        _close_reachable(got.numpy(), want)
+    _close_reachable(
+        prefix_entry_metrics(torch.from_numpy(m), torch.from_numpy(lam0),
+                             semiring=LOGPROB).numpy(),
+        ref_entry(jnp.asarray(m), jnp.asarray(lam0), semiring=REF_LOGPROB),
+    )
+    tb, rtb = _tables()
+    blocks, rblocks = _blocks(2, 128, seed=32)
+    _close_reachable(
+        transfer_prefix(blocks * 0.5, tb, transfer_tile=8, semiring=LOGPROB).numpy(),
+        ref_prefix(rblocks * 0.5, rtb, transfer_tile=8, semiring=REF_LOGPROB),
+    )
+
+
+@pytest.mark.parametrize("n_frames", [1, 15, 16, 17, 64])
+def test_time_parallel_plan_at_the_reference_budget(n_frames):
+    """Given the reference's accelerator budget of 1,024 rows, the port's
+    plan picks what the reference's picks, for F x S on both sides of
+    it; on the card the port's own budget is larger (CUDA_ROW_BUDGET)."""
+    from repro.core.backend import _ACCEL_ROW_BUDGET
+    from repro.core.kernel_geometry import time_parallel_plan as ref_plan
+
+    from repro_torch.core.backend import CUDA_ROW_BUDGET
+    from repro_torch.core.kernel_geometry import time_parallel_plan
+
+    assert _ACCEL_ROW_BUDGET == 1024 < CUDA_ROW_BUDGET
+    for t_steps in (64, 4096, 32768):
+        for tp in (None, True, False):
+            got = time_parallel_plan(n_frames, t_steps, 64, tp, None, 1024)
+            want = ref_plan(n_frames, t_steps, 64, tp, None, 1024)
+            assert got == want
+    picked = time_parallel_plan(n_frames, 32768, 64, None, None, 1024)
+    assert (picked is not None) == (n_frames * 64 <= 1024)
