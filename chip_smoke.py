@@ -147,6 +147,15 @@ TBCC_BER_LIMIT = 1e-3  # 32768 tail-biting bits: the frames decode
 # T_SEP steps of the soft blocks, K1-LOGPROB's metrics after T1_SEP steps
 T_SEP, TT_SEP, T1_SEP = 2048, 8, 8
 PHI_TIE = 1e-3  # K1-LOGPROB's survivors may differ only at potential gaps under this
+# K3's register layout where it can break, each (code, rho, tiles) on the
+# integer and on the AWGN LLRs: a row's map from state to register
+# rotates by rho of k-1 bits a step, so its period is (k-1)/gcd(k-1, rho):
+# 3 at ccsds-k7, rho=2 (the tiles leave 0, 1 and 2 steps over whole
+# periods), 6 at rho=1, 2 at rho=3; gsm-cs1 has S=16 (periods 2 and 4)
+K3_LAYOUT = (("ccsds-k7", 2, (96, 64, 512)), ("ccsds-k7", 1, (96, 64, 65)),
+             ("ccsds-k7", 3, (64, 65)), ("gsm-cs1", 2, (64, 65)),
+             ("gsm-cs1", 3, (64, 67)))
+K3_LAYOUT_FRAMES, K3_LAYOUT_TILES = 13, 8  # ragged at 2 and at 8 frames a block
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet) at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # non-tensor float32
@@ -175,6 +184,34 @@ def cuda_ms(fn, reps: int = 1, warmup=None) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def ptxas_report(log: str):
+    """One line per compiled kernel of an ``nvcc -Xptxas=-v`` log: its
+    name with its template arguments, registers a thread, and spills."""
+    import re
+
+    name, spill, lines = "?", "", []
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            mangled = name = m.group(1)
+            # the kernel's length-prefixed identifier, then its arguments
+            for d in re.finditer(r"(?=(\d{1,3}))", mangled):
+                for n in range(1, len(d.group(1)) + 1):
+                    at = d.start() + n
+                    ident = mangled[at:at + int(d.group(1)[:n])]
+                    if ident.endswith("_kernel") and ident[:1].isalpha() \
+                            and mangled[at + len(ident):at + len(ident) + 1] == "I":
+                        name = ident
+            args = re.findall(r"Li(\d+)E", mangled)
+            name += f"<{', '.join(args)}>" if args else ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            lines.append(f"{name}: {regs} registers; {spill}")
+    return lines
 
 
 def host_ms(fn):
@@ -304,6 +341,25 @@ def dispatched(fn):
                  in reg.counter("decoder_dispatch_total").series()}
 
 
+def k3_layout_inputs(llrs, gen):
+    """For each case of ``K3_LAYOUT``: (label, tables, W, tile, integer
+    blocks, AWGN blocks), ``K3_LAYOUT_TILES`` tiles of
+    ``K3_LAYOUT_FRAMES`` frames; the AWGN blocks are phase 4's LLRs."""
+    from repro_torch.codes import get_code
+    from repro_torch.core import build_acs_tables
+    from repro_torch.core.viterbi import blocks_from_llrs
+
+    for code, rho, tiles in K3_LAYOUT:
+        tb = build_acs_tables(get_code(code).spec, rho)
+        w = torch.as_tensor(tb.fused_w, device=llrs.device)
+        for tt in tiles:
+            T = K3_LAYOUT_TILES * tt
+            ints = torch.randint(-8, 9, (T, K3_LAYOUT_FRAMES, tb.llr_block),
+                                 generator=gen, device=llrs.device).float()
+            noisy = blocks_from_llrs(llrs[:K3_LAYOUT_FRAMES, :T * rho], rho).contiguous()
+            yield f"{code} rho={rho}", tb, w, tt, ints, noisy
+
+
 def time_parallel_phase(decoder, llrs, gen, tables, w):
     """Phase 9: K3 against its plain version, the time-parallel
     decode_batch at the decode_512k_f16 shape, its stage times, the
@@ -313,7 +369,7 @@ def time_parallel_phase(decoder, llrs, gen, tables, w):
     from repro_torch.core import timeparallel as tp
     from repro_torch.core.backend import device_underfill_rows
     from repro_torch.core.channel import awgn, bpsk, llr
-    from repro_torch.core.kernel_geometry import k3_block_frames
+    from repro_torch.core.kernel_geometry import k3_block_frames, k3_in_registers
     from repro_torch.core.viterbi import blocks_from_llrs, init_metric, traceback
     from repro_torch.kernels import viterbi_acs
     from repro_torch.kernels.ref import transfer_matrix_ref
@@ -325,19 +381,34 @@ def time_parallel_phase(decoder, llrs, gen, tables, w):
     k3, k1 = viterbi_acs.transfer_matrix, viterbi_acs.acs_forward
     k3_err = 0.0
 
-    def k3_case(label, blocks, **kw):
+    def k3_case(label, blocks, w=w, tb=tables, plain_on_cpu=False, **kw):
+        """K3 bit for bit against its plain version.  With
+        ``plain_on_cpu`` (AWGN LLRs, whose sums round in the order they
+        are taken) against the plain version on the CPU, whose matmul sums
+        W's rows in k order as K3 does; on the card the plain version's
+        matmul picks its order by the shape."""
         nonlocal k3_err
-        kw = dict(n_states=S, n_slots=R, **kw)
+        kw = dict(n_states=tb.n_states, n_slots=tb.n_slots, **kw)
         got = k3(blocks, w, **kw)
         want = transfer_matrix_ref(blocks, w, **kw)
         torch.cuda.synchronize()
+        note = ""
+        if plain_on_cpu:
+            cpu = transfer_matrix_ref(blocks.cpu(), w.cpu(), **kw).to(blocks.device)
+            note = (f"; on the card's plain version "
+                    f"{'bit-identical' if torch.equal(got, want) else 'not'}, "
+                    f"which is {'' if torch.equal(want, cpu) else 'not '}the CPU's")
+            want = cpu
         err = (got - want).abs().max().item()
         k3_err = max(k3_err, err)
         same = torch.equal(got, want)
-        bf = k3_block_frames(S, B, R, 0, blocks.shape[1])
-        print(f"K3 vs plain {label} (F={blocks.shape[1]} T={blocks.shape[0]} "
-              f"TT={kw['transfer_tile']}; {bf} frames a block): "
-              f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
+        where = ("registers" if k3_in_registers(tb.n_states, tb.n_slots)
+                 else "shared memory")
+        print(f"K3 vs plain{' on the CPU' if plain_on_cpu else ''} {label} "
+              f"(F={blocks.shape[1]} T={blocks.shape[0]} "
+              f"TT={kw['transfer_tile']}; {k3_block_frames(tb.n_states)} "
+              f"frames a block, rows in {where}): "
+              f"{'bit-identical' if same else 'DIFFERENT'}{note}", flush=True)
         if not same:
             fail(f"K3 differs from its plain version ({label}), max |M| diff {err}")
         return got
@@ -353,6 +424,10 @@ def time_parallel_phase(decoder, llrs, gen, tables, w):
                         transfer_tile=TT_K3, matmul_dtype=mm,
                         split_dot=split, carry_dtype=carry)
     k3_case("ragged F", blocks[:, :F_TP - 3].contiguous(), transfer_tile=TT_K3)
+    for label, tb, wc, tt_case, ints, noisy in k3_layout_inputs(llrs, gen):
+        k3_case(f"{label}, integer LLRs", ints, w=wc, tb=tb, transfer_tile=tt_case)
+        k3_case(f"{label}, AWGN LLRs", noisy, w=wc, tb=tb, plain_on_cpu=True,
+                transfer_tile=tt_case)
 
     # the latency shape: 16 zero-terminated frames x 2^19 stages
     n_info = N_TP - (spec.k - 1)
@@ -640,6 +715,19 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w):
         TT_SEP, m_scale, B, R, False,
         control=k3(sep, w, **dict(kw_sep, semiring="tropical")), separate=True)
     k3_err = max(k3_err, err_sep)
+    # the register layout's cases, on half-scaled integer and AWGN LLRs
+    for label, tbc, wc, tt_case, ints, noisy in k3_layout_inputs(llrs, gen):
+        for kind, xin in (("integer", ints), ("AWGN", noisy)):
+            xin = (xin * 0.5).contiguous()
+            kwc = dict(n_states=tbc.n_states, n_slots=tbc.n_slots,
+                       transfer_tile=tt_case, semiring="logprob")
+            err_c, _ = logprob_case(
+                f"K3-LOGPROB vs plain {label}, {kind} LLRs (F={xin.shape[1]} "
+                f"T={xin.shape[0]} TT={tt_case})",
+                k3(xin, wc, **kwc), transfer_matrix_ref(xin, wc, **kwc), tt_case,
+                xin.abs().sum(dim=-1).max().item() + math.log(tbc.n_slots),
+                tbc.llr_block, tbc.n_slots, False)
+            k3_err = max(k3_err, err_c)
     # the rest of decode_soft in its stages, CUDA events
     lam0 = init_metric(F_SOFT, S, 0, device=dev)
     beta_end = init_metric(F_SOFT, S, None, device=dev)
@@ -913,9 +1001,8 @@ def main() -> None:
     print(f"build: {', '.join(p.name for p in libs.values())} "
           f"in {time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)")
     for kernel, lib_path in libs.items():
-        for line in lib_path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {kernel}: {line.strip()}")
+        for line in ptxas_report(lib_path.with_suffix(".log").read_text()):
+            print(f"  ptxas {kernel}: {line}")
 
     spec = CODE_K7_CCSDS
     tables = build_acs_tables(spec, 2)

@@ -1,7 +1,8 @@
 """Kernel geometry shared by the decoder and the kernel wrappers: the
 survivor layout (int8 slots, or 16 slots packed per int32 word), the CUDA
-block shapes of K1, K2 and K3, the one-pass eligibility rule of the
-streaming entry points, and the time-parallel eligibility rule.
+block shapes of K1, K2 and K3 (and the W that K3 can gather from), the
+one-pass eligibility rule of the streaming entry points, and the
+time-parallel eligibility rule.
 
 The one-pass rule (``one_pass_time_tile``) keeps the reference's numbers
 on purpose: it decides whether a chunk takes the one-pass or the two-pass
@@ -27,6 +28,8 @@ __all__ = [
     "SLOT_BITS",
     "K1_THREADS",
     "K3_THREADS",
+    "K3_MAX_STATES",
+    "K3_STAGE_TARGET",
     "SMEM_LIMIT_BYTES",
     "STAGE_STEPS",
     "ring_words",
@@ -37,8 +40,12 @@ __all__ = [
     "k1_block_frames",
     "k2_smem_bytes",
     "k2_block_frames",
+    "k3_rotation_period",
+    "k3_stage_steps",
+    "k3_in_registers",
     "k3_smem_bytes",
     "k3_block_frames",
+    "k3_gather_tables",
     "pick_time_tile",
     "fused_ring_bytes",
     "one_pass_time_tile",
@@ -72,9 +79,14 @@ SLOT_BITS = {2: 1, 4: 2, 8: 3, 16: 4}
 # holds K1_THREADS // S frames
 K1_THREADS = 256
 
-# threads per K3 block (kThreads in csrc/transfer_matrix.cu): they loop
-# over the block's (frame, entry, state) triples, so any frame count fits
-K3_THREADS = 1024
+# threads per K3 block (kThreads in csrc/transfer_matrix.cu): one thread
+# per (frame, entry row), its S metrics in registers, so a block holds
+# K3_THREADS // S frames and S is at most K3_MAX_STATES
+K3_THREADS = 128
+K3_MAX_STATES = 64
+# K3 stages branch metrics about this many steps at a time, rounded up to
+# a whole rotation period (kStageTarget in csrc/transfer_matrix.cu)
+K3_STAGE_TARGET = 8
 
 # dynamic shared memory one H100 block may opt in to
 SMEM_LIMIT_BYTES = 232448
@@ -192,51 +204,104 @@ def k2_block_frames(
     return bf_max, False
 
 
-def k3_smem_bytes(
-    llr_block: int, n_states: int, n_slots: int, block_frames: int
-) -> int:
-    """Dynamic shared memory of one K3 block, in bytes: W, the staged LLR
-    steps, the BF x S x S matrix carry twice (read one, write the other),
-    then the warp maxima and the frame maxima of the final
-    normalisation.  The wrapper launches K3 with this many bytes; the
-    launcher refuses a count that does not hold its layout."""
-    S, B, BF = n_states, llr_block, block_frames
-    floats = (
-        (B + S) * S * n_slots
-        + STAGE_STEPS * BF * B
-        + 2 * BF * S * S
-        + K3_THREADS // 32
-        + BF
-    )
+def k3_rotation_period(n_states: int, n_slots: int) -> int:
+    """Steps after which K3's register map repeats: a radix-R step moves
+    logical state x to the register of x rotated left by rho of its
+    k-1 bits, so (k-1) / gcd(k-1, rho) steps (S = 2^(k-1), R = 2^rho)."""
+    bits = n_states.bit_length() - 1
+    rho = n_slots.bit_length() - 1
+    return bits // math.gcd(bits, rho)
+
+
+def k3_stage_steps(n_states: int, n_slots: int) -> int:
+    """Steps of branch metrics a K3 block stages at once: about
+    ``K3_STAGE_TARGET``, a whole number of rotation periods."""
+    p = k3_rotation_period(n_states, n_slots)
+    return p * -(-K3_STAGE_TARGET // p)
+
+
+def k3_block_frames(n_states: int) -> int:
+    """Frames per K3 block: one thread per (frame, entry row), so
+    ``K3_THREADS // S``.  A row's S metrics live in its thread's
+    registers, so S above ``K3_MAX_STATES`` raises ``ValueError``, as the
+    reference raises on what its VMEM cannot hold.  Frames are
+    independent, so the block shape changes the layout, never the
+    bits."""
+    if n_states > K3_MAX_STATES:
+        raise ValueError(
+            f"K3 keeps an entry row's metrics in one thread's registers: "
+            f"{n_states} states do not fit (at most {K3_MAX_STATES})"
+        )
+    return max(1, K3_THREADS // n_states)
+
+
+def k3_in_registers(n_states: int, n_slots: int) -> bool:
+    """Whether K3 keeps a row's metrics in registers (S in {16, 64}, every
+    code of the registry, at R <= 8), or in shared memory (every other
+    shape)."""
+    return n_states in (16, 64) and n_slots <= 8
+
+
+def k3_smem_bytes(n_states: int, n_slots: int) -> int:
+    """Dynamic shared memory of one K3 block, in bytes: the branch-metric
+    table twice (stage s is read while stage s+1 is written), each
+    ``k3_stage_steps`` steps x BF frames x S*R floats; the K3_THREADS
+    rows at a stride of S + 1 floats where they are not in registers
+    (``k3_in_registers``); then the per-warp maxima of the final shift.
+    The wrapper launches K3 with this many bytes; the launcher refuses
+    any other count."""
+    S, R = n_states, n_slots
+    bf = k3_block_frames(S)
+    warps_per_frame = S // 32 if S >= 32 else 1
+    rows = 0 if k3_in_registers(S, R) else K3_THREADS * (S + 1)
+    floats = 2 * k3_stage_steps(S, R) * bf * S * R + rows + bf * warps_per_frame
     return floats * 4
 
 
-def k3_block_frames(
-    n_states: int,
-    llr_block: int,
-    n_slots: int,
-    block_frames: int = 0,
-    n_frames: int = 0,
-) -> int:
-    """Frames per K3 block: ``block_frames`` (0: the reference's 512/S
-    rows' worth), at most ``n_frames`` when given, then as many as fit in
-    shared memory.  The reference's rule shrinks its frame block to a
-    VMEM budget; here the carry is S x S floats a frame twice over, so
-    its 8 frames at S = 64 (256 KiB) become 4.  Raises ``ValueError``
-    when not even one frame fits, as the reference does.  Frames are
-    independent, so the block shape changes the layout, never the bits."""
-    bf = block_frames or max(1, 512 // n_states)
-    if n_frames:
-        bf = min(bf, n_frames)
-    while bf > 1 and k3_smem_bytes(llr_block, n_states, n_slots, bf) > SMEM_LIMIT_BYTES:
-        bf -= 1
-    need = k3_smem_bytes(llr_block, n_states, n_slots, bf)
-    if need > SMEM_LIMIT_BYTES:
+def k3_gather_tables(w: torch.Tensor, llr_block: int, n_states: int,
+                     n_slots: int):
+    """(theta (B, S*R), pred (S, R) int64): W's LLR half, which K3
+    takes in place of W, and the predecessor of each (state, slot) as W's
+    metric half routes it.
+
+    K3 forms each potential as a branch metric plus the one predecessor
+    metric, so it takes only a W whose metric half is the 0/1 one-hot of
+    the shift register, ``pred(j, r) = ((j & mask) << rho) | r`` with
+    ``mask = 2^(k-1-rho) - 1`` and S = 2^(k-1), as
+    ``trellis.build_acs_tables`` makes it.  Raises ``ValueError`` on any
+    other: a shape that is not (B + S, S * R), an R that is not a radix
+    of S, a column that is not exactly one 1.0 among 0.0s, or a one in
+    another row than the rule's.  Reads W on the host."""
+    S, R, B = n_states, n_slots, llr_block
+    if R not in SLOT_BITS or S < R or S & (S - 1):
         raise ValueError(
-            f"K3 needs {need} bytes of shared memory even at {bf} frame(s) "
-            f"a block (limit {SMEM_LIMIT_BYTES}): {n_states} states do not fit"
+            f"K3 needs S = 2^(k-1) states and R = 2^rho <= S slots; got "
+            f"S={S}, R={R}"
         )
-    return bf
+    if tuple(w.shape) != (B + S, S * R):
+        raise ValueError(
+            f"K3: W has shape {tuple(w.shape)}, expected {(B + S, S * R)}"
+        )
+    rho = SLOT_BITS[R]
+    mask = (1 << (S.bit_length() - 1 - rho)) - 1
+    routing = w[B:].detach().to("cpu", torch.float32)
+    rows = routing.argmax(dim=0)
+    onehot = torch.zeros_like(routing)
+    onehot[rows, torch.arange(S * R)] = 1.0
+    if not torch.equal(routing, onehot):
+        raise ValueError(
+            "K3: W's metric half is not one 1.0 per column among 0.0s, so a "
+            "potential is not one predecessor metric plus a branch metric"
+        )
+    j = torch.arange(S)[:, None]
+    want = ((j & mask) << rho) | torch.arange(R)[None, :]
+    pred = rows.view(S, R)
+    if not torch.equal(pred, want):
+        raise ValueError(
+            "K3: W's metric half routes other predecessors than the shift "
+            "register's ((j & mask) << rho) | r"
+        )
+    return w[:B], pred
 
 
 def pick_time_tile(d_steps: int, t_steps: int, target=None) -> int:

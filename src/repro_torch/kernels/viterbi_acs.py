@@ -23,7 +23,9 @@ Build and binding: at the first call on a CUDA tensor, ``nvcc`` compiles
 each kernel's source for ``sm_90a`` into a shared library of its own with
 a plain C interface under ``build/torch_ext/`` of the checkout (named by
 a hash of the source, the shared header and the flags, so an edited
-source is rebuilt), and ``ctypes`` loads it.  Nothing is built or loaded at import, so this
+source is rebuilt), and ``ctypes`` loads it.  K3's source is compiled as
+``K3_PARTS`` translation units, one ``nvcc`` each, side by side, then
+linked into its library.  Nothing is built or loaded at import, so this
 module imports where there is no ``nvcc``.  A failed build or launch
 raises; nothing runs the plain version in its place on the card.
 
@@ -51,6 +53,7 @@ from repro_torch.core.kernel_geometry import (
     k2_block_frames,
     k2_smem_bytes,
     k3_block_frames,
+    k3_gather_tables,
     k3_smem_bytes,
     ring_dtype,
     ring_words,
@@ -79,6 +82,10 @@ _NVCC_FLAGS = (
     "-fPIC",
     "-Xptxas=-v",
 )
+# K3's instantiations are split over this many translation units
+# (K3_PART in csrc/transfer_matrix.cu), so that its build takes about as
+# long as its largest part
+K3_PARTS = 5
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SEMIRING_CODES = {"tropical": 0, "logprob": 1}  # acs_step.cuh's SemiringCode
 
@@ -102,10 +109,11 @@ def build(name: str = "acs_forward") -> Path:
     if name not in KERNELS:
         raise ValueError(f"unknown kernel {name!r}; one of {KERNELS}")
     src = _CSRC / f"{name}.cu"
+    parts = K3_PARTS if name == "transfer_matrix" else 0
     digest = hashlib.sha256()
     for path in (src, *_HEADERS):
         digest.update(path.read_bytes())
-    digest.update(" ".join(_NVCC_FLAGS).encode())
+    digest.update(f"{' '.join(_NVCC_FLAGS)} parts={parts}".encode())
     out = BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
@@ -117,16 +125,34 @@ def build(name: str = "acs_forward") -> Path:
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    res = subprocess.run(
-        [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(src)],
-        capture_output=True, text=True,
-    )
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed on {src.name} with exit code {res.returncode}:\n"
-            f"{res.stderr}"
+    if not parts:
+        runs = [[nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(src)]]
+    else:  # one object per part, side by side, then one link
+        objs = [tmp.with_name(f"{tmp.name}.{p}.o") for p in range(parts)]
+        compile_flags = [f for f in _NVCC_FLAGS if f != "-shared"]
+        runs = [[nvcc, *compile_flags, f"-DK3_PART={p}", "-c", "-o", str(o), str(src)]
+                for p, o in enumerate(objs)]
+    log = ""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in runs]
+    for proc in procs:
+        stdout, stderr = proc.communicate()
+        log += stdout + stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {src.name} with exit code {proc.returncode}:\n"
+                f"{stderr}"
+            )
+    if parts:
+        res = subprocess.run(
+            [nvcc, *_NVCC_FLAGS, "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
         )
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+        for o in objs:
+            o.unlink()
+        if res.returncode != 0:
+            raise RuntimeError(f"linking {name}'s parts failed:\n{res.stderr}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return out
 
@@ -416,7 +442,6 @@ def transfer_matrix(
     n_states: int,
     n_slots: int,
     transfer_tile: int,
-    block_frames: int = 0,
     carry_dtype: torch.dtype = torch.float32,
     matmul_dtype: torch.dtype = torch.float32,
     split_dot: bool = False,
@@ -425,10 +450,11 @@ def transfer_matrix(
     """Per-tile transfer matrices M (N, F, S, S) f32 of ``semiring``
     (``"tropical"`` or ``"logprob"``), each (tile, frame) normalised by
     its max; the tile is ``min(transfer_tile, T)`` and must divide T.
-    ``block_frames`` (0: auto) is K3's frame block, shrunk to what fits
-    in shared memory (``kernel_geometry.k3_block_frames``, which raises
-    where nothing fits).  On CUDA tensors this launches K3 and adds one
-    to ``transfer_matrix.launches`` (and, at LOGPROB, to
+    More than ``kernel_geometry.K3_MAX_STATES`` states raise
+    ``ValueError`` (``k3_block_frames``).  On CUDA tensors this launches
+    K3, which takes only a W whose metric half is the shift register's
+    one-hot (``kernel_geometry.k3_gather_tables`` raises on any other),
+    and adds one to ``transfer_matrix.launches`` (and, at LOGPROB, to
     ``transfer_matrix.logprob_launches``); on CPU tensors it runs
     ``transfer_matrix_ref``.
     """
@@ -436,11 +462,11 @@ def transfer_matrix(
     dev = _one_device("transfer_matrix", blocks, w)
     if blocks.dim() != 3:
         raise ValueError(f"transfer_matrix: blocks must be (T, F, B), got {tuple(blocks.shape)}")
-    T, F, B = blocks.shape
+    T = blocks.shape[0]
     TT = min(transfer_tile, T)
     if TT <= 0 or T % TT:
         raise ValueError(f"transfer_matrix: T'={T} not divisible by transfer_tile={TT}")
-    BF = k3_block_frames(n_states, B, n_slots, block_frames, F)
+    k3_block_frames(n_states)  # raises where a row does not fit
     kw = dict(
         n_states=n_states, n_slots=n_slots, transfer_tile=TT,
         carry_dtype=carry_dtype, matmul_dtype=matmul_dtype,
@@ -448,18 +474,23 @@ def transfer_matrix(
     )
     if dev.type == "cpu":
         return transfer_matrix_ref(blocks, w, **kw)
-    return _launch_k3(blocks, w, block_frames=BF, **kw)
+    return _launch_k3(blocks, w, **kw)
 
 
 transfer_matrix.launches = 0  # K3 launches in this process (set to 0 to count a run)
 transfer_matrix.logprob_launches = 0  # of which K3-LOGPROB
 
 
-def _launch_k3(blocks, w, *, n_states, n_slots, transfer_tile, block_frames,
-               carry_dtype, matmul_dtype, split_dot, semiring):
+def _launch_k3(blocks, w, *, n_states, n_slots, transfer_tile, carry_dtype,
+               matmul_dtype, split_dot, semiring):
+    """Checks W (``k3_gather_tables``: its metric half must be the shift
+    register's one-hot, or this raises before any launch; K3 has no dense
+    fallback), then launches K3 on W's LLR half with
+    ``k3_block_frames`` frames a block and ``k3_smem_bytes`` of shared
+    memory."""
     dev = blocks.device
     _check_card(dev, "K3")
-    S, R, TT, BF = n_states, n_slots, transfer_tile, block_frames
+    S, R, TT = n_states, n_slots, transfer_tile
     if R not in SLOT_BITS:
         raise ValueError(f"transfer_matrix: n_slots must be one of {list(SLOT_BITS)}")
     _check_dtypes("transfer_matrix", matmul_dtype=matmul_dtype, carry_dtype=carry_dtype)
@@ -469,6 +500,8 @@ def _launch_k3(blocks, w, *, n_states, n_slots, transfer_tile, block_frames,
         "transfer_matrix", blocks=(blocks, (T, F, B), f32),
         w=(w, (B + S, S * R), f32),
     )
+    theta, _ = k3_gather_tables(w, B, S, R)
+    BF = k3_block_frames(S)
     if -(-F // BF) > 65535:
         raise ValueError(f"transfer_matrix: {F} frames need more than 65535 blocks of {BF}")
     m = torch.empty((T // TT, F, S, S), dtype=torch.float32, device=dev)
@@ -476,10 +509,10 @@ def _launch_k3(blocks, w, *, n_states, n_slots, transfer_tile, block_frames,
         return m
     lib = _library("transfer_matrix")
     err = lib.transfer_matrix_launch(
-        blocks.data_ptr(), w.data_ptr(), m.data_ptr(),
+        blocks.data_ptr(), theta.data_ptr(), m.data_ptr(),
         T, F, B, S, R, TT, BF,
         _DTYPE_CODES[matmul_dtype], _DTYPE_CODES[carry_dtype], int(split_dot),
-        _SEMIRING_CODES[semiring], k3_smem_bytes(B, S, R, BF),
+        _SEMIRING_CODES[semiring], k3_smem_bytes(S, R),
         _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, "transfer_matrix", err)

@@ -425,23 +425,88 @@ def _spec_k7():
     return CODE_K7_CCSDS
 
 
-@pytest.mark.parametrize("n_states,block_frames,n_frames,want", [
-    (64, 0, 0, 4),  # the reference's 8 frames: 256 KiB of carry, cut to 4
-    (64, 0, 3, 3),
-    (64, 2, 0, 2),
-    (16, 0, 0, 32),
-    (4, 0, 0, 128),
+@pytest.mark.parametrize("n_states,n_slots,frames,period,stage,regs,smem", [
+    (64, 4, 2, 3, 9, True, 36880),  # ccsds-k7, rho=2: 2 x 9 steps x 2 frames x 1 KiB
+    (64, 2, 2, 6, 12, True, 24592),
+    (64, 8, 2, 2, 8, True, 65552),
+    (16, 4, 8, 2, 8, True, 32800),
+    (64, 16, 2, 3, 9, False, 180752),  # + 128 rows of 65 floats
+    (16, 16, 8, 1, 8, False, 139808),
+    (32, 4, 4, 5, 10, False, 57872),
+    (2, 2, 64, 1, 8, False, 18176),
 ])
-def test_k3_block_frames(n_states, block_frames, n_frames, want):
+def test_k3_block_frames(n_states, n_slots, frames, period, stage, regs, smem):
+    """K3's geometry: one thread per (frame, entry row) in blocks of 128,
+    the rotation period (k-1)/gcd(k-1, rho) of the register map, stages
+    of a whole number of periods, rows in registers at S in {16, 64} and
+    R <= 8, and the double-buffered branch-metric table, the rows kept in
+    shared memory elsewhere and the final shift's warp maxima, within a
+    block's shared memory."""
     from repro_torch.core.kernel_geometry import (
-        SMEM_LIMIT_BYTES, k3_block_frames, k3_smem_bytes,
+        K3_THREADS, SMEM_LIMIT_BYTES, k3_block_frames, k3_in_registers,
+        k3_rotation_period, k3_smem_bytes, k3_stage_steps,
     )
 
-    bf = k3_block_frames(n_states, 4, 4, block_frames, n_frames)
-    assert bf == want
-    assert k3_smem_bytes(4, n_states, 4, bf) <= SMEM_LIMIT_BYTES
-    assert k3_smem_bytes(4, 64, 4, 4) == 202896
-    assert k3_smem_bytes(4, 64, 4, 5) > SMEM_LIMIT_BYTES
+    bf = k3_block_frames(n_states)
+    assert bf == frames and bf * n_states == K3_THREADS
+    assert k3_rotation_period(n_states, n_slots) == period
+    assert k3_stage_steps(n_states, n_slots) == stage and stage % period == 0
+    assert k3_in_registers(n_states, n_slots) == regs
+    assert k3_smem_bytes(n_states, n_slots) == smem <= SMEM_LIMIT_BYTES
+
+
+REGISTRY_CODES = ("ccsds-k7", "dvb-s", "dvb-s-r78", "gsm-cs1", "lte-tbcc",
+                  "wifi-11a", "wifi-11a-r23", "wifi-11a-r34", "wifi-11a-r56")
+
+
+@pytest.mark.parametrize("rho", [1, 2, 3])
+@pytest.mark.parametrize("code", REGISTRY_CODES)
+def test_k3_gather_tables_match_the_trellis(code, rho):
+    """The tables K3's wrapper derives from W (its LLR half and each
+    column's predecessor) are the trellis's own, for every registry code."""
+    from repro_torch.codes import get_code, list_codes
+    from repro_torch.core import build_acs_tables
+    from repro_torch.core.kernel_geometry import k3_gather_tables
+
+    assert tuple(list_codes()) == REGISTRY_CODES
+    tb = build_acs_tables(get_code(code).spec, rho)
+    theta, pred = k3_gather_tables(torch.from_numpy(tb.fused_w),
+                                   tb.llr_block, tb.n_states, tb.n_slots)
+    np.testing.assert_array_equal(theta.numpy(), tb.theta_t)
+    np.testing.assert_array_equal(pred.numpy(), tb.pred_state)
+
+
+def _permute_columns(p):
+    return p[:, [1, 0] + list(range(2, p.shape[1]))]
+
+
+def _second_one(p):
+    p = p.clone()
+    p[0, :] = 1.0
+    return p
+
+
+@pytest.mark.parametrize("broken,match", [
+    (_permute_columns, "other predecessors"),
+    (lambda p: p * 2.0, "one 1.0 per column"),
+    (_second_one, "one 1.0 per column"),
+    (lambda p: p.roll(1, dims=0), "other predecessors"),
+], ids=["permuted", "scaled", "two-ones", "rows-rolled"])
+def test_k3_gather_tables_refuse_another_routing(broken, match):
+    """A W whose metric half is not the shift register's one-hot raises
+    ValueError (on the card, before any launch: K3 has no dense path)."""
+    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.core.kernel_geometry import k3_gather_tables
+
+    tb = build_acs_tables(CODE_K7_CCSDS, 2)
+    w = torch.from_numpy(tb.fused_w).clone()
+    w[4:] = broken(w[4:])
+    with pytest.raises(ValueError, match=match):
+        k3_gather_tables(w, 4, 64, 4)
+    with pytest.raises(ValueError, match="expected"):
+        k3_gather_tables(w[:-1], 4, 64, 4)
+    with pytest.raises(ValueError, match="R = 2"):
+        k3_gather_tables(w, 4, 48, 4)
 
 
 def test_k3_refuses_what_it_cannot_hold():
@@ -468,11 +533,27 @@ def test_k3_refuses_what_it_cannot_hold():
                            transfer_tile=32).shape == (1, 2, 64, 64)
 
 
+def _k3_cuda_cases():
+    """(label, spec, rho, transfer tile) of the cuda K3 tests: ccsds-k7 at
+    rho = 2 (rotation period 3; tiles of every residue), 1 (period 6)
+    and 3 (period 2), and gsm-cs1 (S = 16) at rho = 2 and 3."""
+    from repro_torch.codes import get_code
+
+    k7, gsm = get_code("ccsds-k7").spec, get_code("gsm-cs1").spec
+    return [("k7 rho2 TT32", k7, 2, 32), ("k7 rho2 TT96", k7, 2, 96),
+            ("k7 rho2 TT64", k7, 2, 64), ("k7 rho2 TT8", k7, 2, 8),
+            ("k7 rho1 TT32", k7, 1, 32), ("k7 rho1 TT7", k7, 1, 7),
+            ("k7 rho3 TT8", k7, 3, 8), ("k7 rho3 TT5", k7, 3, 5),
+            ("gsm rho2 TT32", gsm, 2, 32), ("gsm rho3 TT7", gsm, 3, 7)]
+
+
 @pytest.mark.cuda
 def test_cuda_k3_matches_plain():
     """K3 against its plain version on the card, bit for bit on integer
-    LLRs, over the precision policies and a ragged last block (needs an
-    H100 and nvcc)."""
+    and on Gaussian LLRs, over the precision policies, a ragged last
+    block, two codes, three radixes and tiles of every residue of the
+    register rotation; a W that is not the shift register's raises before
+    any launch (needs an H100 and nvcc)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
     from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
@@ -492,6 +573,27 @@ def test_cuda_k3_matches_plain():
             want = transfer_matrix_ref(blocks, w, **kw)
             torch.cuda.synchronize()
             assert torch.equal(got, want)
+    for label, spec, rho, tile in _k3_cuda_cases():
+        tb = build_acs_tables(spec, rho)
+        wc = torch.as_tensor(tb.fused_w, device=dev)
+        for integer in (True, False):
+            x, _ = _inputs(spec, rho, 13, 2 * tile, 14, integer, None)
+            x = torch.from_numpy(x).to(dev)
+            kw = dict(n_states=tb.n_states, n_slots=tb.n_slots, transfer_tile=tile)
+            got = transfer_matrix(x, wc, **kw)
+            # Gaussian sums round in the order they are taken: K3 and the
+            # plain version on the CPU take W's rows in k order, the card's
+            # matmul in an order it picks by the shape
+            want = transfer_matrix_ref(x if integer else x.cpu(),
+                                       wc if integer else wc.cpu(), **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want.cpu()), (label, integer)
+    bad = w.clone()
+    bad[4:] = bad[4:].roll(1, dims=0)
+    before = transfer_matrix.launches
+    with pytest.raises(ValueError, match="other predecessors"):
+        transfer_matrix(blocks, bad, n_states=64, n_slots=4, transfer_tile=32)
+    assert transfer_matrix.launches == before
 
 
 # -- the LOGPROB variants of K1 and K3 ------------------------------------
@@ -592,15 +694,17 @@ def test_k3_logprob_matches_reference(code, F, T, tile, mm, split):
         assert (~reach).mean() > 0.9
 
 
-def _cuda_logprob_bound(steps, scale, renorm):
-    """The f32 rounding a LOGPROB run of ``steps`` steps allows at B=4
-    LLRs and R=4 slots, values held within ``scale`` (``renorm``) or
-    growing by ``scale`` a step: chip_smoke.py's ``logprob_bound``, which
-    derives it."""
+def _cuda_logprob_bound(steps, scale, renorm, n_llr=4, n_slots=4):
+    """The f32 rounding a LOGPROB run of ``steps`` steps allows at
+    ``n_llr`` LLRs and ``n_slots`` slots, values held within ``scale``
+    (``renorm``) or growing by ``scale`` a step: chip_smoke.py's
+    ``logprob_bound``, which derives it."""
     u = 2.0 ** -24
+    rounds = n_llr + 2 + int(renorm)
     sum_x = steps * scale if renorm else scale * steps * (steps + 1) / 2
     x_end = scale if renorm else steps * scale
-    return 4 * ((6 + int(renorm)) * u * sum_x + 14 * steps * u) + 4 * u * x_end
+    return (4 * (rounds * u * sum_x + steps * (2 * n_slots + 6) * u)
+            + 4 * u * x_end)
 
 
 def _max_reachable_diff(a, b):
@@ -648,8 +752,9 @@ def test_cuda_k1_logprob_matches_plain():
 @pytest.mark.cuda
 def test_cuda_k3_logprob_matches_plain():
     """K3-LOGPROB against its plain version on the card (needs an H100
-    and nvcc), at tiles of 32 and 8 steps and at one step a tile; at 8
-    steps the bound rejects the tropical instantiation."""
+    and nvcc), at tiles of 32 and 8 steps and at one step a tile, and at
+    the codes, radixes and tile residues of the tropical test; at 8 steps
+    the bound rejects the tropical instantiation."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
     from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
@@ -659,20 +764,32 @@ def test_cuda_k3_logprob_matches_plain():
     dev = torch.device("cuda")
     w = torch.as_tensor(build_acs_tables(CODE_K7_CCSDS, 2).fused_w, device=dev)
     blocks = torch.from_numpy(_logprob_blocks(CODE_K7_CCSDS, 13, 256, 13)).to(dev)
-    m = blocks.abs().sum(dim=-1).max().item() + math.log(4)
-    for tile in (32, 8, 1):
-        kw = dict(n_states=64, n_slots=4, transfer_tile=tile, semiring="logprob")
-        got = transfer_matrix(blocks, w, **kw)
-        want = transfer_matrix_ref(blocks, w, **kw)
+
+    def check(x, wc, tb, tile, separate=False):
+        kw = dict(n_states=tb.n_states, n_slots=tb.n_slots,
+                  transfer_tile=tile, semiring="logprob")
+        got = transfer_matrix(x, wc, **kw)
+        want = transfer_matrix_ref(x, wc, **kw)
         torch.cuda.synchronize()
         reach = want > -1e8
         assert torch.equal(got > -1e8, reach)
         assert torch.equal(got[~reach], want[~reach])
-        bound = _cuda_logprob_bound(tile, m, False)
+        m = x.abs().sum(dim=-1).max().item() + math.log(tb.n_slots)
+        bound = _cuda_logprob_bound(tile, m, False, tb.llr_block, tb.n_slots)
         assert (got - want)[reach].abs().max().item() <= bound
-        if tile == 8:
-            trop = transfer_matrix(blocks, w, **dict(kw, semiring="tropical"))
+        if separate:
+            trop = transfer_matrix(x, wc, **dict(kw, semiring="tropical"))
             assert _max_reachable_diff(trop, want) > bound
+
+    tb = build_acs_tables(CODE_K7_CCSDS, 2)
+    for tile in (32, 8, 1):
+        check(blocks, w, tb, tile, separate=tile == 8)
+    for _, spec, rho, tile in _k3_cuda_cases():
+        tbc = build_acs_tables(spec, rho)
+        rng = np.random.default_rng(tile + rho)
+        x = (rng.normal(0.0, 3.0, (2 * tile, 13, tbc.llr_block)) * 0.5)
+        check(torch.from_numpy(x.astype(np.float32)).to(dev),
+              torch.as_tensor(tbc.fused_w, device=dev), tbc, tile)
 
 
 def test_logprob_variants_build_without_fast_math():

@@ -160,16 +160,16 @@ def test_semiring_matmul_and_identity_match_reference(mm, monkeypatch):
 def test_transfer_matrices_match_reference(label, F):
     """The port's plain formation (``use_kernel=False``) and K3's
     wrapper (its plain version on CPU tensors) against the reference's
-    XLA formation and its Pallas K3, bit for bit on integer LLRs.  F=5
-    is not a multiple of K3's block (4 frames at S=64) nor of the
-    reference's (8)."""
+    XLA formation and its Pallas K3, bit for bit on integer LLRs.  F=3
+    and F=5 are multiples neither of K3's block (2 frames at S=64) nor
+    of the reference's (8)."""
     from repro.core.timeparallel import transfer_matrices as ref_tm
     from repro.kernels.ops import viterbi_transfer_matrices as ref_pallas
 
     from repro_torch.core.kernel_geometry import k3_block_frames
     from repro_torch.core.timeparallel import transfer_matrices
 
-    assert F % k3_block_frames(64, 4, 4) or F < 4
+    assert F % k3_block_frames(64)
     tb, rtb = _tables()
     prec, rprec = _precisions(label)
     blocks, rblocks = _blocks(F, 128, seed=F, integer=True)
