@@ -13,7 +13,19 @@ which ends the run with a non-zero exit when it fails:
                F=512 frames x T=1024 radix steps on quantised integer
                LLRs, over f32/bf16 matmul x packed/int8 survivors x renorm
                on/off: final metrics, survivors and traced-back bits must
-               be bit-identical;
+               be bit-identical; then the shape sweep: K1 and K2 bit for
+               bit against their plain versions at every shape the
+               gathered kernels specialise on (ccsds-k7, gsm-cs1 with two
+               16-state frames a warp, lte-tbcc at rate 1/3, a k=6 code of
+               one 32-state frame a warp, a k=8 code whose frame spans two
+               warps and a k=10 one of eight; rho =
+               1..4, packed rings where 16 slots fit a word; F=37, ragged
+               against every block; K2 also at T=TT and TT=1) on integer
+               LLRs in -2..2 from all-equal start metrics (ties
+               everywhere) and on AWGN LLRs (against the plain version on
+               the CPU, which sums in k order as the kernels do); and a W
+               whose metric half is not the one-hot must raise ValueError
+               in K1 and K2 before any launch;
   4. decode  — the paper's workload (cell decode_64k): ccsds-k7,
                rho=2, 512 zero-terminated frames x 65536 stages through
                ``ViterbiDecoder.from_standard("ccsds-k7").decode_batch``
@@ -33,8 +45,10 @@ which ends the run with a non-zero exit when it fails:
                frame count that is not a multiple of K2's block, a ring
                too large for shared memory, and the streaming path's own
                geometry (F=512, its depth of 2560 steps and tile, packed:
-               3 frames a block, the last block 2 frames): bits, metrics
-               and exit ring must be bit-identical;
+               4 frames a block, 128 blocks, which must be one wave):
+               bits, metrics and exit ring must be bit-identical; each
+               case prints K2's grid, frames a block, shared bytes and
+               blocks an SM;
   6. stream  — the same 512 x 65536 input through
                ``decode_stream_chunked(chunk_len=4096, initial_state=0)``
                (f32, depth 5120 stages, packed ring): one K2 launch per
@@ -156,6 +170,14 @@ K3_LAYOUT = (("ccsds-k7", 2, (96, 64, 512)), ("ccsds-k7", 1, (96, 64, 65)),
              ("ccsds-k7", 3, (64, 65)), ("gsm-cs1", 2, (64, 65)),
              ("gsm-cs1", 3, (64, 67)))
 K3_LAYOUT_FRAMES, K3_LAYOUT_TILES = 13, 8  # ragged at 2 and at 8 frames a block
+# the shape sweep (phase 3): K1 and K2 against their plain versions at
+# each code (k=6, 8 and 10 codes of no registry beside three of it: one
+# 32-state frame a warp, a frame over two warps, over eight) and rho =
+# 1..4; F ragged against every block shape; K2's depth and tile
+SWEEP_CODES = (("ccsds-k7", None), ("gsm-cs1", None), ("lte-tbcc", None),
+               ("k6 S=32", (6, (0o53, 0o75))), ("k8 S=128", (8, (0o371, 0o247))),
+               ("k10 S=512", (10, (0o1167, 0o1545))))
+SWEEP_F, SWEEP_STEPS, SWEEP_DEPTH, SWEEP_TILE = 37, 64, 32, 16
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet) at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # non-tensor float32
@@ -191,11 +213,32 @@ def ptxas_report(log: str):
     name with its template arguments, registers a thread, and spills."""
     import re
 
+    def template_args(mangled, at):
+        """The Itanium-mangled template arguments at ``at``: ints, bools
+        and K2's ring type."""
+        args = []
+        if mangled[at:at + 1] != "I":
+            return args
+        at += 1
+        while at < len(mangled):
+            m = re.match(r"L([ib])(\d+)E", mangled[at:])
+            if m:
+                kind, value = m.groups()
+                args.append(value if kind == "i" else ("true" if value == "1" else "false"))
+                at += m.end()
+            elif mangled[at] in "ai":
+                args.append({"a": "int8_t", "i": "int32_t"}[mangled[at]])
+                at += 1
+            else:
+                break
+        return args
+
     name, spill, lines = "?", "", []
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             mangled = name = m.group(1)
+            args = []
             # the kernel's length-prefixed identifier, then its arguments
             for d in re.finditer(r"(?=(\d{1,3}))", mangled):
                 for n in range(1, len(d.group(1)) + 1):
@@ -204,7 +247,7 @@ def ptxas_report(log: str):
                     if ident.endswith("_kernel") and ident[:1].isalpha() \
                             and mangled[at + len(ident):at + len(ident) + 1] == "I":
                         name = ident
-            args = re.findall(r"Li(\d+)E", mangled)
+                        args = template_args(mangled, at + len(ident))
             name += f"<{', '.join(args)}>" if args else ""
         elif "spill" in line:
             spill = line.strip()
@@ -360,6 +403,143 @@ def k3_layout_inputs(llrs, gen):
             yield f"{code} rho={rho}", tb, w, tt, ints, noisy
 
 
+def shape_sweep_phase(dev):
+    """Phase 3's shape sweep: K1 and K2 bit for bit against their plain
+    versions at each (code, rho) of ``SWEEP_CODES``, on integer and AWGN
+    LLRs; then a W that is not the one-hot must raise before any launch.
+    Its inputs come from a generator of its own, so the later phases draw
+    what they drew without it.  Returns the largest |metric| difference
+    seen (0.0 when bit-identical)."""
+    from repro_torch.codes import get_code
+    from repro_torch.core import CodeSpec, build_acs_tables, conv_encode_torch
+    from repro_torch.core.channel import awgn, bpsk, llr
+    from repro_torch.core.kernel_geometry import gather_block_shape
+    from repro_torch.core.viterbi import blocks_from_llrs
+    from repro_torch.kernels import viterbi_acs
+    from repro_torch.kernels.ref import acs_decode_fused_ref, acs_forward_ref
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    k1, k2 = viterbi_acs.acs_forward, viterbi_acs.acs_decode_fused
+    f32, bf16 = torch.float32, torch.bfloat16
+    F, T, D, TT = SWEEP_F, SWEEP_STEPS, SWEEP_DEPTH, SWEEP_TILE
+    err = 0.0
+
+    def same(label, got, want):
+        nonlocal err
+        got = [g.to(want[0].device) for g in got]
+        for g, p in zip(got, want):
+            if g.is_floating_point():
+                err = max(err, (g - p).abs().max().item())
+        if not all(torch.equal(g, p) for g, p in zip(got, want)):
+            fail(f"{label} differs from its plain version")
+
+    def ring(S, R, depth, pack):
+        if pack:
+            return torch.randint(-2**31, 2**31, (depth, F, S // 16), generator=gen,
+                                 device=dev, dtype=torch.int64).to(torch.int32)
+        return torch.randint(0, R, (depth, F, S), generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    for name, custom in SWEEP_CODES:
+        spec = CodeSpec(k=custom[0], polys=custom[1]) if custom else get_code(name).spec
+        for rho in (1, 2, 3, 4):
+            tb = build_acs_tables(spec, rho)
+            S, R, B = tb.n_states, tb.n_slots, tb.llr_block
+            w = torch.as_tensor(tb.fused_w, device=dev)
+            packs = (False, True) if S % 16 == 0 and R <= 4 else (False,)
+            ints = torch.randint(-2, 3, (T, F, B), generator=gen, device=dev).float()
+            msg = torch.randint(0, 2, (F, T * rho), generator=gen, device=dev)
+            noisy = blocks_from_llrs(llr(awgn(gen, bpsk(conv_encode_torch(msg, spec)),
+                                              EBN0_DB, spec.rate), EBN0_DB, spec.rate),
+                                     rho).contiguous()
+            lam0 = torch.zeros((F, S), device=dev)  # every state open: ties
+            label = f"{name} rho={rho}"
+            n1 = n2 = 0
+            for mm in (f32, bf16):
+                for pack in packs:
+                    for renorm in (True, False):
+                        kw = dict(n_states=S, n_slots=R, matmul_dtype=mm,
+                                  renorm=renorm, pack_survivors=pack)
+                        same(f"K1 {label} {kw}", k1(ints, lam0, w, **kw),
+                             acs_forward_ref(ints, lam0, w, **kw))
+                        n1 += 1
+            kw = dict(n_states=S, n_slots=R)
+            same(f"K1 {label} AWGN", k1(noisy, lam0, w, **kw),
+                 acs_forward_ref(noisy.cpu(), lam0.cpu(), w.cpu(), **kw))
+            kw2 = dict(n_states=S, n_slots=R, k=spec.k, rho=rho)
+            for pack in packs:
+                for steps, tile, depth, mm, renorm in ((T, TT, D, f32, True),
+                                                       (T, TT, D, bf16, False),
+                                                       (TT, TT, D, f32, True),
+                                                       (8, 1, 5, f32, True)):
+                    hist0 = ring(S, R, depth, pack)
+                    kw = dict(kw2, time_tile=tile, matmul_dtype=mm, renorm=renorm,
+                              pack_survivors=pack)
+                    same(f"K2 {label} T={steps} TT={tile} {kw}",
+                         k2(ints[:steps], lam0, hist0, w, **kw),
+                         acs_decode_fused_ref(ints[:steps], lam0, hist0, w, **kw))
+                    n2 += 1
+            hist0 = ring(S, R, D, False)
+            kw = dict(kw2, time_tile=TT)
+            same(f"K2 {label} AWGN", k2(noisy, lam0, hist0, w, **kw),
+                 acs_decode_fused_ref(noisy.cpu(), lam0.cpu(), hist0.cpu(), w.cpu(), **kw))
+            torch.cuda.synchronize()
+            frames, threads = gather_block_shape(S)
+            print(f"K1 and K2 vs plain {label} (S={S} R={R} B={B}, F={F}; "
+                  f"{frames} frames of {threads // frames} threads a block): "
+                  f"{n1} K1 and {n2} K2 cases on integer LLRs "
+                  f"(K2 at TT={TT}, T=TT and TT=1), one each on AWGN LLRs (plain "
+                  f"on the CPU): bit-identical", flush=True)
+
+    # K2 where a block holds 32 frames (S = 4) or 64 (S = 2, two a lane of
+    # the walk warp): a tile of one step is far shorter than the walk of a
+    # deep window, so the next tile's start states are written while the
+    # walk of this one still reads its own
+    for k, polys in ((2, (0o3, 0o1)), (3, (0o7, 0o5))):
+        spec = CodeSpec(k=k, polys=polys)
+        tb = build_acs_tables(spec, 1)
+        S, R, B = tb.n_states, tb.n_slots, tb.llr_block
+        w = torch.as_tensor(tb.fused_w, device=dev)
+        n_frames, depth = 130, 512
+        ints = torch.randint(-2, 3, (T, n_frames, B), generator=gen, device=dev).float()
+        lam0 = torch.zeros((n_frames, S), device=dev)
+        hist0 = torch.randint(0, R, (depth, n_frames, S), generator=gen, device=dev,
+                              dtype=torch.int8)
+        kw = dict(n_states=S, n_slots=R, k=k, rho=1, time_tile=1)
+        same(f"K2 S={S} TT=1 D={depth}", k2(ints, lam0, hist0, w, **kw),
+             acs_decode_fused_ref(ints, lam0, hist0, w, **kw))
+        torch.cuda.synchronize()
+        frames, _ = gather_block_shape(S)
+        print(f"K2 vs plain S={S} (k={k}, rho=1, F={n_frames}, T={T}, TT=1, "
+              f"D={depth}; {frames} frames a block): bit-identical", flush=True)
+
+    # a W whose metric half is not the shift register's one-hot
+    tb = build_acs_tables(get_code("ccsds-k7").spec, 2)
+    bad = torch.as_tensor(tb.fused_w, device=dev).clone()
+    bad[4:] = bad[4:].roll(1, dims=0)
+    blocks = torch.zeros((TT, F, 4), device=dev)
+    lam0 = torch.zeros((F, 64), device=dev)
+    before = (k1.launches, k2.launches)
+    for kernel, call in (
+        ("K1", lambda: k1(blocks, lam0, bad, n_states=64, n_slots=4)),
+        ("K2", lambda: k2(blocks, lam0, ring(64, 4, D, True), bad, n_states=64,
+                          n_slots=4, k=7, rho=2, time_tile=TT, pack_survivors=True)),
+    ):
+        try:
+            call()
+        except ValueError as exc:
+            print(f"{kernel} on a W whose metric half is not the one-hot: "
+                  f"ValueError before any launch ({exc})")
+        else:
+            fail(f"{kernel} took a W whose metric half is not the one-hot")
+    if (k1.launches, k2.launches) != before:
+        fail("a refused W still launched a kernel")
+    print(f"shape sweep took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return err
+
+
 def time_parallel_phase(decoder, llrs, gen, tables, w):
     """Phase 9: K3 against its plain version, the time-parallel
     decode_batch at the decode_512k_f16 shape, its stage times, the
@@ -485,7 +665,8 @@ def time_parallel_phase(decoder, llrs, gen, tables, w):
     blocks = blocks_from_llrs(quant, 2).contiguous()
     prec = decoder.precision
     kw = dict(n_states=S, n_slots=R, transfer_tile=tt)
-    k3_ms = cuda_ms(lambda: k3(blocks, w, **kw))
+    ops_w = viterbi_acs.gather_operands(w, B, S, R)
+    k3_ms = cuda_ms(lambda: k3(blocks, w, operands=ops_w, **kw))
     plain_ms = cuda_ms(lambda: transfer_matrix_ref(blocks, w, **kw),
                        warmup=lambda: transfer_matrix_ref(blocks[:tt], w, **kw))
     m = k3_case("decode_512k_f16 shape", blocks, transfer_tile=tt)
@@ -694,7 +875,8 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w):
     blocks = (blocks_from_llrs(x, 2) * 0.5).contiguous()
     m_scale = blocks.abs().sum(dim=-1).max().item() + math.log(R)
     kw = dict(n_states=S, n_slots=R, transfer_tile=tt, semiring="logprob")
-    k3_ms = cuda_ms(lambda: k3(blocks, w, **kw))
+    ops_w = viterbi_acs.gather_operands(w, B, S, R)
+    k3_ms = cuda_ms(lambda: k3(blocks, w, operands=ops_w, **kw))
     m = k3(blocks, w, **kw)
     res = {}
     k3_plain_ms = cuda_ms(
@@ -905,7 +1087,8 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w):
     blocks3 = (blocks_from_llrs(y, 2) * 0.5).contiguous()
     w3 = torch.as_tensor(tb3.fused_w, device=dev)
     kw3 = dict(n_states=S, n_slots=R, transfer_tile=1, semiring="logprob")
-    k3_tb_ms = cuda_ms(lambda: k3(blocks3, w3, **kw3), reps=5)
+    ops_w3 = viterbi_acs.gather_operands(w3, tb3.llr_block, S, R)
+    k3_tb_ms = cuda_ms(lambda: k3(blocks3, w3, operands=ops_w3, **kw3), reps=5)
     a = k3(blocks3, w3, **kw3)
     k3_tb_plain_ms = cuda_ms(lambda: res.update(a=transfer_matrix_ref(blocks3, w3, **kw3)))
     err_tb, _ = logprob_case(
@@ -976,7 +1159,6 @@ def main() -> None:
         traceback,
     )
     from repro_torch.core.decoder import _flush_step
-    from repro_torch.core.kernel_geometry import k2_block_frames
     from repro_torch.kernels import viterbi_acs
     from repro_torch.kernels.ref import acs_decode_fused_ref, acs_forward_ref
 
@@ -1008,6 +1190,9 @@ def main() -> None:
     tables = build_acs_tables(spec, 2)
     S, R, B = tables.n_states, tables.n_slots, tables.llr_block
     w = torch.as_tensor(tables.fused_w, device=dev)
+    # W's gather operands, made once as the decoder makes them: the timed
+    # launches below read no W on the host
+    operands = viterbi_acs.gather_operands(w, B, S, R)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     max_abs_err = 0.0
@@ -1038,6 +1223,7 @@ def main() -> None:
                 if not same:
                     fail(f"K1 differs from its plain version ({label}), "
                          f"max |lam| diff {err}")
+    sweep_err = shape_sweep_phase(dev)
 
     # -- 4. the main path at full width -----------------------------------
     n_info = N_FULL - (spec.k - 1)
@@ -1090,8 +1276,9 @@ def main() -> None:
     blocks = blocks_from_llrs(quant, 2).contiguous()
     lam0 = init_metric(F_FULL, S, 0, device=dev)
     kw = dict(n_states=S, n_slots=R)
-    k1_ms = cuda_ms(lambda: viterbi_acs.acs_forward(blocks, lam0, w, **kw), reps=5)
-    lam_k, phi_k = viterbi_acs.acs_forward(blocks, lam0, w, **kw)
+    k1_ms = cuda_ms(lambda: viterbi_acs.acs_forward(blocks, lam0, w, operands=operands,
+                                                     **kw), reps=5)
+    lam_k, phi_k = viterbi_acs.acs_forward(blocks, lam0, w, operands=operands, **kw)
     fs = torch.zeros(F_FULL, dtype=torch.int64, device=dev)
     tb_ms = cuda_ms(
         lambda: traceback(phi_k, fs, tables),
@@ -1149,7 +1336,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/acs_forward.cu",
         "replaces": "src/repro/kernels/viterbi_acs.py:172",
         "launches": launches,
-        "max_abs_err": max_abs_err,
+        "max_abs_err": max(max_abs_err, sweep_err),
         "ms": k1_ms,
         "plain_ms": plain_ms,
         "bound_ms": k1_bound,
@@ -1160,6 +1347,8 @@ def main() -> None:
     # -- 5. K2 vs plain version -------------------------------------------
     k2_err = 0.0
     k2 = viterbi_acs.acs_decode_fused
+    n_cols = operands.cols.shape[1]
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     blocks = torch.randint(
         -8, 9, (T_SWEEP, F_SWEEP, B), generator=gen, device=dev
     ).float()
@@ -1174,17 +1363,21 @@ def main() -> None:
         err = (got[1] - want[1]).abs().max().item()
         k2_err = max(k2_err, err)
         same = all(torch.equal(g, p) for g, p in zip(got, want))
-        ring = hist0.shape[0] + kw["time_tile"]
-        bf, in_smem = k2_block_frames(
-            S, B, R, ring * hist0.shape[2] * hist0.element_size()
-        )
+        geo = viterbi_acs.k2_launch_geometry(
+            S, R, B, n_cols, hist0.shape[0], kw["time_tile"],
+            kw.get("pack_survivors", False), blocks.shape[1])
+        waves = -(-geo["grid"] // (n_sms * geo["blocks_per_sm"]))
         print(f"K2 vs plain {label} (F={blocks.shape[1]} T={blocks.shape[0]} "
-              f"D={hist0.shape[0]}; {bf} frames a block, ring in "
-              f"{'shared' if in_smem else 'device'} memory): "
+              f"D={hist0.shape[0]}; grid {geo['grid']} blocks of "
+              f"{geo['block_frames']} frames, {geo['smem_bytes']} shared bytes a "
+              f"block, rings in {'shared' if geo['rings_in_smem'] else 'device'} "
+              f"memory, {geo['blocks_per_sm']} blocks an SM, {waves} "
+              f"wave{'s' if waves > 1 else ''} on {n_sms} SMs): "
               f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
         if not same:
             fail(f"K2 differs from its plain version ({label}), "
                  f"max |lam| diff {err}")
+        return waves
 
     for mm in (torch.float32, torch.bfloat16):
         for pack in (False, True):
@@ -1200,18 +1393,24 @@ def main() -> None:
     k2_case("int8 ring of 2592 steps", blocks[:128].contiguous(), lam0,
             k2_random_ring(gen, 2560, F_SWEEP, False, dev),
             time_tile=TT_SWEEP, pack_survivors=False)
+    k2_case("int8 ring of 4128 steps", blocks[:64].contiguous(), lam0,
+            k2_random_ring(gen, 4096, F_SWEEP, False, dev),
+            time_tile=TT_SWEEP, pack_survivors=False)
     # the geometry decode_stream_chunked launches in phase 6: its depth and
     # tile, the packed ring, F_FULL frames; four tiles
     d_main = decoder.decision_depth // 2
     tt_main = decoder._one_pass_tile(CHUNK_LEN // 2, d_main)
-    k2_case("streaming path's geometry, packed",
-            blocks[:4 * tt_main, :F_FULL].contiguous(), lam0[:F_FULL],
-            k2_random_ring(gen, d_main, F_FULL, True, dev),
-            time_tile=tt_main, pack_survivors=True)
+    waves = k2_case("streaming path's geometry, packed",
+                    blocks[:4 * tt_main, :F_FULL].contiguous(), lam0[:F_FULL],
+                    k2_random_ring(gen, d_main, F_FULL, True, dev),
+                    time_tile=tt_main, pack_survivors=True)
+    if waves != 1:
+        fail(f"K2's grid at the streaming geometry takes {waves} waves, not one")
     hist0 = k2_random_ring(gen, D_SWEEP, F_SWEEP, True, dev)
     kw2 = dict(n_states=S, n_slots=R, k=spec.k, rho=2, time_tile=TT_SWEEP,
                pack_survivors=True)
-    k2_sweep_ms = cuda_ms(lambda: k2(blocks, lam0, hist0, w, **kw2), reps=3)
+    k2_sweep_ms = cuda_ms(lambda: k2(blocks, lam0, hist0, w, operands=operands, **kw2),
+                          reps=3)
     k2_plain_ms = cuda_ms(
         lambda: acs_decode_fused_ref(blocks, lam0, hist0, w, **kw2),
         warmup=lambda: acs_decode_fused_ref(blocks[:TT_SWEEP], lam0, hist0, w, **kw2),
@@ -1266,7 +1465,7 @@ def main() -> None:
         for cb in chunk_blocks:
             _, lam, hist = k2(cb, lam, hist, w, n_states=S, n_slots=R,
                               k=spec.k, rho=2, time_tile=tt,
-                              pack_survivors=True)
+                              pack_survivors=True, operands=operands)
         return lam, hist
 
     k2_stream_ms = cuda_ms(k2_stream)
@@ -1398,7 +1597,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/acs_decode_fused.cu",
         "replaces": "src/repro/kernels/viterbi_acs.py:421",
         "launches": k2_launches,
-        "max_abs_err": k2_err,
+        "max_abs_err": max(k2_err, sweep_err),
         "ms": k2_stream_ms,
         "shape": f"decode_stream_chunked: F={F_FULL} x {N_FULL} stages, "
                  f"{n_chunks} launches of {steps} steps, D={decoder.decision_depth // 2}, TT={tt}",

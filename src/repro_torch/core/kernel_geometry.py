@@ -1,8 +1,8 @@
 """Kernel geometry shared by the decoder and the kernel wrappers: the
 survivor layout (int8 slots, or 16 slots packed per int32 word), the CUDA
-block shapes of K1, K2 and K3 (and the W that K3 can gather from), the
-one-pass eligibility rule of the streaming entry points, and the
-time-parallel eligibility rule.
+block shapes and shared-memory layouts of K1, K2 and K3, the W they can
+gather from (``gather_tables``), the one-pass eligibility rule of the
+streaming entry points, and the time-parallel eligibility rule.
 
 The one-pass rule (``one_pass_time_tile``) keeps the reference's numbers
 on purpose: it decides whether a chunk takes the one-pass or the two-pass
@@ -27,10 +27,16 @@ __all__ = [
     "MIN_TIME_PARALLEL_TILES",
     "SLOT_BITS",
     "K1_THREADS",
+    "GATHER_WARPS",
+    "GATHER_GROUP_BUDGET",
     "K3_THREADS",
     "K3_MAX_STATES",
     "K3_STAGE_TARGET",
     "SMEM_LIMIT_BYTES",
+    "H100_SMS",
+    "SMEM_PER_SM_BYTES",
+    "SMEM_BLOCK_RESERVE",
+    "K2_MIN_BLOCKS",
     "STAGE_STEPS",
     "ring_words",
     "ring_dtype",
@@ -38,14 +44,23 @@ __all__ = [
     "check_packable",
     "pack_slots",
     "k1_block_frames",
+    "gather_states_per_thread",
+    "gather_frame_threads",
+    "gather_group_frames",
+    "gather_block_shape",
+    "gather_group_bytes",
+    "gather_stage_steps",
+    "k1_smem_bytes",
+    "k2_frame_bytes",
     "k2_smem_bytes",
+    "k2_waves",
     "k2_block_frames",
     "k3_rotation_period",
     "k3_stage_steps",
     "k3_in_registers",
     "k3_smem_bytes",
     "k3_block_frames",
-    "k3_gather_tables",
+    "gather_tables",
     "pick_time_tile",
     "fused_ring_bytes",
     "one_pass_time_tile",
@@ -75,9 +90,17 @@ MIN_TIME_PARALLEL_TILES = 4
 # slot width in bits per radix R = 2^rho
 SLOT_BITS = {2: 1, 4: 2, 8: 3, 16: 4}
 
-# threads per K1 block: one thread per (frame, state) pair, so a block
-# holds K1_THREADS // S frames
+# threads per K1-LOGPROB block (the dense step): one thread per (frame,
+# state) pair, so a block holds K1_THREADS // S frames
 K1_THREADS = 256
+
+# K1 (tropical) and K2, the gathered step of csrc/acs_step.cuh: a frame's
+# S states over S / NQ threads (NQ = 2 from S = 64), GATHER_WARPS warps a
+# block (kGatherWarps) where a frame fits in a warp, else a block of one
+# frame of S / 2 threads.  A stage of LLR steps is cut short where one
+# frame group's staging would pass GATHER_GROUP_BUDGET bytes.
+GATHER_WARPS = 4
+GATHER_GROUP_BUDGET = 48 * 1024
 
 # threads per K3 block (kThreads in csrc/transfer_matrix.cu): one thread
 # per (frame, entry row), its S metrics in registers, so a block holds
@@ -90,6 +113,14 @@ K3_STAGE_TARGET = 8
 
 # dynamic shared memory one H100 block may opt in to
 SMEM_LIMIT_BYTES = 232448
+# an H100 SXM's SMs, the shared memory of one SM, and what each block
+# resident on it reserves of that
+H100_SMS = 132
+SMEM_PER_SM_BYTES = 233472
+SMEM_BLOCK_RESERVE = 1024
+# the blocks an SM is sure to hold by K2's __launch_bounds__
+# (csrc/acs_decode_fused.cu): 3 where a frame fits in a warp, else 1
+K2_MIN_BLOCKS = 3
 # LLR steps a block stages into shared memory at once (kStageSteps in
 # csrc/acs_step.cuh)
 STAGE_STEPS = 32
@@ -149,59 +180,158 @@ def pack_slots(phi: torch.Tensor, n_slots: int) -> torch.Tensor:
 
 
 def k1_block_frames(n_states: int) -> int:
-    """Frames per K1 block (one thread per (frame, state) pair)."""
+    """Frames per K1-LOGPROB block (one thread per (frame, state) pair)."""
     if n_states > 1024:
         raise ValueError(f"K1 supports at most 1024 states, got {n_states}")
     return max(1, K1_THREADS // n_states)
 
 
-def k2_smem_bytes(
-    llr_block: int,
-    n_states: int,
-    n_slots: int,
-    block_frames: int,
-    ring_bytes_per_frame: int = 0,
-) -> int:
-    """Dynamic shared memory of one K2 block, in bytes: W, the staged LLR
-    steps, the matmul-rounded and the carried metrics, the renorm
-    partial maxima (16-byte aligned), then the block's survivor rings
-    when they live in shared memory (``ring_bytes_per_frame`` > 0).
-    The wrapper launches K2 with this many bytes; the launcher refuses a
-    count that does not hold the kernel's layout."""
-    S, B, BF = n_states, llr_block, block_frames
-    warps_per_frame = S // 32 if S >= 32 else 1
-    floats = (
-        (B + S) * S * n_slots
-        + STAGE_STEPS * BF * B
-        + 2 * BF * S
-        + BF * warps_per_frame
-    )
-    head = -(-floats * 4 // 16) * 16
-    return head + BF * ring_bytes_per_frame
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
 
 
-def k2_block_frames(
-    n_states: int,
-    llr_block: int,
-    n_slots: int,
-    ring_bytes_per_frame: int,
-    smem_limit: int = SMEM_LIMIT_BYTES,
-):
-    """(frames per K2 block, ring in shared memory?).
+def gather_states_per_thread(n_states: int) -> int:
+    """States a thread of K1 (tropical) or K2 owns: 1 where S <= 32, else
+    2 (t and t + S/2, which share their R predecessors)."""
+    return 2 if n_states >= 64 else 1
 
-    One thread per (frame, state), at most K1's 256 threads, and a whole
-    number of warps.  The most frames whose rings fit in shared memory
-    beside W and the staged LLRs; where not even the fewest fit, the
-    rings go to a scratch buffer in device memory and the block takes
-    K1's frame count."""
-    bf_max = k1_block_frames(n_states)
-    unit = max(1, 32 // n_states)  # frames that fill one warp
-    for bf in range(bf_max, 0, -unit):
-        if k2_smem_bytes(
-            llr_block, n_states, n_slots, bf, ring_bytes_per_frame
-        ) <= smem_limit:
-            return bf, True
-    return bf_max, False
+
+def gather_frame_threads(n_states: int) -> int:
+    """Threads a frame of K1 (tropical) or K2: S / NQ."""
+    if n_states > 1024:
+        raise ValueError(f"K1 and K2 support at most 1024 states, got {n_states}")
+    return n_states // gather_states_per_thread(n_states)
+
+
+def gather_group_frames(n_states: int) -> int:
+    """Frames that share a barrier: those of one warp (32 / tpf), or the
+    one frame of a block where a frame spans warps (S >= 128)."""
+    tpf = gather_frame_threads(n_states)
+    return 32 // tpf if tpf <= 32 else 1
+
+
+def gather_block_shape(n_states: int):
+    """(frames, frame threads) of a K1 (tropical) block, and of a K2 block
+    at most (which adds a walk warp): ``GATHER_WARPS`` warps of frames
+    where a frame fits in a warp; (1, S / 2) where it does not."""
+    tpf = gather_frame_threads(n_states)
+    if tpf > 32:
+        return 1, tpf
+    return GATHER_WARPS * (32 // tpf), 32 * GATHER_WARPS
+
+
+def gather_group_bytes(n_states: int, llr_block: int, n_cols: int,
+                       stage_steps: int, track: bool) -> int:
+    """Shared memory of one frame group (``GroupSmem`` in
+    csrc/acs_step.cuh), 16-byte aligned parts: staged LLRs and branch
+    metrics of a stage (``n_cols`` distinct columns of Theta), the metrics
+    double-buffered, with ``track`` (K2) the origins of the tile's paths
+    double-buffered as u16, the staged survivors, 32 words of reductions."""
+    S, B, SS = n_states, llr_block, stage_steps
+    gf = gather_group_frames(S)
+    bm = _align16(SS * gf * B * 4)
+    x = _align16(bm + SS * gf * n_cols * 4)
+    orig = _align16(x + 2 * gf * S * 4)
+    phi = _align16(orig + (2 * gf * S * 2 if track else 0))
+    red = _align16(phi + SS * gf * S)
+    return _align16(red + 32 * 4)
+
+
+def gather_stage_steps(n_states: int, llr_block: int, n_cols: int,
+                       track: bool) -> int:
+    """LLR steps a frame group stages at once: ``STAGE_STEPS``, halved
+    while its region passes ``GATHER_GROUP_BUDGET`` (down to 1)."""
+    ss = STAGE_STEPS
+    while ss > 1 and gather_group_bytes(
+        n_states, llr_block, n_cols, ss, track
+    ) > GATHER_GROUP_BUDGET:
+        ss //= 2
+    return ss
+
+
+def k1_smem_bytes(n_states: int, llr_block: int, n_cols: int) -> int:
+    """Dynamic shared memory of one tropical K1 block: its frame groups'
+    regions at ``gather_stage_steps``; the launcher refuses another count."""
+    S = n_states
+    groups = GATHER_WARPS if gather_frame_threads(S) <= 32 else 1
+    ss = gather_stage_steps(S, llr_block, n_cols, False)
+    return groups * gather_group_bytes(S, llr_block, n_cols, ss, False)
+
+
+def k2_frame_bytes(n_states: int, depth: int, tile: int, packed: bool) -> int:
+    """One frame's K2 ring of depth + 2 tiles of steps (S/16 int32 words,
+    or S int8, a step: the lookahead, the oldest tile, and one more, which
+    the next tile's ACS writes while the walk warp walks this one) and its
+    tile maps (depth / tile + 2 tiles x S states, u8 where S <= 256, else
+    u16), each 16-byte aligned."""
+    S = n_states
+    tiles = depth // tile + 2
+    ring = _align16(tiles * tile * (S // 16 * 4 if packed else S))
+    maps = _align16(tiles * S * (1 if S <= 256 else 2))
+    return ring + maps
+
+
+def k2_smem_bytes(n_states: int, llr_block: int, n_cols: int, depth: int,
+                  tile: int, packed: bool, block_frames: int,
+                  rings_in_smem: bool) -> int:
+    """Dynamic shared memory of one K2 block of ``block_frames`` frames:
+    its frame groups' regions, the frames' start states (an int each,
+    which the walk warp reads; two buffers by the tile's parity), then the
+    frames' rings and maps when they live in shared memory.  The launcher
+    refuses another count."""
+    S = n_states
+    gf = gather_group_frames(S)
+    groups = block_frames // gf if gather_frame_threads(S) <= 32 else 1
+    ss = gather_stage_steps(S, llr_block, n_cols, True)
+    head = (groups * gather_group_bytes(S, llr_block, n_cols, ss, True)
+            + _align16(8 * block_frames))
+    rings = block_frames * k2_frame_bytes(S, depth, tile, packed)
+    return head + (rings if rings_in_smem else 0)
+
+
+def k2_waves(n_frames: int, n_states: int, block_frames: int,
+             smem_bytes: int, n_sms: int = H100_SMS) -> int:
+    """Waves of K2 blocks of ``block_frames`` frames on ``n_sms`` SMs,
+    counting the blocks an SM is sure to hold: as many as its shared
+    memory takes, and at most the launch bounds' minimum."""
+    cap = K2_MIN_BLOCKS if gather_frame_threads(n_states) <= 32 else 1
+    per_sm = max(1, min(cap, SMEM_PER_SM_BYTES // (smem_bytes + SMEM_BLOCK_RESERVE)))
+    blocks = -(-n_frames // block_frames)
+    return -(-blocks // (n_sms * per_sm))
+
+
+def k2_block_frames(n_states: int, llr_block: int, n_cols: int, depth: int,
+                    tile: int, packed: bool, n_frames: int,
+                    n_sms: int = H100_SMS,
+                    smem_limit: int = SMEM_LIMIT_BYTES):
+    """(frames per K2 block, rings in shared memory?).
+
+    Two layouts: the most frame groups (warps, up to ``GATHER_WARPS``;
+    one frame where a frame spans warps) whose rings and maps fit in
+    shared memory beside their staging, or ``GATHER_WARPS`` groups with
+    the rings in a scratch buffer in device memory.  The one that takes
+    fewer waves of ``n_frames`` frames (``k2_waves``) wins, shared memory
+    on a tie: the step is latency-bound, so waves multiply the time, and
+    a wave with the rings in device memory takes 1.7-2.3x as long as one
+    with them in shared memory (``tools/k12_variants.py``).  At the
+    streaming geometry (S = 64, D = 2560, TT = 32, packed, F = 512) four
+    frames fit: 128 blocks, one wave on 132 SMs.  An int8 ring of that
+    depth fits one frame a block, four waves at F = 512: its rings go to
+    device memory, four frames a block, one wave."""
+    S = n_states
+
+    def smem(frames, in_smem):
+        return k2_smem_bytes(S, llr_block, n_cols, depth, tile, packed, frames, in_smem)
+
+    gf = gather_group_frames(S)
+    max_groups = GATHER_WARPS if gather_frame_threads(S) <= 32 else 1
+    hbm = max_groups * gf
+    fit = next((g * gf for g in range(max_groups, 0, -1)
+                if smem(g * gf, True) <= smem_limit), None)
+    if fit is not None and (k2_waves(n_frames, S, fit, smem(fit, True), n_sms)
+                            <= k2_waves(n_frames, S, hbm, smem(hbm, False), n_sms)):
+        return fit, True
+    return hbm, False
 
 
 def k3_rotation_period(n_states: int, n_slots: int) -> int:
@@ -258,16 +388,16 @@ def k3_smem_bytes(n_states: int, n_slots: int) -> int:
     return floats * 4
 
 
-def k3_gather_tables(w: torch.Tensor, llr_block: int, n_states: int,
-                     n_slots: int):
-    """(theta (B, S*R), pred (S, R) int64): W's LLR half, which K3
-    takes in place of W, and the predecessor of each (state, slot) as W's
-    metric half routes it.
+def gather_tables(w: torch.Tensor, llr_block: int, n_states: int,
+                  n_slots: int):
+    """(theta (B, S*R), pred (S, R) int64): W's LLR half, which K1
+    (tropical), K2 and K3 take in place of W, and the predecessor of each
+    (state, slot) as W's metric half routes it.
 
-    K3 forms each potential as a branch metric plus the one predecessor
-    metric, so it takes only a W whose metric half is the 0/1 one-hot of
-    the shift register, ``pred(j, r) = ((j & mask) << rho) | r`` with
-    ``mask = 2^(k-1-rho) - 1`` and S = 2^(k-1), as
+    The kernels form each potential as a branch metric plus the one
+    predecessor metric, so they take only a W whose metric half is the 0/1
+    one-hot of the shift register, ``pred(j, r) = ((j & mask) << rho) |
+    r`` with ``mask = 2^(k-1-rho) - 1`` and S = 2^(k-1), as
     ``trellis.build_acs_tables`` makes it.  Raises ``ValueError`` on any
     other: a shape that is not (B + S, S * R), an R that is not a radix
     of S, a column that is not exactly one 1.0 among 0.0s, or a one in
@@ -275,12 +405,12 @@ def k3_gather_tables(w: torch.Tensor, llr_block: int, n_states: int,
     S, R, B = n_states, n_slots, llr_block
     if R not in SLOT_BITS or S < R or S & (S - 1):
         raise ValueError(
-            f"K3 needs S = 2^(k-1) states and R = 2^rho <= S slots; got "
-            f"S={S}, R={R}"
+            f"the gathered kernels need S = 2^(k-1) states and R = 2^rho <= S "
+            f"slots; got S={S}, R={R}"
         )
     if tuple(w.shape) != (B + S, S * R):
         raise ValueError(
-            f"K3: W has shape {tuple(w.shape)}, expected {(B + S, S * R)}"
+            f"W has shape {tuple(w.shape)}, expected {(B + S, S * R)}"
         )
     rho = SLOT_BITS[R]
     mask = (1 << (S.bit_length() - 1 - rho)) - 1
@@ -290,7 +420,7 @@ def k3_gather_tables(w: torch.Tensor, llr_block: int, n_states: int,
     onehot[rows, torch.arange(S * R)] = 1.0
     if not torch.equal(routing, onehot):
         raise ValueError(
-            "K3: W's metric half is not one 1.0 per column among 0.0s, so a "
+            "W's metric half is not one 1.0 per column among 0.0s, so a "
             "potential is not one predecessor metric plus a branch metric"
         )
     j = torch.arange(S)[:, None]
@@ -298,7 +428,7 @@ def k3_gather_tables(w: torch.Tensor, llr_block: int, n_states: int,
     pred = rows.view(S, R)
     if not torch.equal(pred, want):
         raise ValueError(
-            "K3: W's metric half routes other predecessors than the shift "
+            "W's metric half routes other predecessors than the shift "
             "register's ((j & mask) << rho) | r"
         )
     return w[:B], pred

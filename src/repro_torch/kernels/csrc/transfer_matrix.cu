@@ -31,9 +31,10 @@
 // The gather.  W = [Theta ; P] where P, W's metric half, is the 0/1
 // one-hot of the shift register: column j*R + r has its one 1 in row
 // pred(j, r) = ((j & mask) << rho) | r, mask = 2^(k-1-rho) - 1, S =
-// 2^(k-1).  The wrapper checks exactly that before every launch
-// (kernel_geometry.k3_gather_tables) and passes only Theta, the B LLR
-// rows; W itself is read nowhere here.  The dense sum of a potential is
+// 2^(k-1).  That is checked before any launch (kernel_geometry.
+// gather_tables through viterbi_acs.gather_operands, once per code and
+// radix where the decoder makes its tables, else by the wrapper), and
+// only Theta, the B LLR rows, is passed; W itself is read nowhere here.  The dense sum of a potential is
 // then the B LLR products fma'd in k order (the branch metric bm), then
 // S - 1 products x * 0 = +-0 (no metric is infinite: the off-trellis
 // score is -1e9) that leave the sum unchanged but for the sign of a zero,

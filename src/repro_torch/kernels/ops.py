@@ -11,6 +11,9 @@ and selected there by ``use_kernel=True``.
 """
 from __future__ import annotations
 
+import functools
+from typing import Tuple
+
 import torch
 
 from repro_torch.core import kernel_geometry
@@ -18,11 +21,13 @@ from repro_torch.core.kernel_geometry import DEFAULT_TIME_TILE
 from repro_torch.core.trellis import AcsTables
 from repro_torch.core.viterbi import AcsPrecision
 
-from .viterbi_acs import acs_decode_fused, acs_forward, transfer_matrix
+from .viterbi_acs import (
+    GatherOperands, acs_decode_fused, acs_forward, gather_operands, transfer_matrix,
+)
 
 __all__ = [
     "viterbi_forward", "viterbi_decode_fused", "viterbi_transfer_matrices",
-    "ring_words", "ring_dtype",
+    "ring_words", "ring_dtype", "device_tables",
 ]
 
 
@@ -32,6 +37,19 @@ def ring_words(tables: AcsTables, pack_survivors: bool) -> int:
 
 
 ring_dtype = kernel_geometry.ring_dtype
+
+
+@functools.lru_cache(maxsize=64)
+def device_tables(tables: AcsTables,
+                  device: torch.device) -> Tuple[torch.Tensor, GatherOperands]:
+    """The tables' fused W on ``device`` and the gathered kernels'
+    operands, made once per (tables, device): W's metric half is checked
+    here (``gather_operands``) on the tables' host copy, so no launch of
+    a stream reads W back from the card."""
+    host = torch.as_tensor(tables.fused_w)
+    cols, cid = gather_operands(host, tables.llr_block, tables.n_states, tables.n_slots)
+    return (host.to(device),
+            GatherOperands(cols.to(device), cid.to(device)))
 
 
 def viterbi_forward(
@@ -51,7 +69,7 @@ def viterbi_forward(
     ``core.viterbi.traceback`` reads the packed words as they are.
     """
     precision = precision or AcsPrecision()
-    w = torch.as_tensor(tables.fused_w, device=blocks.device)
+    w, operands = device_tables(tables, blocks.device)
     return acs_forward(
         blocks.to(torch.float32).contiguous(),
         lam0.to(torch.float32).contiguous(),
@@ -63,6 +81,7 @@ def viterbi_forward(
         renorm=precision.renorm,
         pack_survivors=pack_survivors,
         semiring=semiring,
+        operands=operands,
     )
 
 
@@ -83,7 +102,7 @@ def viterbi_decode_fused(
     the fused equivalent of T/time_tile two-pass chunk steps.
     """
     precision = precision or AcsPrecision()
-    w = torch.as_tensor(tables.fused_w, device=blocks.device)
+    w, operands = device_tables(tables, blocks.device)
     return acs_decode_fused(
         blocks.to(torch.float32).contiguous(),
         lam0.to(torch.float32).contiguous(),
@@ -98,6 +117,7 @@ def viterbi_decode_fused(
         matmul_dtype=precision.matmul_dtype,
         renorm=precision.renorm,
         pack_survivors=pack_survivors,
+        operands=operands,
     )
 
 
@@ -114,7 +134,7 @@ def viterbi_transfer_matrices(
     its max.  The blocks are rounded to ``precision.channel_dtype`` first, as
     in the reference; ``split_dot`` is honoured."""
     precision = precision or AcsPrecision()
-    w = torch.as_tensor(tables.fused_w, device=blocks.device)
+    w, operands = device_tables(tables, blocks.device)
     return transfer_matrix(
         blocks.to(precision.channel_dtype).to(torch.float32).contiguous(),
         w,
@@ -125,4 +145,5 @@ def viterbi_transfer_matrices(
         matmul_dtype=precision.matmul_dtype,
         split_dot=precision.split_dot,
         semiring=semiring,
+        operands=operands,
     )

@@ -23,7 +23,10 @@ from repro_torch.core.kernel_geometry import (
 from repro_torch.core.semiring import get_semiring
 from repro_torch.core.viterbi import AcsPrecision, dot_f32, fused_potentials
 
-__all__ = ["acs_forward_ref", "acs_decode_fused_ref", "transfer_matrix_ref"]
+__all__ = [
+    "acs_forward_ref", "acs_decode_fused_ref", "acs_decode_fused_maps_ref",
+    "transfer_matrix_ref",
+]
 
 
 def acs_forward_ref(
@@ -139,6 +142,104 @@ def acs_decode_fused_ref(
             state = ((state & mask) << rho) | sel
     base = ((n_tiles + 1) % n_ring_tiles) * TT
     order = (base + torch.arange(D, device=ring.device)) % RING
+    return bits, lam, ring[order]
+
+
+def _ring_select_many(row: torch.Tensor, states: torch.Tensor, n_slots: int,
+                      packed: bool) -> torch.Tensor:
+    """``_ring_select`` for (F, n) states of each frame."""
+    if packed:
+        word = row.gather(1, states >> 4).to(torch.int64)
+        return (word >> (SLOT_BITS[n_slots] * (states & 15))) & (n_slots - 1)
+    return row.gather(1, states).to(torch.int64)
+
+
+def acs_decode_fused_maps_ref(
+    blocks: torch.Tensor,  # (T, F, B), T a multiple of time_tile
+    lam0: torch.Tensor,  # (F, S)
+    hist0: torch.Tensor,  # (D, F, W) entry ring, chronological
+    w: torch.Tensor,  # (B+S, S*R)
+    *,
+    n_states: int,
+    n_slots: int,
+    k: int,
+    rho: int,
+    time_tile: int,
+    carry_dtype: torch.dtype = torch.float32,
+    matmul_dtype: torch.dtype = torch.float32,
+    renorm: bool = True,
+    pack_survivors: bool = False,
+):
+    """A model of K2's walk, for the tests: ``acs_decode_fused_ref``'s
+    contract and outputs, with the sliding-window walk done as the CUDA
+    kernel does it (``csrc/acs_decode_fused.cu``).
+
+    Each ring tile of TT steps has a map: map[s] is the state at the
+    tile's start of the survivor path that ends in state s at its last
+    step.  A new tile's map follows each state's origin through the
+    tile's survivors step by step, as the kernel carries it through its
+    ACS steps; an entry-ring tile's map walks TT steps back from every
+    state.  After each tile the walk composes the D/TT lookahead maps,
+    newest first, from the first argmax of the metrics, then walks and
+    emits the oldest tile's TT steps through the survivors (the kernel
+    does this on a warp of its own while the next tile's ACS runs, with a
+    ring one tile longer; the order of the walk's steps is this one).  The
+    plain version walks D + TT dependent steps instead; both must give the
+    same bits.
+    """
+    T, F = blocks.shape[0], blocks.shape[1]
+    S, D, TT = n_states, hist0.shape[0], time_tile
+    RING = D + TT
+    n_ring = RING // TT
+    shift = k - 1 - rho
+    mask = (1 << shift) - 1
+    pack = pack_survivors
+    dev = blocks.device
+    ring = torch.zeros((RING, F, hist0.shape[2]), dtype=hist0.dtype, device=dev)
+    ring[TT:] = hist0
+    every = torch.arange(S, device=dev).expand(F, S)
+
+    def pred(states, row):
+        return ((states & mask) << rho) | _ring_select_many(row, states, n_slots, pack)
+
+    def walked_map(rt):  # an entry tile: TT steps back from every state
+        st = every
+        for i in range(TT - 1, -1, -1):
+            st = pred(st, ring[rt * TT + i])
+        return st
+
+    def tracked_map(rt):  # a new tile: each state's origin, step by step
+        origin = None
+        for i in range(TT):
+            p = pred(every, ring[rt * TT + i])
+            origin = p if origin is None else origin.gather(1, p)
+        return origin
+
+    maps = [None] + [walked_map(rt) for rt in range(1, n_ring)]
+    bits = torch.empty((T * rho, F), dtype=torch.int8, device=dev)
+    bit_idx = torch.arange(rho, device=dev)
+    lam = lam0
+    n_tiles = T // TT
+    for j in range(n_tiles):
+        lam, phi = acs_forward_ref(
+            blocks[j * TT:(j + 1) * TT], lam, w, n_states=S, n_slots=n_slots,
+            carry_dtype=carry_dtype, matmul_dtype=matmul_dtype, renorm=renorm,
+            pack_survivors=pack,
+        )
+        rt_new = j % n_ring
+        ring[rt_new * TT:(rt_new + 1) * TT] = phi
+        maps[rt_new] = tracked_map(rt_new)
+        state = lam.argmax(dim=-1)
+        for q in range(n_ring - 1):  # the lookahead, newest tile first
+            state = maps[(rt_new - q) % n_ring].gather(1, state[:, None])[:, 0]
+        oldest = ((j + 1) % n_ring) * TT
+        for i in range(TT - 1, -1, -1):  # the oldest tile: emit, then walk
+            v = state >> shift
+            rows = slice((j * TT + i) * rho, (j * TT + i + 1) * rho)
+            bits[rows] = ((v[None, :] >> bit_idx[:, None]) & 1).to(torch.int8)
+            state = pred(state[:, None], ring[oldest + i])[:, 0]
+    base = ((n_tiles + 1) % n_ring) * TT
+    order = (base + torch.arange(D, device=dev)) % RING
     return bits, lam, ring[order]
 
 

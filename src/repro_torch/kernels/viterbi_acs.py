@@ -15,9 +15,20 @@ Hopper.
 All three share the ACS step of ``csrc/acs_step.cuh``; each source's header
 comment gives its design and what bounds it on an H100.  K1 and K3 take
 ``semiring``, as the reference's kernels do: ``"tropical"`` (the slot
-max) or ``"logprob"`` (the max-normalised logsumexp of the BCJR), two
-instantiations of one kernel.  ``launches`` counts every launch of a
-kernel, ``logprob_launches`` those of its LOGPROB variant.
+max) or ``"logprob"`` (the max-normalised logsumexp of the BCJR).
+``launches`` counts every launch of a kernel, ``logprob_launches``
+those of its LOGPROB variant.
+
+The gather.  K1 (tropical), K2 and K3 form each potential as a branch
+metric plus the one predecessor metric that W's metric half routes, so
+they take only a W whose metric half is the shift register's one-hot:
+``gather_operands`` checks that (``kernel_geometry.gather_tables``) and
+raises ``ValueError`` before any launch on another W; there is no dense
+fallback.  It reads W on the host, so a caller that launches often with
+one W makes its operands once and passes them (``operands=``), as
+``ops.device_tables`` does once per tables and device; without them
+each launch checks W itself.  K1-LOGPROB keeps the dense product over
+all of W.
 
 Build and binding: at the first call on a CUDA tensor, ``nvcc`` compiles
 each kernel's source for ``sm_90a`` into a shared library of its own with
@@ -40,7 +51,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -49,11 +60,14 @@ from repro_torch.core.kernel_geometry import (
     SLOT_BITS,
     SMEM_LIMIT_BYTES,
     check_packable,
+    gather_stage_steps,
+    gather_tables,
     k1_block_frames,
+    k1_smem_bytes,
     k2_block_frames,
+    k2_frame_bytes,
     k2_smem_bytes,
     k3_block_frames,
-    k3_gather_tables,
     k3_smem_bytes,
     ring_dtype,
     ring_words,
@@ -63,8 +77,8 @@ from repro_torch.core.semiring import check_semiring
 from .ref import acs_decode_fused_ref, acs_forward_ref, transfer_matrix_ref
 
 __all__ = [
-    "acs_forward", "acs_decode_fused", "transfer_matrix", "build",
-    "SMEM_LIMIT_BYTES",
+    "acs_forward", "acs_decode_fused", "transfer_matrix", "build", "bind",
+    "gather_operands", "GatherOperands", "SMEM_LIMIT_BYTES",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -158,9 +172,15 @@ def build(name: str = "acs_forward") -> Path:
 
 
 def _library(name: str) -> ctypes.CDLL:
-    if name in _libs:
-        return _libs[name]
-    lib = ctypes.CDLL(str(build(name)))
+    if name not in _libs:
+        _libs[name] = bind(build(name), name)
+    return _libs[name]
+
+
+def bind(path: Path, name: str) -> ctypes.CDLL:
+    """Load the library at ``path``, built from ``csrc/<name>.cu``, and
+    declare its C interface."""
+    lib = ctypes.CDLL(str(path))
     if name == "acs_forward":
         lib.acs_forward_launch.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
@@ -168,11 +188,19 @@ def _library(name: str) -> ctypes.CDLL:
         lib.acs_forward_launch.restype = ctypes.c_int
         lib.acs_forward_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.acs_forward_smem_bytes.restype = ctypes.c_longlong
+        lib.acs_forward_gather_launch.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        )
+        lib.acs_forward_gather_launch.restype = ctypes.c_int
     elif name == "acs_decode_fused":
         lib.acs_decode_fused_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 16
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         )
         lib.acs_decode_fused_launch.restype = ctypes.c_int
+        lib.acs_decode_fused_blocks_per_sm.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong]
+        lib.acs_decode_fused_blocks_per_sm.restype = ctypes.c_int
     else:
         lib.transfer_matrix_launch.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
@@ -182,7 +210,6 @@ def _library(name: str) -> ctypes.CDLL:
     err_string = getattr(lib, f"{name}_error_string")
     err_string.argtypes = [ctypes.c_int]
     err_string.restype = ctypes.c_char_p
-    _libs[name] = lib
     return lib
 
 
@@ -228,6 +255,45 @@ def _raise_on(lib, name: str, err: int) -> None:
         raise RuntimeError(f"{name} launch failed: {msg}")
 
 
+class GatherOperands(NamedTuple):
+    """What K1 (tropical) and K2 take in place of W."""
+
+    cols: torch.Tensor  # (B, n_u) float32: Theta's distinct columns
+    cid: torch.Tensor  # (S*R,) int16: each column's index in ``cols``
+
+
+def gather_operands(w: torch.Tensor, llr_block: int, n_states: int,
+                    n_slots: int) -> GatherOperands:
+    """Check W for the gathered kernels and derive their operands, on
+    W's device, with one host read of W.
+
+    ``kernel_geometry.gather_tables`` raises ``ValueError`` unless W's
+    metric half is the shift register's one-hot.  Theta (W's LLR half)
+    has few distinct columns (at most 2^B for a code's +-1 patterns), so
+    the kernels form one branch metric per distinct column and (frame,
+    step)."""
+    host = w.detach().to("cpu", torch.float32)
+    theta, _ = gather_tables(host, llr_block, n_states, n_slots)
+    cols, cid = torch.unique(theta.T, dim=0, return_inverse=True)
+    return GatherOperands(
+        cols.T.contiguous().to(w.device), cid.to(torch.int16).to(w.device)
+    )
+
+
+def _operands(who: str, w: torch.Tensor, operands: Optional[GatherOperands],
+              llr_block: int, n_states: int, n_slots: int) -> GatherOperands:
+    """The caller's operands, checked for shape and device, or W's."""
+    if operands is None:
+        return gather_operands(w, llr_block, n_states, n_slots)
+    cols, cid = operands
+    if (cols.dim() != 2 or cols.shape[0] != llr_block or cols.dtype != torch.float32
+            or tuple(cid.shape) != (n_states * n_slots,) or cid.dtype != torch.int16
+            or cols.device != w.device or cid.device != w.device
+            or not cols.is_contiguous()):
+        raise ValueError(f"{who}: operands do not fit W {tuple(w.shape)} on {w.device}")
+    return operands
+
+
 def acs_forward(
     blocks: torch.Tensor,  # (T, F, B) float32
     lam0: torch.Tensor,  # (F, S) float32
@@ -240,6 +306,7 @@ def acs_forward(
     renorm: bool = True,
     pack_survivors: bool = False,
     semiring: str = "tropical",
+    operands: Optional[GatherOperands] = None,
 ):
     """Run the fused forward pass.  Returns (lam_final (F, S) f32, phi).
 
@@ -249,7 +316,11 @@ def acs_forward(
     the first argmax).  On CUDA tensors this launches K1 and adds one to
     ``acs_forward.launches`` (and, at LOGPROB, to
     ``acs_forward.logprob_launches``); on CPU tensors it runs
-    ``acs_forward_ref``.
+    ``acs_forward_ref``.  The tropical K1 takes only a W whose metric half
+    is the shift register's one-hot (``gather_operands`` raises
+    ``ValueError`` before any launch on another; ``operands``, if given,
+    are ``gather_operands(w, ...)`` made once by the caller); K1-LOGPROB
+    takes any W.
     """
     check_semiring(semiring)
     dev = _one_device("acs_forward", blocks, lam0, w)
@@ -260,7 +331,7 @@ def acs_forward(
     )
     if dev.type == "cpu":
         return acs_forward_ref(blocks, lam0, w, **kw)
-    return _launch_k1(blocks, lam0, w, **kw)
+    return _launch_k1(blocks, lam0, w, operands=operands, **kw)
 
 
 acs_forward.launches = 0  # K1 launches in this process (set to 0 to count a run)
@@ -274,7 +345,7 @@ def _count_launch(kernel, semiring: str) -> None:
 
 
 def _launch_k1(blocks, lam0, w, *, n_states, n_slots, carry_dtype,
-               matmul_dtype, renorm, pack_survivors, semiring):
+               matmul_dtype, renorm, pack_survivors, semiring, operands):
     dev = blocks.device
     _check_card(dev, "K1")
     S, R = n_states, n_slots
@@ -291,13 +362,18 @@ def _launch_k1(blocks, lam0, w, *, n_states, n_slots, carry_dtype,
         "acs_forward", blocks=(blocks, (T, F, B), f32),
         lam0=(lam0, (F, S), f32), w=(w, (B + S, S * R), f32),
     )
-    BF = k1_block_frames(S)
     lib = _library("acs_forward")
-    smem = lib.acs_forward_smem_bytes(B, S, R, BF)
+    if semiring == "tropical":
+        ops = _operands("acs_forward", w, operands, B, S, R)
+        n_cols = ops.cols.shape[1]
+        smem = k1_smem_bytes(S, B, n_cols)
+    else:
+        BF = k1_block_frames(S)
+        smem = lib.acs_forward_smem_bytes(B, S, R, BF)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(
-            f"acs_forward: W and the staged blocks need {smem} bytes of "
-            f"shared memory, more than a block's {SMEM_LIMIT_BYTES}"
+            f"acs_forward: a block needs {smem} bytes of shared memory, more "
+            f"than its {SMEM_LIMIT_BYTES}"
         )
     lam_out = torch.empty((F, S), dtype=torch.float32, device=dev)
     phi = torch.empty(
@@ -306,14 +382,22 @@ def _launch_k1(blocks, lam0, w, *, n_states, n_slots, carry_dtype,
     )
     if F == 0:
         return lam_out, phi
-    err = lib.acs_forward_launch(
-        blocks.data_ptr(), lam0.data_ptr(), w.data_ptr(),
-        lam_out.data_ptr(), phi.data_ptr(),
-        T, F, B, S, R, BF,
-        _DTYPE_CODES[matmul_dtype], _DTYPE_CODES[carry_dtype],
-        int(renorm), int(pack_survivors), _SEMIRING_CODES[semiring],
-        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    codes = (_DTYPE_CODES[matmul_dtype], _DTYPE_CODES[carry_dtype],
+             int(renorm), int(pack_survivors))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if semiring == "tropical":
+        err = lib.acs_forward_gather_launch(
+            blocks.data_ptr(), lam0.data_ptr(), ops.cols.data_ptr(),
+            ops.cid.data_ptr(), lam_out.data_ptr(), phi.data_ptr(),
+            T, F, B, S, R, n_cols, gather_stage_steps(S, B, n_cols, False),
+            *codes, smem, _device_index(dev), stream,
+        )
+    else:
+        err = lib.acs_forward_launch(
+            blocks.data_ptr(), lam0.data_ptr(), w.data_ptr(),
+            lam_out.data_ptr(), phi.data_ptr(), T, F, B, S, R, BF, *codes,
+            _SEMIRING_CODES[semiring], _device_index(dev), stream,
+        )
     _raise_on(lib, "acs_forward", err)
     _count_launch(acs_forward, semiring)
     return lam_out, phi
@@ -338,6 +422,7 @@ def acs_decode_fused(
     matmul_dtype: torch.dtype = torch.float32,
     renorm: bool = True,
     pack_survivors: bool = False,
+    operands: Optional[GatherOperands] = None,
 ):
     """One-pass time-tiled decode.  Returns (bits (T*rho, F) int8,
     lam (F, S) f32, hist (D, F, W)).  Tropical only: like the
@@ -349,7 +434,10 @@ def acs_decode_fused(
     The tile is ``min(time_tile, T)`` and must divide both T and D.  On
     CUDA tensors this launches K2 and adds one to
     ``acs_decode_fused.launches``; on CPU tensors it runs
-    ``acs_decode_fused_ref``.
+    ``acs_decode_fused_ref``.  K2 takes only a W whose metric half is the
+    shift register's one-hot (``gather_operands`` raises ``ValueError``
+    before any launch on another; ``operands``, if given, are
+    ``gather_operands(w, ...)`` made once by the caller).
     """
     dev = _one_device("acs_decode_fused", blocks, lam0, hist0, w)
     S, R = n_states, n_slots
@@ -381,19 +469,22 @@ def acs_decode_fused(
     )
     if dev.type == "cpu":
         return acs_decode_fused_ref(blocks, lam0, hist0, w, **kw)
-    return _launch_k2(blocks, lam0, hist0, w, **kw)
+    return _launch_k2(blocks, lam0, hist0, w, operands=operands, **kw)
 
 
 acs_decode_fused.launches = 0  # K2 launches in this process (set to 0 to count a run)
 
 
 def _launch_k2(blocks, lam0, hist0, w, *, n_states, n_slots, k, rho,
-               time_tile, carry_dtype, matmul_dtype, renorm, pack_survivors):
+               time_tile, carry_dtype, matmul_dtype, renorm, pack_survivors,
+               operands):
     dev = blocks.device
     _check_card(dev, "K2")
     S, R, TT = n_states, n_slots, time_tile
     if R not in SLOT_BITS or R != 1 << rho:
         raise ValueError(f"acs_decode_fused: n_slots={R} must be 2**rho, rho in 1..4")
+    if S != 1 << (k - 1):
+        raise ValueError(f"acs_decode_fused: n_states={S} must be 2**(k-1), k={k}")
     _check_dtypes("acs_decode_fused", matmul_dtype=matmul_dtype, carry_dtype=carry_dtype)
     T, F, B = blocks.shape
     D, W = hist0.shape[0], hist0.shape[2]
@@ -403,13 +494,15 @@ def _launch_k2(blocks, lam0, hist0, w, *, n_states, n_slots, k, rho,
         lam0=(lam0, (F, S), f32), hist0=(hist0, (D, F, W), hist0.dtype),
         w=(w, (B + S, S * R), f32),
     )
-    ring_frame = (D + TT) * W * hist0.element_size()
-    BF, in_smem = k2_block_frames(S, B, R, ring_frame)
-    smem = k2_smem_bytes(B, S, R, BF, ring_frame if in_smem else 0)
+    ops = _operands("acs_decode_fused", w, operands, B, S, R)
+    n_cols = ops.cols.shape[1]
+    BF, in_smem = k2_block_frames(S, B, n_cols, D, TT, pack_survivors, F,
+                                  _sm_count(dev))
+    smem = k2_smem_bytes(S, B, n_cols, D, TT, pack_survivors, BF, in_smem)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(
-            f"acs_decode_fused: W and the staged blocks need {smem} bytes of "
-            f"shared memory, more than a block's {SMEM_LIMIT_BYTES}"
+            f"acs_decode_fused: a block's staging needs {smem} bytes of "
+            f"shared memory, more than its {SMEM_LIMIT_BYTES}"
         )
     bits = torch.empty((T * rho, F), dtype=torch.int8, device=dev)
     lam_out = torch.empty((F, S), dtype=torch.float32, device=dev)
@@ -417,22 +510,47 @@ def _launch_k2(blocks, lam0, hist0, w, *, n_states, n_slots, k, rho,
     if F == 0:
         return bits, lam_out, hist_out
     ring = None
-    if not in_smem:  # one ring per frame of every block, in device memory
+    if not in_smem:  # every block's rings and maps, in device memory
         grid = -(-F // BF)
-        ring = torch.empty(grid * BF * ring_frame, dtype=torch.uint8, device=dev)
+        ring = torch.empty(grid * BF * k2_frame_bytes(S, D, TT, pack_survivors),
+                           dtype=torch.uint8, device=dev)
     lib = _library("acs_decode_fused")
     err = lib.acs_decode_fused_launch(
-        blocks.data_ptr(), lam0.data_ptr(), hist0.data_ptr(), w.data_ptr(),
-        bits.data_ptr(), lam_out.data_ptr(), hist_out.data_ptr(),
+        blocks.data_ptr(), lam0.data_ptr(), hist0.data_ptr(),
+        ops.cols.data_ptr(), ops.cid.data_ptr(), bits.data_ptr(),
+        lam_out.data_ptr(), hist_out.data_ptr(),
         None if ring is None else ring.data_ptr(),
-        T, F, B, S, R, BF, D, TT, k, rho,
-        _DTYPE_CODES[matmul_dtype], _DTYPE_CODES[carry_dtype],
+        0 if ring is None else ring.numel(),
+        T, F, B, S, R, n_cols, gather_stage_steps(S, B, n_cols, True), BF,
+        D, TT, k, rho, _DTYPE_CODES[matmul_dtype], _DTYPE_CODES[carry_dtype],
         int(renorm), int(pack_survivors), smem, _device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib, "acs_decode_fused", err)
     acs_decode_fused.launches += 1
     return bits, lam_out, hist_out
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def k2_launch_geometry(n_states: int, n_slots: int, llr_block: int,
+                       n_cols: int, depth: int, tile: int, pack_survivors: bool,
+                       n_frames: int) -> dict:
+    """How ``acs_decode_fused`` launches K2 for these shapes on the
+    current card: frames a block, rings in shared memory or not, shared
+    bytes a block, grid, and the blocks an SM holds (the occupancy
+    calculator; builds K2)."""
+    S = n_states
+    dev = torch.device("cuda", torch.cuda.current_device())
+    bf, in_smem = k2_block_frames(S, llr_block, n_cols, depth, tile, pack_survivors,
+                                  n_frames, _sm_count(dev))
+    smem = k2_smem_bytes(S, llr_block, n_cols, depth, tile, pack_survivors, bf, in_smem)
+    per_sm = _library("acs_decode_fused").acs_decode_fused_blocks_per_sm(
+        S, n_slots, bf, int(pack_survivors), smem)
+    return dict(block_frames=bf, rings_in_smem=in_smem, smem_bytes=smem,
+                grid=-(-n_frames // bf), blocks_per_sm=per_sm)
 
 
 def transfer_matrix(
@@ -446,6 +564,7 @@ def transfer_matrix(
     matmul_dtype: torch.dtype = torch.float32,
     split_dot: bool = False,
     semiring: str = "tropical",
+    operands: Optional[GatherOperands] = None,
 ):
     """Per-tile transfer matrices M (N, F, S, S) f32 of ``semiring``
     (``"tropical"`` or ``"logprob"``), each (tile, frame) normalised by
@@ -453,8 +572,9 @@ def transfer_matrix(
     More than ``kernel_geometry.K3_MAX_STATES`` states raise
     ``ValueError`` (``k3_block_frames``).  On CUDA tensors this launches
     K3, which takes only a W whose metric half is the shift register's
-    one-hot (``kernel_geometry.k3_gather_tables`` raises on any other),
-    and adds one to ``transfer_matrix.launches`` (and, at LOGPROB, to
+    one-hot (``gather_operands`` raises on any other; ``operands``, if
+    given, are ``gather_operands(w, ...)`` made once by the caller, and
+    stand for that check), and adds one to ``transfer_matrix.launches`` (and, at LOGPROB, to
     ``transfer_matrix.logprob_launches``); on CPU tensors it runs
     ``transfer_matrix_ref``.
     """
@@ -474,7 +594,7 @@ def transfer_matrix(
     )
     if dev.type == "cpu":
         return transfer_matrix_ref(blocks, w, **kw)
-    return _launch_k3(blocks, w, **kw)
+    return _launch_k3(blocks, w, operands=operands, **kw)
 
 
 transfer_matrix.launches = 0  # K3 launches in this process (set to 0 to count a run)
@@ -482,8 +602,8 @@ transfer_matrix.logprob_launches = 0  # of which K3-LOGPROB
 
 
 def _launch_k3(blocks, w, *, n_states, n_slots, transfer_tile, carry_dtype,
-               matmul_dtype, split_dot, semiring):
-    """Checks W (``k3_gather_tables``: its metric half must be the shift
+               matmul_dtype, split_dot, semiring, operands):
+    """Checks W (``gather_operands``: its metric half must be the shift
     register's one-hot, or this raises before any launch; K3 has no dense
     fallback), then launches K3 on W's LLR half with
     ``k3_block_frames`` frames a block and ``k3_smem_bytes`` of shared
@@ -500,7 +620,8 @@ def _launch_k3(blocks, w, *, n_states, n_slots, transfer_tile, carry_dtype,
         "transfer_matrix", blocks=(blocks, (T, F, B), f32),
         w=(w, (B + S, S * R), f32),
     )
-    theta, _ = k3_gather_tables(w, B, S, R)
+    _operands("transfer_matrix", w, operands, B, S, R)
+    theta = w[:B]
     BF = k3_block_frames(S)
     if -(-F // BF) > 65535:
         raise ValueError(f"transfer_matrix: {F} frames need more than 65535 blocks of {BF}")

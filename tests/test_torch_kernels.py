@@ -199,27 +199,46 @@ def test_k1_ragged_and_empty_shapes():
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
     """The CUDA kernel against its plain version on the card, bit for
-    bit on integer LLRs (needs an H100 and nvcc)."""
+    bit on integer LLRs, at ccsds-k7 rho=2 and at shapes the gathered
+    kernel specialises on: gsm-cs1 (S=16, two frames a warp), rho=1 and
+    3, a k=6 code (S=32, one state a lane) and a k=8 code (S=128, a frame
+    over two warps); a W whose metric
+    half is not the one-hot raises before any launch (needs an H100 and
+    nvcc)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
-    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.codes import get_code
+    from repro_torch.core import CODE_K7_CCSDS, CodeSpec, build_acs_tables
     from repro_torch.kernels import acs_forward
     from repro_torch.kernels.ref import acs_forward_ref
 
-    tb = build_acs_tables(CODE_K7_CCSDS, 2)
-    blocks, lam0 = _inputs(CODE_K7_CCSDS, 2, 40, 100, 5, True, 0)
     dev = torch.device("cuda")
-    args = (
-        torch.from_numpy(blocks).to(dev), torch.from_numpy(lam0).to(dev),
-        torch.as_tensor(tb.fused_w, device=dev),
-    )
-    for mm in (torch.float32, torch.bfloat16):
-        for pack in (False, True):
-            kw = dict(n_states=64, n_slots=4, matmul_dtype=mm, pack_survivors=pack)
-            lam_k, phi_k = acs_forward(*args, **kw)
-            lam_r, phi_r = acs_forward_ref(*args, **kw)
-            torch.cuda.synchronize()
-            assert torch.equal(lam_k, lam_r) and torch.equal(phi_k, phi_r)
+    cases = [(CODE_K7_CCSDS, 2, 40), (get_code("gsm-cs1").spec, 2, 37),
+             (CODE_K7_CCSDS, 1, 37), (CODE_K7_CCSDS, 3, 37),
+             (CodeSpec(k=6, polys=(0o53, 0o75)), 2, 37),
+             (CodeSpec(k=8, polys=(0o371, 0o247)), 2, 9)]
+    for spec, rho, F in cases:
+        tb = build_acs_tables(spec, rho)
+        blocks, lam0 = _inputs(spec, rho, F, 100, 5, True, 0)
+        w = torch.as_tensor(tb.fused_w, device=dev)
+        args = (torch.from_numpy(blocks).to(dev), torch.from_numpy(lam0).to(dev), w)
+        for mm in (torch.float32, torch.bfloat16):
+            for pack in (False, True):
+                if pack and (tb.n_states % 16 or tb.n_slots > 4):
+                    continue
+                kw = dict(n_states=tb.n_states, n_slots=tb.n_slots,
+                          matmul_dtype=mm, pack_survivors=pack)
+                lam_k, phi_k = acs_forward(*args, **kw)
+                lam_r, phi_r = acs_forward_ref(*args, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(lam_k, lam_r) and torch.equal(phi_k, phi_r)
+    broken = w.clone()
+    broken[tb.llr_block:] = broken[tb.llr_block:].roll(1, dims=0)
+    before = acs_forward.launches
+    with pytest.raises(ValueError, match="other predecessors"):
+        acs_forward(args[0], args[1], broken, n_states=tb.n_states,
+                    n_slots=tb.n_slots)
+    assert acs_forward.launches == before
 
 
 # -- K2: the one-pass time-tiled decode ---------------------------------
@@ -314,45 +333,164 @@ def test_k2_refuses_what_the_reference_refuses():
     assert bits.shape == (16, 3) and lam.shape == (3, 64) and hist.shape == ring8.shape
 
 
-@pytest.mark.parametrize("n_states,pack,depth,want", [
-    (64, True, 2560, (3, True)),  # default depth, packed: 3 frames fit
-    (64, True, 256, (4, True)),
-    (64, False, 256, (4, True)),
-    (64, False, 2560, (4, False)),  # 166 KB a frame: the ring goes to HBM
-    (64, True, 30720, (4, False)),
-    (4, False, 256, (64, True)),
-    (16, True, 20000, (2, True)),  # whole warps: two 16-state frames
-    (16, True, 60000, (16, False)),
+@pytest.mark.parametrize("n_states,pack,depth,tile,frames,want", [
+    (64, True, 2560, 32, 512, (4, True)),  # the streaming geometry: one wave
+    (64, True, 256, 32, 512, (4, True)),
+    (64, False, 256, 32, 512, (4, True)),
+    # 171 KB a frame: one frame a block is four waves at F=512, so the
+    # rings go to device memory at four a block (one wave); at F=64 one
+    # frame a block is one wave too, and shared memory keeps them
+    (64, False, 2560, 32, 512, (4, False)),
+    (64, False, 2560, 32, 64, (1, True)),
+    (64, True, 30720, 32, 512, (4, False)),  # no frame fits: rings in HBM
+    (64, True, 2560, 1, 512, (4, False)),  # a map a step: 1 frame fits
+    (64, True, 2560, 1, 132, (1, True)),
+    (16, True, 256, 32, 512, (8, True)),  # two 16-state frames a warp
+    (16, True, 20000, 32, 512, (8, False)),  # 2 fit: 2 waves against 1
+    (16, True, 20000, 32, 128, (2, True)),
+    (16, True, 60000, 32, 512, (8, False)),
+    (128, False, 256, 32, 512, (1, True)),  # a frame over two warps
+    (2, False, 512, 1, 130, (48, True)),  # three warps of 16 frames fit
 ])
-def test_k2_block_frames(n_states, pack, depth, want):
-    """As many frames as fit beside W, whole warps, else the ring in
-    device memory at K1's frame count."""
+def test_k2_block_frames(n_states, pack, depth, tile, frames, want):
+    """K2's block: the most whole frame groups (warps, up to four) whose
+    rings and tile maps fit in shared memory beside their staging, unless
+    the rings in device memory at four groups take fewer waves of the
+    call's frames; W is not in shared memory (a group's staging at
+    ccsds-k7, rho=2: 5,504 bytes), and the walk warp beside the groups
+    needs none of its own but the frames' start states, two buffers of
+    them."""
     from repro_torch.core.kernel_geometry import (
-        SMEM_LIMIT_BYTES, k1_block_frames, k2_block_frames, k2_smem_bytes,
-        ring_words,
+        GATHER_WARPS, SMEM_LIMIT_BYTES, gather_group_bytes,
+        gather_group_frames, k2_block_frames, k2_frame_bytes, k2_smem_bytes,
+        k2_waves,
     )
 
-    ring = (depth + 32) * ring_words(n_states, pack) * (4 if pack else 1)
-    bf, in_smem = k2_block_frames(n_states, 4, 4, ring)
+    B, n_cols = 4, 16
+    bf, in_smem = k2_block_frames(n_states, B, n_cols, depth, tile, pack, frames)
     assert (bf, in_smem) == want
-    assert (bf * n_states) % 32 == 0 and bf <= k1_block_frames(n_states)
+    gf = gather_group_frames(n_states)
+    assert bf % gf == 0 and bf <= GATHER_WARPS * gf
+    smem = k2_smem_bytes(n_states, B, n_cols, depth, tile, pack, bf, in_smem)
+    assert smem <= SMEM_LIMIT_BYTES
+    hbm = (GATHER_WARPS if n_states <= 64 else 1) * gf  # a frame over warps: one
+    fit = [f for f in range(gf, hbm + 1, gf) if k2_smem_bytes(
+        n_states, B, n_cols, depth, tile, pack, f, True) <= SMEM_LIMIT_BYTES]
     if in_smem:
-        assert k2_smem_bytes(4, n_states, 4, bf, ring) <= SMEM_LIMIT_BYTES
-        if bf < k1_block_frames(n_states):
-            assert k2_smem_bytes(4, n_states, 4, bf + 1, ring) > SMEM_LIMIT_BYTES
-    assert k2_smem_bytes(4, 64, 4, 3, 41472) == 72736 + 3 * 41472
+        assert bf == max(fit)
+        assert k2_waves(frames, n_states, bf, smem) <= k2_waves(
+            frames, n_states, hbm, k2_smem_bytes(n_states, B, n_cols, depth, tile, pack,
+                                                 hbm, False))
+    elif fit:  # shared memory would take more waves
+        assert k2_waves(frames, n_states, max(fit), k2_smem_bytes(
+            n_states, B, n_cols, depth, tile, pack, max(fit), True)) > k2_waves(
+            frames, n_states, bf, smem)
+    assert gather_group_bytes(64, 4, 16, 32, True) == 5504
+    # the ring holds D + 2 TT steps and as many tile maps (the walk warp
+    # walks tile jt while the ACS writes tile jt + 1)
+    assert k2_frame_bytes(64, 2560, 32, True) == 2624 * 16 + 82 * 64
+    assert k2_smem_bytes(64, 4, 16, 2560, 32, True, 4, True) == 4 * 5504 + 32 + 4 * 47232
+
+
+@pytest.mark.parametrize("frames,block_frames,smem,n_states,n_sms,want", [
+    (512, 4, 210976, 64, 132, 1),  # one block an SM: 128 blocks
+    (512, 1, 200000, 64, 132, 4),  # 512 blocks of one frame
+    (512, 4, 22048, 64, 132, 1),  # three blocks an SM (launch bounds)
+    (8192, 4, 22048, 64, 132, 6),  # 2048 blocks over 396 places
+    (8192, 4, 22048, 64, 66, 11),  # half the SMs
+    (600, 1, 100000, 128, 132, 5),  # a wide frame: one block an SM
+])
+def test_k2_waves(frames, block_frames, smem, n_states, n_sms, want):
+    """Waves of K2 blocks, counting the blocks an SM surely holds: as
+    many as its 228 KiB of shared memory take (1 KiB reserved a block),
+    and at most the launch bounds' three (one for a frame over warps)."""
+    from repro_torch.core.kernel_geometry import k2_waves
+
+    assert k2_waves(frames, n_states, block_frames, smem, n_sms) == want
+
+
+def test_streaming_geometry_is_one_wave():
+    """At the geometry decode_stream_chunked launches K2 with (ccsds-k7,
+    S=64, R=4, D=2560 steps, TT=32, packed ring, F=512 frames) a block
+    holds four frames with their rings in shared memory, so the grid is
+    128 blocks: one wave on the H100's 132 SMs, one block an SM."""
+    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.core.kernel_geometry import (
+        SMEM_LIMIT_BYTES, gather_block_shape, k2_block_frames, k2_smem_bytes,
+    )
+    from repro_torch.kernels.viterbi_acs import gather_operands
+
+    tb = build_acs_tables(CODE_K7_CCSDS, 2)
+    n_cols = gather_operands(torch.from_numpy(tb.fused_w), 4, 64, 4).cols.shape[1]
+    assert n_cols == 16
+    bf, in_smem = k2_block_frames(64, 4, n_cols, 2560, 32, True, 512)
+    assert (bf, in_smem) == (4, True)
+    assert gather_block_shape(64) == (4, 128)
+    assert -(-512 // bf) == 128 <= 132
+    smem = k2_smem_bytes(64, 4, n_cols, 2560, 32, True, bf, in_smem)
+    assert smem == 210976 <= SMEM_LIMIT_BYTES
+    assert 2 * smem > SMEM_LIMIT_BYTES  # one block an SM
+
+
+@pytest.mark.parametrize("n_states,frames,threads,nq", [
+    (2, 64, 128, 1), (4, 32, 128, 1), (16, 8, 128, 1), (32, 4, 128, 1),
+    (64, 4, 128, 2), (128, 1, 64, 2), (512, 1, 256, 2), (1024, 1, 512, 2),
+])
+def test_gather_block_shape(n_states, frames, threads, nq):
+    """K1's and K2's block: a frame over S/NQ threads (NQ = 2 from S=64),
+    four warps of frames where a frame fits in a warp, else one frame of
+    S/2 threads; S above 1024 raises."""
+    from repro_torch.core.kernel_geometry import (
+        gather_block_shape, gather_frame_threads, gather_states_per_thread,
+    )
+
+    assert gather_block_shape(n_states) == (frames, threads)
+    assert gather_states_per_thread(n_states) == nq
+    assert gather_frame_threads(n_states) * nq == n_states
+    with pytest.raises(ValueError, match="at most 1024"):
+        gather_frame_threads(2048)
+
+
+@pytest.mark.parametrize("n_states,llr_block,n_cols,stage,smem", [
+    (64, 4, 16, 32, 4 * 5248),  # ccsds-k7, rho=2
+    (16, 4, 16, 32, 4 * 6528),
+    (128, 4, 16, 32, 7808),
+    (64, 12, 1024, 8, 4 * 34304),  # lte-tbcc, rho=4: stages cut to 8 steps
+    (1024, 16, 16384, 1, 74944),  # every column distinct: one step a stage
+])
+def test_k1_smem_bytes(n_states, llr_block, n_cols, stage, smem):
+    """The tropical K1's shared memory: its frame groups' staging (LLRs,
+    branch metrics of the distinct columns, metrics double-buffered,
+    survivors) at stages of up to 32 steps, cut while a group's region
+    passes GATHER_GROUP_BUDGET; W is not in shared memory."""
+    from repro_torch.core.kernel_geometry import (
+        GATHER_GROUP_BUDGET, SMEM_LIMIT_BYTES, gather_group_bytes,
+        gather_stage_steps, k1_smem_bytes,
+    )
+
+    ss = gather_stage_steps(n_states, llr_block, n_cols, False)
+    assert ss == stage
+    assert k1_smem_bytes(n_states, llr_block, n_cols) == smem <= SMEM_LIMIT_BYTES
+    if ss > 1:
+        assert gather_group_bytes(n_states, llr_block, n_cols, ss, False) <= GATHER_GROUP_BUDGET
+    if ss < 32:
+        assert gather_group_bytes(n_states, llr_block, n_cols, 2 * ss, False) > GATHER_GROUP_BUDGET
 
 
 @pytest.mark.cuda
 def test_cuda_k2_matches_plain():
     """K2 against its plain version on the card, bit for bit on integer
-    LLRs, with the ring in shared memory and in device memory, and at
-    the streaming path's geometry: the default depth of 2560 steps,
-    packed, 3 frames a block and a last block of 2 live frames (needs an
-    H100 and nvcc)."""
+    LLRs, with the ring in shared memory and in device memory, at the
+    streaming path's geometry (the default depth of 2560 steps, packed,
+    F=512: four frames a block, 128 blocks) and at shapes the gathered
+    kernel specialises on: gsm-cs1 (S=16), rho=1 and 3, a k=8 code
+    (S=128), T=TT and TT=1, and 32 or 64 frames a block (S=4, S=2) at
+    TT=1 under a window of 512 steps; a W whose metric half is not the
+    one-hot raises before any launch (needs an H100 and nvcc)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
-    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.codes import get_code
+    from repro_torch.core import CODE_K7_CCSDS, CodeSpec, build_acs_tables
     from repro_torch.kernels import acs_decode_fused
     from repro_torch.kernels.ref import acs_decode_fused_ref
 
@@ -368,6 +506,49 @@ def test_cuda_k2_matches_plain():
         want = acs_decode_fused_ref(*args, w, **kw)
         torch.cuda.synchronize()
         assert all(torch.equal(g, r) for g, r in zip(got, want))
+    rng = np.random.default_rng(9)
+    for spec, rho, T, TT, D in ((get_code("gsm-cs1").spec, 2, 64, 16, 32),
+                                (CODE_K7_CCSDS, 1, 64, 16, 32),
+                                (CODE_K7_CCSDS, 3, 16, 16, 48),
+                                (CODE_K7_CCSDS, 2, 8, 1, 5),
+                                (CodeSpec(k=8, polys=(0o371, 0o247)), 2, 32, 8, 16)):
+        tb = build_acs_tables(spec, rho)
+        S, R, B = tb.n_states, tb.n_slots, tb.llr_block
+        wc = torch.as_tensor(tb.fused_w, device=dev)
+        for pack in (False, True):
+            if pack and (S % 16 or R > 4):
+                continue
+            F = 13
+            blocks = torch.from_numpy(rng.integers(-3, 4, (T, F, B)).astype(np.float32)).to(dev)
+            lam0 = torch.zeros((F, S), device=dev)
+            if pack:
+                hist0 = rng.integers(-2**31, 2**31, (D, F, S // 16)).astype(np.int32)
+            else:
+                hist0 = rng.integers(0, R, (D, F, S)).astype(np.int8)
+            hist0 = torch.from_numpy(hist0).to(dev)
+            kw = dict(n_states=S, n_slots=R, k=spec.k, rho=rho, time_tile=TT,
+                      pack_survivors=pack)
+            got = acs_decode_fused(blocks, lam0, hist0, wc, **kw)
+            want = acs_decode_fused_ref(blocks, lam0, hist0, wc, **kw)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, r) for g, r in zip(got, want)), (spec, rho, TT, pack)
+    # 64 frames a block (S=2, two a lane of the walk warp) and 32 (S=4),
+    # tiles of one step under a deep window: the walk of a tile outlasts
+    # the next tile's ACS
+    for k, polys in ((2, (0o3, 0o1)), (3, (0o7, 0o5))):
+        small, kw = _map_walk_case(CodeSpec(k=k, polys=polys), 1, 130, 48, 1, 512, False, k)
+        small = [x.to(dev) for x in small]
+        got = acs_decode_fused(*small, **kw)
+        want = acs_decode_fused_ref(*small, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, r) for g, r in zip(got, want)), (k, "TT=1")
+    broken = w.clone()
+    broken[4:] = broken[4:] * 2.0
+    before = acs_decode_fused.launches
+    with pytest.raises(ValueError, match="one 1.0 per column"):
+        acs_decode_fused(*args, broken, n_states=64, n_slots=4, k=7, rho=2,
+                         time_tile=32, pack_survivors=True)
+    assert acs_decode_fused.launches == before
 
 
 # -- K3: the transfer-matrix formation ----------------------------------
@@ -459,19 +640,21 @@ REGISTRY_CODES = ("ccsds-k7", "dvb-s", "dvb-s-r78", "gsm-cs1", "lte-tbcc",
                   "wifi-11a", "wifi-11a-r23", "wifi-11a-r34", "wifi-11a-r56")
 
 
-@pytest.mark.parametrize("rho", [1, 2, 3])
+@pytest.mark.parametrize("rho", [1, 2, 3, 4])
 @pytest.mark.parametrize("code", REGISTRY_CODES)
 def test_k3_gather_tables_match_the_trellis(code, rho):
-    """The tables K3's wrapper derives from W (its LLR half and each
-    column's predecessor) are the trellis's own, for every registry code."""
+    """The tables the gathered kernels' wrappers (K1 tropical, K2, K3)
+    derive from W, ``kernel_geometry.gather_tables``: its LLR half and
+    each column's predecessor are the trellis's own, for every registry
+    code and radix."""
     from repro_torch.codes import get_code, list_codes
     from repro_torch.core import build_acs_tables
-    from repro_torch.core.kernel_geometry import k3_gather_tables
+    from repro_torch.core.kernel_geometry import gather_tables
 
     assert tuple(list_codes()) == REGISTRY_CODES
     tb = build_acs_tables(get_code(code).spec, rho)
-    theta, pred = k3_gather_tables(torch.from_numpy(tb.fused_w),
-                                   tb.llr_block, tb.n_states, tb.n_slots)
+    theta, pred = gather_tables(torch.from_numpy(tb.fused_w),
+                                tb.llr_block, tb.n_states, tb.n_slots)
     np.testing.assert_array_equal(theta.numpy(), tb.theta_t)
     np.testing.assert_array_equal(pred.numpy(), tb.pred_state)
 
@@ -494,19 +677,136 @@ def _second_one(p):
 ], ids=["permuted", "scaled", "two-ones", "rows-rolled"])
 def test_k3_gather_tables_refuse_another_routing(broken, match):
     """A W whose metric half is not the shift register's one-hot raises
-    ValueError (on the card, before any launch: K3 has no dense path)."""
+    ValueError in ``gather_tables`` and in ``gather_operands``, which K1
+    (tropical), K2 and K3 call before any launch (none has a dense
+    path)."""
     from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
-    from repro_torch.core.kernel_geometry import k3_gather_tables
+    from repro_torch.core.kernel_geometry import gather_tables
+    from repro_torch.kernels.viterbi_acs import gather_operands
 
     tb = build_acs_tables(CODE_K7_CCSDS, 2)
     w = torch.from_numpy(tb.fused_w).clone()
     w[4:] = broken(w[4:])
     with pytest.raises(ValueError, match=match):
-        k3_gather_tables(w, 4, 64, 4)
+        gather_tables(w, 4, 64, 4)
+    with pytest.raises(ValueError, match=match):
+        gather_operands(w, 4, 64, 4)
     with pytest.raises(ValueError, match="expected"):
-        k3_gather_tables(w[:-1], 4, 64, 4)
+        gather_tables(w[:-1], 4, 64, 4)
     with pytest.raises(ValueError, match="R = 2"):
-        k3_gather_tables(w, 4, 48, 4)
+        gather_tables(w, 4, 48, 4)
+
+
+@pytest.mark.parametrize("rho", [1, 2, 3, 4])
+@pytest.mark.parametrize("code", ["ccsds-k7", "gsm-cs1", "lte-tbcc", "wifi-11a-r34"])
+def test_gather_operands_for_k1_and_k2(code, rho):
+    """What the K1 and K2 wrappers take in place of W, made once per
+    tables by ``ops.device_tables``: Theta's distinct columns (at most
+    2^B of them) and each column's index among them, which give back
+    Theta exactly; the same W and operands come back for the same tables
+    (so a stream's launches read no W on the host), and a W changed in
+    place is read afresh by ``gather_operands``, which then refuses it."""
+    from repro_torch.codes import get_code
+    from repro_torch.core import build_acs_tables
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.viterbi_acs import gather_operands
+
+    tb = build_acs_tables(get_code(code).spec, rho)
+    B, S, R = tb.llr_block, tb.n_states, tb.n_slots
+    w, got = ops.device_tables(tb, torch.device("cpu"))
+    again = ops.device_tables(tb, torch.device("cpu"))
+    assert again[0] is w and again[1] is got
+    np.testing.assert_array_equal(w.numpy(), tb.fused_w)
+    assert got.cols.dtype == torch.float32 and got.cid.dtype == torch.int16
+    n_cols = got.cols.shape[1]
+    assert got.cols.shape == (B, n_cols) and got.cid.shape == (S * R,)
+    assert n_cols <= min(2 ** B, S * R)
+    assert torch.unique(got.cols.T, dim=0).shape[0] == n_cols
+    np.testing.assert_array_equal(got.cols[:, got.cid.long()].numpy(), tb.theta_t)
+    for a, b in zip(gather_operands(w, B, S, R), got):
+        assert torch.equal(a, b)
+    w2 = w.clone()
+    w2[B:] = w2[B:].roll(1, dims=0)
+    with pytest.raises(ValueError, match="other predecessors"):
+        gather_operands(w2, B, S, R)
+
+
+def test_wrappers_check_the_operands_they_are_given():
+    """Operands made for another shape of W are refused before any
+    launch, so a caller's stale operands cannot index past the kernel's
+    tables."""
+    from repro_torch.codes import get_code
+    from repro_torch.core import build_acs_tables
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.viterbi_acs import _operands
+
+    w2, ops2 = ops.device_tables(build_acs_tables(get_code("ccsds-k7").spec, 2),
+                                 torch.device("cpu"))
+    w3, ops3 = ops.device_tables(build_acs_tables(get_code("ccsds-k7").spec, 3),
+                                 torch.device("cpu"))
+    assert _operands("k", w2, ops2, 4, 64, 4) is ops2
+    with pytest.raises(ValueError, match="operands do not fit"):
+        _operands("k", w2, ops3, 4, 64, 4)
+    with pytest.raises(ValueError, match="operands do not fit"):
+        _operands("k", w3, ops2, 6, 64, 8)
+
+
+def _map_walk_case(spec, rho, F, T, TT, D, pack, seed):
+    from repro_torch.core import build_acs_tables
+
+    rng = np.random.default_rng(seed)
+    tb = build_acs_tables(spec, rho)
+    S, R, B = tb.n_states, tb.n_slots, tb.llr_block
+    blocks = torch.from_numpy(rng.integers(-2, 3, (T, F, B)).astype(np.float32))
+    lam0 = torch.from_numpy(rng.integers(-2, 1, (F, S)).astype(np.float32))
+    if pack:
+        hist0 = rng.integers(-2**31, 2**31, (D, F, S // 16)).astype(np.int32)
+    else:
+        hist0 = rng.integers(0, R, (D, F, S)).astype(np.int8)
+    kw = dict(n_states=S, n_slots=R, k=spec.k, rho=rho, time_tile=TT,
+              pack_survivors=pack)
+    return (blocks, lam0, torch.from_numpy(hist0), torch.from_numpy(tb.fused_w)), kw
+
+
+@pytest.mark.parametrize("tt_d", [(1, 3), (4, 8), (8, 8), (2, 0), (4, 16)],
+                         ids=lambda c: f"TT{c[0]}-D{c[1]}")
+@pytest.mark.parametrize("code,rho,pack", [
+    (code, rho, pack) for code in ("ccsds-k7", "gsm-cs1") for rho in (1, 2, 3, 4)
+    for pack in (False, True) if not pack or rho <= 2  # packed: 16 slots a word
+])
+def test_map_walk_model_matches_plain_k2(code, rho, pack, tt_d):
+    """K2's walk through per-tile state maps (``acs_decode_fused_maps_ref``,
+    the model of csrc/acs_decode_fused.cu's walk) emits the bits, metrics
+    and exit ring of the plain version's straight walk, on integer LLRs
+    in -2..2 (ties everywhere), with a random entry ring, at every radix,
+    packed and int8 rings, several D/TT, and F=5 frames."""
+    from repro_torch.codes import get_code
+    from repro_torch.kernels.ref import acs_decode_fused_maps_ref, acs_decode_fused_ref
+
+    spec = get_code(code).spec
+    TT, D = tt_d
+    args, kw = _map_walk_case(spec, rho, 5, 3 * TT, TT, D, pack, 10 * rho + TT)
+    want = acs_decode_fused_ref(*args, **kw)
+    got = acs_decode_fused_maps_ref(*args, **kw)
+    for g, r in zip(got, want):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("k,polys", [(2, (0o3, 0o1)), (3, (0o7, 0o5))], ids=["S2", "S4"])
+def test_map_walk_model_small_trellis_deep_window(k, polys):
+    """The map walk where a K2 block holds 64 frames (S=2, two a lane of
+    the walk warp) or 32 (S=4), under tiles of one step and a window of
+    512 steps, over F=130 frames: the bits, metrics and exit ring of the
+    plain version's straight walk (``test_cuda_k2_matches_plain`` and
+    ``chip_smoke.py`` hold the kernel to it at this shape)."""
+    from repro_torch.core import CodeSpec
+    from repro_torch.kernels.ref import acs_decode_fused_maps_ref, acs_decode_fused_ref
+
+    args, kw = _map_walk_case(CodeSpec(k=k, polys=polys), 1, 130, 48, 1, 512, False, k)
+    want = acs_decode_fused_ref(*args, **kw)
+    got = acs_decode_fused_maps_ref(*args, **kw)
+    for g, r in zip(got, want):
+        assert g.dtype == r.dtype and torch.equal(g, r)
 
 
 def test_k3_refuses_what_it_cannot_hold():

@@ -329,3 +329,66 @@ def test_decode_stream_tiled_front_door():
             got = dec.decode_stream_tiled(llr[0], cfg)
             want = ref.decode_stream_tiled(jnp.asarray(llr[0]), cfg)
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- K2's walk through per-tile state maps, modelled on the CPU -----------
+
+def _model_in_place_of_plain_k2(monkeypatch):
+    """Route the port's K2 wrapper, on CPU tensors, through the model of
+    the CUDA kernel's walk (``acs_decode_fused_maps_ref``) instead of the
+    plain version's straight walk; returns the list of its calls."""
+    from repro_torch.kernels import viterbi_acs
+    from repro_torch.kernels.ref import acs_decode_fused_maps_ref
+
+    calls = []
+
+    def model(*args, **kw):
+        calls.append(kw["time_tile"])
+        return acs_decode_fused_maps_ref(*args, **kw)
+
+    monkeypatch.setattr(viterbi_acs, "acs_decode_fused_ref", model)
+    return calls
+
+
+@pytest.mark.parametrize("integer", [False, True], ids=["awgn", "integer"])
+def test_map_walk_model_streams_as_the_reference(monkeypatch, integer):
+    """With K2's per-tile-map walk in place of the straight walk, each
+    chunk of the stateful stream emits the reference's bits (its Pallas
+    K2 in interpret mode) and leaves its metrics and ring, and so does
+    the flush: the maps visit the states the reference's walk visits."""
+    import jax.numpy as jnp
+
+    calls = _model_in_place_of_plain_k2(monkeypatch)
+    _, llr = _noisy(3, 704, 0.6, seed=14, integer=integer)
+    dec, ref = _pair(decision_depth=256)
+    state = dec.init_stream_state(3, initial_state=0)
+    rstate = ref.init_stream_state(3, initial_state=0)
+    for lo, hi in ((0, 128), (128, 384), (384, 640), (640, 704)):
+        state, bits = dec.decode_chunk(state, llr[:, lo:hi])
+        rstate, rbits = ref.decode_chunk(rstate, jnp.asarray(llr[:, lo:hi]))
+        np.testing.assert_array_equal(bits.numpy(), np.asarray(rbits))
+        np.testing.assert_array_equal(state.lam.numpy(), np.asarray(rstate.lam))
+        np.testing.assert_array_equal(state.hist.numpy(), np.asarray(rstate.hist))
+    np.testing.assert_array_equal(dec.flush_stream(state).numpy(),
+                                  np.asarray(ref.flush_stream(rstate)))
+    assert len(calls) == 4
+
+
+def test_map_walk_model_tiled_as_the_reference(monkeypatch):
+    """The tiled decode's one K2 call over all windows, with the map walk,
+    decodes the reference's bits (tile 16 over 16-step depths: one map
+    of lookahead a window)."""
+    import jax.numpy as jnp
+    from repro.core.viterbi import tiled_decode_stream as ref_tiled
+
+    from repro_torch.core import TiledDecoderConfig, tiled_decode_stream
+
+    calls = _model_in_place_of_plain_k2(monkeypatch)
+    spec, ref_spec = _specs(**K7)
+    _, llr = _noisy(1, 1290, 0.5, seed=15, integer=True)
+    cfg = TiledDecoderConfig()
+    got = tiled_decode_stream(llr[0], spec, cfg, one_pass=True, device="cpu")
+    want = ref_tiled(jnp.asarray(llr[0]), ref_spec, cfg, use_kernel=True,
+                     one_pass=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert calls

@@ -44,7 +44,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from repro_torch.core import CODE_K7_CCSDS, build_acs_tables  # noqa: E402
 from repro_torch.core.kernel_geometry import (  # noqa: E402
-    k3_block_frames, k3_gather_tables, k3_smem_bytes,
+    gather_tables, k3_block_frames, k3_smem_bytes,
 )
 from repro_torch.kernels import viterbi_acs  # noqa: E402
 from repro_torch.kernels.ref import transfer_matrix_ref  # noqa: E402
@@ -121,7 +121,7 @@ def main() -> None:
         built = list(pool.map(build, variant_sources().items()))
     dev = torch.device("cuda")
     w = torch.as_tensor(build_acs_tables(CODE_K7_CCSDS, 2).fused_w, device=dev)
-    theta, _ = k3_gather_tables(w, 4, 64, 4)
+    theta, _ = gather_tables(w, 4, 64, 4)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     blocks = {
