@@ -23,9 +23,14 @@ which ends the run with a non-zero exit when it fails:
                against every block; K2 also at T=TT and TT=1) on integer
                LLRs in -2..2 from all-equal start metrics (ties
                everywhere) and on AWGN LLRs (against the plain version on
-               the CPU, which sums in k order as the kernels do); and a W
-               whose metric half is not the one-hot must raise ValueError
-               in K1 and K2 before any launch;
+               the CPU, which sums in k order as the kernels do);
+               K1-LOGPROB at every (code, rho) of the sweep against its
+               plain version within ``logprob_bound`` (integer LLRs with
+               and without renorm, packed where 16 slots fit a word, and
+               AWGN LLRs), its survivors differing only at potential gaps
+               within PHI_TIE; and a W whose metric half is not the
+               one-hot must raise ValueError in K1, K1-LOGPROB and K2
+               before any launch;
   4. decode  — the paper's workload (cell decode_64k): ccsds-k7,
                rho=2, 512 zero-terminated frames x 65536 stages through
                ``ViterbiDecoder.from_standard("ccsds-k7").decode_batch``
@@ -403,13 +408,52 @@ def k3_layout_inputs(llrs, gen):
             yield f"{code} rho={rho}", tb, w, tt, ints, noisy
 
 
+def unpack_slots(words, n_slots):
+    """(..., S/16) packed int32 survivor words -> (..., S) int64 slots
+    (``kernel_geometry.pack_slots`` undone)."""
+    from repro_torch.core.kernel_geometry import SLOT_BITS
+
+    shifts = SLOT_BITS[n_slots] * torch.arange(16, device=words.device)
+    slots = ((words.to(torch.int64) & 0xFFFFFFFF)[..., None] >> shifts) & (n_slots - 1)
+    return slots.reshape(*words.shape[:-1], -1)
+
+
+def phi_tie_gap(phi_k, phi_p, blocks, lam0, w, tables, renorm, packed):
+    """(slots in which two LOGPROB survivor tensors of the same inputs
+    differ, the largest gap between the top two plain potentials among
+    them): the potentials from the metrics of the plain LOGPROB forward
+    (``soft._alpha_scan``), one step before each differing slot."""
+    from repro_torch.core import soft
+    from repro_torch.core.viterbi import AcsPrecision
+
+    R = tables.n_slots
+    if packed:
+        phi_k, phi_p = unpack_slots(phi_k, R), unpack_slots(phi_p, R)
+    mism = (phi_k.to(torch.int64) != phi_p.to(torch.int64)).nonzero()
+    if mism.numel() == 0:
+        return 0, 0.0
+    alphas = soft._alpha_scan(blocks, lam0, tables, AcsPrecision(renorm=renorm))
+    t_i, f_i, j_i = mism.unbind(1)
+    prev = torch.where((t_i > 0)[:, None], alphas[(t_i - 1).clamp(min=0), f_i],
+                       lam0[f_i])
+    xcat = torch.cat([blocks[t_i, f_i], prev], dim=1)
+    cols = j_i[:, None] * R + torch.arange(R, device=blocks.device)[None]
+    pot = (xcat[:, :, None] * w[:, cols].permute(1, 0, 2)).sum(dim=1)
+    top = pot.topk(2, dim=-1).values
+    return mism.shape[0], (top[:, 0] - top[:, 1]).max().item()
+
+
 def shape_sweep_phase(dev):
     """Phase 3's shape sweep: K1 and K2 bit for bit against their plain
     versions at each (code, rho) of ``SWEEP_CODES``, on integer and AWGN
-    LLRs; then a W that is not the one-hot must raise before any launch.
-    Its inputs come from a generator of its own, so the later phases draw
-    what they drew without it.  Returns the largest |metric| difference
-    seen (0.0 when bit-identical)."""
+    LLRs, and K1-LOGPROB within ``logprob_bound`` of its plain version
+    there; then a W that is not the one-hot must raise before any launch,
+    at both semirings.  Its inputs come from a generator of its own, so
+    the later phases draw what they drew without it.  Returns the largest
+    |metric| difference of the tropical kernels (0.0 when bit-identical)
+    and of K1-LOGPROB."""
+    import math
+
     from repro_torch.codes import get_code
     from repro_torch.core import CodeSpec, build_acs_tables, conv_encode_torch
     from repro_torch.core.channel import awgn, bpsk, llr
@@ -424,7 +468,7 @@ def shape_sweep_phase(dev):
     k1, k2 = viterbi_acs.acs_forward, viterbi_acs.acs_decode_fused
     f32, bf16 = torch.float32, torch.bfloat16
     F, T, D, TT = SWEEP_F, SWEEP_STEPS, SWEEP_DEPTH, SWEEP_TILE
-    err = 0.0
+    err = lp_err = 0.0
 
     def same(label, got, want):
         nonlocal err
@@ -468,6 +512,30 @@ def shape_sweep_phase(dev):
             kw = dict(n_states=S, n_slots=R)
             same(f"K1 {label} AWGN", k1(noisy, lam0, w, **kw),
                  acs_forward_ref(noisy.cpu(), lam0.cpu(), w.cpu(), **kw))
+            # K1-LOGPROB: from all-equal metrics the renormalised ones stay
+            # within d steps' spread (every state reaches every state in d
+            # steps), the potentials one step beyond; raw ones grow by at
+            # most m a step
+            d = -(-(spec.k - 1) // rho)
+            lp_cases = []
+            for kind, x, renorm, pack in (("integer", ints, True, False),
+                                          ("integer", ints, False, packs[-1]),
+                                          ("AWGN", noisy, True, False)):
+                m = x.abs().sum(dim=-1).max().item() + math.log(R)
+                kw = dict(n_states=S, n_slots=R, renorm=renorm, pack_survivors=pack,
+                          semiring="logprob")
+                lam_k, phi_k = k1(x, lam0, w, **kw)
+                lam_p, phi_p = acs_forward_ref(x, lam0, w, **kw)
+                e, bound = logprob_case(
+                    f"K1-LOGPROB vs plain {label}, {kind} LLRs, renorm={renorm} "
+                    f"packed={pack}", lam_k, lam_p, T, d * (2 * m) + m if renorm else m,
+                    B, R, renorm, quiet=True)
+                lp_err = max(lp_err, e)
+                n_diff, gap = phi_tie_gap(phi_k, phi_p, x, lam0, w, tb, renorm, pack)
+                if not gap <= PHI_TIE:
+                    fail(f"K1-LOGPROB {label} survivors differ at a potential gap of {gap}")
+                lp_cases.append(f"{kind} renorm={renorm} packed={pack}: err {e:.3g} "
+                                f"(bound {bound:.3g}), {n_diff} slots differ (gap {gap:.3g})")
             kw2 = dict(n_states=S, n_slots=R, k=spec.k, rho=rho)
             for pack in packs:
                 for steps, tile, depth, mm, renorm in ((T, TT, D, f32, True),
@@ -491,7 +559,8 @@ def shape_sweep_phase(dev):
                   f"{frames} frames of {threads // frames} threads a block): "
                   f"{n1} K1 and {n2} K2 cases on integer LLRs "
                   f"(K2 at TT={TT}, T=TT and TT=1), one each on AWGN LLRs (plain "
-                  f"on the CPU): bit-identical", flush=True)
+                  f"on the CPU): bit-identical; K1-LOGPROB within the bound: "
+                  + "; ".join(lp_cases), flush=True)
 
     # K2 where a block holds 32 frames (S = 4) or 64 (S = 2, two a lane of
     # the walk warp): a tile of one step is far shorter than the walk of a
@@ -524,6 +593,8 @@ def shape_sweep_phase(dev):
     before = (k1.launches, k2.launches)
     for kernel, call in (
         ("K1", lambda: k1(blocks, lam0, bad, n_states=64, n_slots=4)),
+        ("K1-LOGPROB", lambda: k1(blocks, lam0, bad, n_states=64, n_slots=4,
+                                  semiring="logprob")),
         ("K2", lambda: k2(blocks, lam0, ring(64, 4, D, True), bad, n_states=64,
                           n_slots=4, k=7, rho=2, time_tile=TT, pack_survivors=True)),
     ):
@@ -537,7 +608,7 @@ def shape_sweep_phase(dev):
     if (k1.launches, k2.launches) != before:
         fail("a refused W still launched a kernel")
     print(f"shape sweep took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return err
+    return err, lp_err
 
 
 def time_parallel_phase(decoder, llrs, gen, tables, w):
@@ -773,15 +844,15 @@ def time_parallel_phase(decoder, llrs, gen, tables, w):
 
 
 def logprob_case(label, got, want, steps, scale, n_llr, n_slots, renorm,
-                 control=None, separate=False):
+                 control=None, separate=False, quiet=False):
     """Hold a LOGPROB kernel's output to its plain version's: reachable
     entries (> -1e8) the same on both sides and within ``logprob_bound``,
     unreachable ones equal.  ``control`` is the tropical instantiation's
     output on the same inputs, a stand-in for a LOGPROB launch that
     reduces by the max: its distance from the plain version is printed
     beside the bound, and with ``separate`` the gate must reject it (else
-    this gate could not tell the two semirings apart).  Returns (max abs
-    error, bound)."""
+    this gate could not tell the two semirings apart).  ``quiet`` prints
+    nothing unless the gate fails.  Returns (max abs error, bound)."""
     torch.cuda.synchronize()
     reach = want > -1e8
     if not torch.equal(got > -1e8, reach):
@@ -793,6 +864,8 @@ def logprob_case(label, got, want, steps, scale, n_llr, n_slots, renorm,
     big = want[reach].abs() > 1.0
     rel = (diff[big] / want[reach][big].abs()).max().item() if big.any() else 0.0
     bound = logprob_bound(steps, scale, n_llr, n_slots, renorm)
+    if quiet and err <= bound:
+        return err, bound
     print(f"{label}: max abs err {err!r}, max rel err {rel!r} (entries above 1 "
           f"in magnitude) over {int(reach.sum())} reachable of {reach.numel()} "
           f"entries; bound {bound!r} ({steps} steps at values up to "
@@ -813,10 +886,12 @@ def logprob_case(label, got, want, steps, scale, n_llr, n_slots, renorm,
     return err, bound
 
 
-def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w):
+def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w, sweep_err):
     """Phase 10: decode_soft at full width, K3-LOGPROB and K1-LOGPROB
     against their plain versions, the list decode and lte-tbcc; returns
-    the K1-LOGPROB and K3-LOGPROB rows of the kernels line."""
+    the K1-LOGPROB and K3-LOGPROB rows of the kernels line (K1-LOGPROB's
+    error the larger of this phase's and ``sweep_err``, the shape
+    sweep's)."""
     import math
 
     from repro_torch.core import ViterbiDecoder, conv_encode_torch
@@ -975,7 +1050,7 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w):
     if (k1_launches, k1.launches) != (1, 1):
         fail(f"forward_fused(LOGPROB) launched K1-LOGPROB {k1_launches} times")
     kw1 = dict(n_states=S, n_slots=R, semiring="logprob")
-    k1l_ms = cuda_ms(lambda: k1(blocks, lam0, w, **kw1))
+    k1l_ms = cuda_ms(lambda: k1(blocks, lam0, w, operands=ops_w, **kw1))
     k1l_plain_ms = cuda_ms(
         lambda: res.update(p=acs_forward_ref(blocks, lam0, w, **kw1)),
         warmup=lambda: acs_forward_ref(blocks[:16], lam0, w, **kw1))
@@ -997,20 +1072,8 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w):
     k1_err = max(k1_err, err_sep)
     # survivors: a slot may differ only where the plain potentials' top two
     # are within PHI_TIE (the metrics differ by rounding)
-    mism = (phi_k != phi_p).nonzero()
-    gap = 0.0
-    if mism.numel():
-        alphas = soft._alpha_scan(blocks, lam0, tables, prec)
-        t_i, f_i, j_i = mism.unbind(1)
-        prev = torch.where((t_i > 0)[:, None], alphas[(t_i - 1).clamp(min=0), f_i],
-                           lam0[f_i])
-        xcat = torch.cat([blocks[t_i, f_i], prev], dim=1)
-        cols = j_i[:, None] * R + torch.arange(R, device=dev)[None]
-        pot = (xcat[:, :, None] * w[:, cols].permute(1, 0, 2)).sum(dim=1)
-        top = pot.topk(2, dim=-1).values
-        gap = (top[:, 0] - top[:, 1]).max().item()
-        del alphas
-    print(f"K1-LOGPROB survivors: {mism.shape[0]} of {phi_p.numel()} differ from "
+    n_diff, gap = phi_tie_gap(phi_k, phi_p, blocks, lam0, w, tables, prec.renorm, False)
+    print(f"K1-LOGPROB survivors: {n_diff} of {phi_p.numel()} differ from "
           f"the plain version's; largest top-two potential gap among them "
           f"{gap!r} (limit {PHI_TIE})")
     if not gap <= PHI_TIE:
@@ -1111,7 +1174,7 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w):
         "source": "src/repro_torch/kernels/csrc/acs_forward.cu",
         "replaces": "src/repro/kernels/viterbi_acs.py:172",
         "launches": k1_launches,
-        "max_abs_err": k1_err,
+        "max_abs_err": max(k1_err, sweep_err),
         "ms": k1l_ms,
         "shape": f"forward_fused(semiring=LOGPROB): F={F_SOFT} x T={T} steps",
         "plain_ms": k1l_plain_ms,
@@ -1223,7 +1286,7 @@ def main() -> None:
                 if not same:
                     fail(f"K1 differs from its plain version ({label}), "
                          f"max |lam| diff {err}")
-    sweep_err = shape_sweep_phase(dev)
+    sweep_err, sweep_lp_err = shape_sweep_phase(dev)
 
     # -- 4. the main path at full width -----------------------------------
     n_info = N_FULL - (spec.k - 1)
@@ -1588,7 +1651,8 @@ def main() -> None:
           f"emit what each emits alone, over 2 rounds (K2 launches {k2.launches})")
 
     k3_row = time_parallel_phase(decoder, llrs, gen, tables, w)
-    logprob_rows = soft_phase(decoder, llrs, info, bits, quant, gen, tables, w)
+    logprob_rows = soft_phase(decoder, llrs, info, bits, quant, gen, tables, w,
+                              sweep_lp_err)
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [k1_row, {

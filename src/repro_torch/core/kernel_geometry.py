@@ -26,7 +26,6 @@ __all__ = [
     "ONE_PASS_RULE_FRAMES",
     "MIN_TIME_PARALLEL_TILES",
     "SLOT_BITS",
-    "K1_THREADS",
     "GATHER_WARPS",
     "GATHER_GROUP_BUDGET",
     "K3_THREADS",
@@ -43,7 +42,6 @@ __all__ = [
     "ring_auto_packed",
     "check_packable",
     "pack_slots",
-    "k1_block_frames",
     "gather_states_per_thread",
     "gather_frame_threads",
     "gather_group_frames",
@@ -90,15 +88,11 @@ MIN_TIME_PARALLEL_TILES = 4
 # slot width in bits per radix R = 2^rho
 SLOT_BITS = {2: 1, 4: 2, 8: 3, 16: 4}
 
-# threads per K1-LOGPROB block (the dense step): one thread per (frame,
-# state) pair, so a block holds K1_THREADS // S frames
-K1_THREADS = 256
-
-# K1 (tropical) and K2, the gathered step of csrc/acs_step.cuh: a frame's
-# S states over S / NQ threads (NQ = 2 from S = 64), GATHER_WARPS warps a
-# block (kGatherWarps) where a frame fits in a warp, else a block of one
-# frame of S / 2 threads.  A stage of LLR steps is cut short where one
-# frame group's staging would pass GATHER_GROUP_BUDGET bytes.
+# K1 (both semirings) and K2, the gathered step of csrc/acs_step.cuh: a
+# frame's S states over S / NQ threads (NQ = 2 from S = 64), GATHER_WARPS
+# warps a block (kGatherWarps) where a frame fits in a warp, else a block
+# of one frame of S / 2 threads.  A stage of LLR steps is cut short where
+# one frame group's staging would pass GATHER_GROUP_BUDGET bytes.
 GATHER_WARPS = 4
 GATHER_GROUP_BUDGET = 48 * 1024
 
@@ -179,25 +173,21 @@ def pack_slots(phi: torch.Tensor, n_slots: int) -> torch.Tensor:
     return torch.where(word >= 2**31, word - 2**32, word).to(torch.int32)
 
 
-def k1_block_frames(n_states: int) -> int:
-    """Frames per K1-LOGPROB block (one thread per (frame, state) pair)."""
-    if n_states > 1024:
-        raise ValueError(f"K1 supports at most 1024 states, got {n_states}")
-    return max(1, K1_THREADS // n_states)
-
-
 def _align16(n: int) -> int:
     return -(-n // 16) * 16
 
 
 def gather_states_per_thread(n_states: int) -> int:
-    """States a thread of K1 (tropical) or K2 owns: 1 where S <= 32, else
-    2 (t and t + S/2, which share their R predecessors)."""
+    """States a thread of K1 or K2 owns: 1 where S <= 32, else 2 (t and t
+    + S/2, which share their R predecessors), at both of K1's semirings:
+    one state a lane at S = 64 (a frame over two warps, half the expf a
+    lane) made K1-LOGPROB 1.4-1.5x slower on an H100 at 64 and at 512
+    frames (``tools/k12_variants.py``)."""
     return 2 if n_states >= 64 else 1
 
 
 def gather_frame_threads(n_states: int) -> int:
-    """Threads a frame of K1 (tropical) or K2: S / NQ."""
+    """Threads a frame of K1 or K2: S / NQ."""
     if n_states > 1024:
         raise ValueError(f"K1 and K2 support at most 1024 states, got {n_states}")
     return n_states // gather_states_per_thread(n_states)
@@ -211,9 +201,9 @@ def gather_group_frames(n_states: int) -> int:
 
 
 def gather_block_shape(n_states: int):
-    """(frames, frame threads) of a K1 (tropical) block, and of a K2 block
-    at most (which adds a walk warp): ``GATHER_WARPS`` warps of frames
-    where a frame fits in a warp; (1, S / 2) where it does not."""
+    """(frames, frame threads) of a K1 block, and of a K2 block at most
+    (which adds a walk warp): ``GATHER_WARPS`` warps of frames where a
+    frame fits in a warp; (1, S / 2) where it does not."""
     tpf = gather_frame_threads(n_states)
     if tpf > 32:
         return 1, tpf
@@ -250,8 +240,8 @@ def gather_stage_steps(n_states: int, llr_block: int, n_cols: int,
 
 
 def k1_smem_bytes(n_states: int, llr_block: int, n_cols: int) -> int:
-    """Dynamic shared memory of one tropical K1 block: its frame groups'
-    regions at ``gather_stage_steps``; the launcher refuses another count."""
+    """Dynamic shared memory of one K1 block: its frame groups' regions at
+    ``gather_stage_steps``; the launcher refuses another count."""
     S = n_states
     groups = GATHER_WARPS if gather_frame_threads(S) <= 32 else 1
     ss = gather_stage_steps(S, llr_block, n_cols, False)

@@ -14,30 +14,34 @@
 // carry dtype.  phi is written as int8 slots, or 16 slots per int32 word at
 // SLOT_BITS[R] bits each.
 //
-// Two kernels:
-//   * acs_gather_kernel, the tropical K1: acs_step.cuh's gathered step.
-//     It takes no W, only the distinct columns of Theta (W's LLR half)
-//     and each column's index among them; its wrapper has checked that
-//     W's metric half is the shift register's one-hot and raises on any
-//     other W (there is no dense fallback).  Per (frame, step) the n_u
-//     branch metrics are formed once, each potential is one add of a
-//     branch metric and the one predecessor metric, read from shared
-//     memory: the bits of the dense product (acs_step.cuh).
-//   * acs_forward_kernel<R, kLogprob>, K1-LOGPROB, as before: the dense
-//     product over all B+S rows of W, which lives in shared memory, one
-//     thread per (frame, state), 256/S frames a block and two block
-//     barriers a step; the max-normalised logsumexp of acs_step.cuh, as
-//     the reference's `_acs_kernel` does with semiring="logprob" (its
-//     `forward_fused(semiring=LOGPROB, use_kernel=True)`).  Its
-//     instantiation and its bits are those of the port before the
-//     gathered step; redesigning it is a later step.
+// One kernel, acs_gather_kernel<R, NQ, WIDE, SEMI>, at both semirings:
+// acs_step.cuh's gathered step.  It takes no W, only the distinct columns
+// of Theta (W's LLR half) and each column's index among them; its wrapper
+// has checked that W's metric half is the shift register's one-hot and
+// raises on any other W (there is no dense fallback).  Per (frame, step)
+// the n_u branch metrics are formed once, each potential is one add of a
+// branch metric and the one predecessor metric, read from shared memory:
+// the bits of the dense product (acs_step.cuh).  At TROPICAL the slot
+// value is the argmax chain's max; at LOGPROB (SEMI = kLogprob, the
+// reference's `_acs_kernel` with semiring="logprob", its
+// `forward_fused(semiring=LOGPROB, use_kernel=True)`) reduce_slots's
+// max-normalised logsumexp of the same potentials: 1 and the R - 1 other
+// terms' accurate expf in the tournament's order, then log_of_sum, no fast
+// math.  The potentials are bit for bit the plain version's, so the
+// survivors differ only where the carried metrics' rounding moves a
+// near-tie.
 //
-// Design of the tropical kernel:
-//   * a frame's S states over S/NQ threads (NQ = 2 from S = 64: one warp
-//     a frame at S = 64, two states a lane), kGatherWarps warps a block;
-//     the threads of a frame exchange the metrics through shared memory
-//     with a warp barrier a step and no block barrier; from S = 128 a
-//     block is one frame of S/2 threads and the barrier the block's;
+// Design:
+//   * a frame's S states over S/NQ threads, kGatherWarps warps a block
+//     where a frame fits in a warp (NQ = 2 from S = 64: one warp a frame
+//     at S = 64, two states a lane); the threads of a frame exchange the
+//     metrics through shared memory with a warp barrier a step and no
+//     block barrier; where a frame spans warps (S/NQ > 32) a block is one
+//     frame and the barrier the named frame barrier.  One state a lane at
+//     S = 64 (a frame over two warps, half the expf a lane, the frame max
+//     and barrier across warps) took 1.4-1.5x as long at LOGPROB on an
+//     H100, at 64 and at 512 frames (tools/k12_variants.py builds it), so
+//     NQ is gather_nq's at both semirings;
 //   * the renorm max: redux.sync over order-preserving integer keys (one
 //     instruction at 32 threads a frame), shuffles below, shared memory
 //     across a wide frame's warps;
@@ -66,94 +70,22 @@
 // time-parallel recovery (8192 frames x 512 steps) has the parallelism
 // instead and is bound by the shared-memory and instruction throughput
 // of its steps.
-// The LOGPROB variant adds per state R-1 expf at the special-function
-// rate (16 a clock per SM, 132 SMs at 1.98 GHz: 4.18e12/s) and 2R f32
-// operations: at 64 frames x 32768 steps 0.096 ms of special functions
-// against 0.045 ms of bytes, bound by operations; its dense product
-// streams each thread's R columns of W from shared memory every step,
-// which is what that kernel runs into.
+// At LOGPROB each state adds R-1 expf at the special-function rate (16 a
+// clock per SM, 132 SMs at 1.98 GHz: 4.18e12/s) and 2R f32 operations: at
+// 64 frames x 32768 steps 0.096 ms of special functions against 0.045 ms
+// of bytes, bound by operations.  The serial floor rules there even more:
+// 64 frames fill 16 blocks of four warps on 132 SMs, and the chain of a
+// step grows by the tournament, an expf (range reduction, ex2, scale), the
+// sum of R terms and log_of_sum's dozen dependent fmas: on an H100 (700 W)
+// 32,768 steps take about 10.5 ms, 320 ns a step against the tropical
+// step's 245, about 1% of the 0.096 ms bound.
 #include "acs_step.cuh"
 
 namespace {
 
 using namespace acs;
 
-// K1-LOGPROB's dynamic shared memory, in floats.
-size_t smem_floats(int B, int S, int R, int BF) {
-  return (size_t)(B + S) * S * R             // W
-         + (size_t)kStageSteps * BF * B      // staged LLR blocks
-         + (size_t)BF * S                    // Lambda, rounded to the matmul dtype
-         + (size_t)BF * warps_per_frame(S);  // renorm partial maxima
-}
-
-template <int R, int SEMI>
-__global__ void __launch_bounds__(1024) acs_forward_kernel(
-    const float* __restrict__ blocks,  // (T, F, B)
-    const float* __restrict__ lam0,    // (F, S)
-    const float* __restrict__ w,       // (B+S, S*R)
-    float* __restrict__ lam_out,       // (F, S)
-    int8_t* __restrict__ phi8,         // (T, F, S), or null when packed
-    int32_t* __restrict__ phi32,       // (T, F, S/16), or null when unpacked
-    int T, int F, int B, int S, int BF,
-    int mm_dtype, int carry_dtype, int renorm, int slot_bits) {
-  extern __shared__ __align__(16) float smem[];
-  const int K = B + S;
-  const int SR = S * R;
-  float* w_s = smem;                              // K * SR
-  float* l_s = w_s + (size_t)K * SR;              // kStageSteps * BF * B
-  float* x_s = l_s + (size_t)kStageSteps * BF * B;  // BF * S
-  float* red_s = x_s + (size_t)BF * S;            // BF * warps_per_frame(S)
-
-  const int tid = threadIdx.x;
-  const int fl = tid / S;  // frame within the block
-  const int j = tid % S;   // state
-  const long long f0 = (long long)blockIdx.x * BF;
-  const long long frame = f0 + fl;
-  const bool live = frame < F;
-  const int nf = F - f0 < BF ? (int)(F - f0) : BF;  // live frames
-
-  for (int i = tid; i < K * SR; i += blockDim.x) w_s[i] = round_to(w[i], mm_dtype);
-
-  float lam = live ? round_to(lam0[frame * S + j], carry_dtype) : 0.f;
-  const float* wcol = w_s + j * R;
-
-  for (int t0 = 0; t0 < T; t0 += kStageSteps) {
-    // Every read of l_s from the previous stage happened before the last
-    // step's closing barrier, so the stage can be overwritten here.
-    const int steps = min(kStageSteps, T - t0);
-    const int per_step = nf * B;
-    for (int i = tid; i < steps * per_step; i += blockDim.x) {
-      const int tt = i / per_step;
-      const int r = i - tt * per_step;
-      l_s[tt * BF * B + r] =
-          round_to(blocks[((long long)(t0 + tt) * F + f0) * B + r], mm_dtype);
-    }
-    for (int tt = 0; tt < steps; ++tt) {
-      const long long t = t0 + tt;
-      x_s[fl * S + j] = round_to(lam, mm_dtype);
-      __syncthreads();  // stage and x_s complete
-
-      int arg;
-      float best = acs_best<R, SEMI>(l_s + (tt * BF + fl) * B, x_s + fl * S,
-                                     wcol, B, S, arg);
-
-      if (phi32 != nullptr) {
-        const unsigned v = pack_word(arg, j, slot_bits);
-        if (live && (j & 15) == 0)
-          phi32[(t * F + frame) * (S / 16) + (j >> 4)] = (int32_t)v;
-      } else if (live) {
-        phi8[(t * F + frame) * S + j] = (int8_t)arg;
-      }
-      best = renorm_sync(best, renorm, tid, j, S, fl, red_s);
-      lam = round_to(best, carry_dtype);
-    }
-  }
-  if (live) lam_out[frame * S + j] = lam;
-}
-
-// -- the tropical kernel: the gathered step -------------------------------
-
-template <int R, int NQ, bool WIDE>
+template <int R, int NQ, bool WIDE, int SEMI>
 __global__ void __launch_bounds__(kGatherMaxThreads) acs_gather_kernel(
     const float* __restrict__ blocks,  // (T, F, B)
     const float* __restrict__ lam0,    // (F, S)
@@ -210,10 +142,10 @@ __global__ void __launch_bounds__(kGatherMaxThreads) acs_gather_kernel(
     g.sync();  // branch metrics visible; every read of l_s done
     if (t0 + SS < T) stage_llrs(l_s, blocks, t0 + SS, min(SS, T - t0 - SS), F, B, g);
     for (int s = 0; s < steps; ++s) {
-      gather_step<R, NQ, false>(bm_s + (s * gf + g.fl) * n_u, cidr,
-                                xf + cb * gf * S, xf + (cb ^ 1) * gf * S,
-                                phi_s + (size_t)(s * gf + g.fl) * S, lam, gR, S,
-                                mm_dtype, carry_dtype, renorm, g, red);
+      gather_step<R, NQ, false, SEMI>(bm_s + (s * gf + g.fl) * n_u, cidr,
+                                      xf + cb * gf * S, xf + (cb ^ 1) * gf * S,
+                                      phi_s + (size_t)(s * gf + g.fl) * S, lam, gR,
+                                      S, mm_dtype, carry_dtype, renorm, g, red);
       cb ^= 1;
     }
     // the stage's survivors out (the last step's barrier made them visible)
@@ -230,7 +162,7 @@ __global__ void __launch_bounds__(kGatherMaxThreads) acs_gather_kernel(
   }
 }
 
-template <int R, int NQ, bool WIDE>
+template <int R, int NQ, bool WIDE, int SEMI>
 cudaError_t launch_gather(const float* blocks, const float* lam0,
                           const float* cols, const int16_t* cid, float* lam_out,
                           void* phi, int T, int F, int B, int S, int n_u,
@@ -239,7 +171,7 @@ cudaError_t launch_gather(const float* blocks, const float* lam0,
   const GatherShape sh(S);
   const size_t smem = (size_t)sh.groups * GroupSmem(S, B, n_u, SS, sh.gf, false).bytes;
   if ((long long)smem != smem_bytes) return cudaErrorInvalidValue;
-  auto kernel = acs_gather_kernel<R, NQ, WIDE>;
+  auto kernel = acs_gather_kernel<R, NQ, WIDE, SEMI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -253,87 +185,43 @@ cudaError_t launch_gather(const float* blocks, const float* lam0,
   return cudaGetLastError();
 }
 
-// -- K1-LOGPROB: the dense step -------------------------------------------
-
-template <int R, int SEMI>
-cudaError_t launch(const float* blocks, const float* lam0, const float* w,
-                   float* lam_out, void* phi, int T, int F, int B, int S,
-                   int BF, int mm_dtype, int carry_dtype, int renorm,
-                   int packed, int slot_bits, cudaStream_t stream) {
-  const size_t smem = smem_floats(B, S, R, BF) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      acs_forward_kernel<R, SEMI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((F + BF - 1) / BF));
-  const dim3 block((unsigned)(BF * S));
-  acs_forward_kernel<R, SEMI><<<grid, block, smem, stream>>>(
-      blocks, lam0, w, lam_out,
-      packed ? nullptr : static_cast<int8_t*>(phi),
-      packed ? static_cast<int32_t*>(phi) : nullptr,
-      T, F, B, S, BF, mm_dtype, carry_dtype, renorm, slot_bits);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// K1-LOGPROB's dynamic shared memory a block, in bytes.
-long long acs_forward_smem_bytes(int B, int S, int R, int BF) {
-  return (long long)(smem_floats(B, S, R, BF) * sizeof(float));
-}
-
-// Launches K1-LOGPROB (the dense step; `semiring` must be kLogprob, 1) on
-// `stream` (a cudaStream_t) and returns the launch's cudaError_t.  Does
-// not synchronise and allocates nothing: the caller owns every buffer.
-// BF * S threads per block; BF*S must be a multiple of 32 and at most
-// 1024, and S % 16 == 0 when `packed`.  The tropical K1 is
-// acs_forward_gather_launch.
-int acs_forward_launch(const float* blocks, const float* lam0, const float* w,
-                       float* lam_out, void* phi, int T, int F, int B, int S,
-                       int R, int BF, int mm_dtype, int carry_dtype,
-                       int renorm, int packed, int semiring, int device,
-                       void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)with_radix_and_semiring(R, semiring, [&](auto r, auto semi) -> cudaError_t {
-    constexpr int kR = decltype(r)::value;
-    constexpr int kSlotBits = kR == 2 ? 1 : kR == 4 ? 2 : kR == 8 ? 3 : 4;
-    if constexpr (decltype(semi)::value != kLogprob) {
-      return cudaErrorInvalidValue;  // the tropical K1 is the gathered kernel
-    } else {
-      return launch<kR, kLogprob>(blocks, lam0, w, lam_out, phi, T, F, B, S, BF,
-                                  mm_dtype, carry_dtype, renorm, packed, kSlotBits, s);
-    }
-  });
-}
-
-// Launches the tropical K1 (the gathered step) on `stream` and returns the
-// launch's cudaError_t.  Does not synchronise and allocates nothing.
-// cols: Theta's n_u distinct columns (B, n_u); cid: each of the S*R
-// columns' index among them (the caller has checked that W's metric half
-// is the shift register's one-hot); SS: the stage's steps and
-// `smem_bytes` its layout (kernel_geometry.gather_stage_steps and
-// k1_smem_bytes; another count is refused).  S a power of two in [R,
+// Launches K1 (the gathered step) on `stream` (a cudaStream_t) and returns
+// the launch's cudaError_t.  Does not synchronise and allocates nothing:
+// the caller owns every buffer.  cols: Theta's n_u distinct columns (B,
+// n_u); cid: each of the S*R columns' index among them (the caller has
+// checked that W's metric half is the shift register's one-hot); SS: the
+// stage's steps and `smem_bytes` its layout (kernel_geometry.
+// gather_stage_steps and k1_smem_bytes; another count is refused);
+// `semiring` kTropical (0) or kLogprob (1).  S a power of two in [R,
 // 1024]; S % 16 == 0 and R <= 4 when `packed`.
 int acs_forward_gather_launch(const float* blocks, const float* lam0,
                               const float* cols, const int16_t* cid,
                               float* lam_out, void* phi, int T, int F, int B,
                               int S, int R, int n_u, int SS, int mm_dtype,
                               int carry_dtype, int renorm, int packed,
-                              long long smem_bytes, int device, void* stream) {
+                              int semiring, long long smem_bytes, int device,
+                              void* stream) {
   if (!gather_shape_ok(B, S, R, n_u, SS) || T < 0 || F <= 0 ||
-      (packed && (S % 16 != 0 || R > 4)))
+      (packed && (S % 16 != 0 || R > 4)) ||
+      (semiring != kTropical && semiring != kLogprob))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)with_radix_and_nq(R, S, [&](auto r, auto nq, auto wide) -> cudaError_t {
-    return launch_gather<decltype(r)::value, decltype(nq)::value, decltype(wide)::value>(
-        blocks, lam0, cols, cid, lam_out, phi, T, F, B, S, n_u, SS, mm_dtype,
-        carry_dtype, renorm, packed, smem_bytes, s);
+  return (int)with_radix_and_nq(R, S, [&](auto r, auto q, auto wide) -> cudaError_t {
+    constexpr int kR = decltype(r)::value;
+    constexpr int kNQ = decltype(q)::value;
+    constexpr bool kWide = decltype(wide)::value;
+#define K1_ARGS                                                                \
+  blocks, lam0, cols, cid, lam_out, phi, T, F, B, S, n_u, SS, mm_dtype,       \
+      carry_dtype, renorm, packed, smem_bytes, s
+    if (semiring == kLogprob) return launch_gather<kR, kNQ, kWide, kLogprob>(K1_ARGS);
+    return launch_gather<kR, kNQ, kWide, kTropical>(K1_ARGS);
+#undef K1_ARGS
   });
 }
 

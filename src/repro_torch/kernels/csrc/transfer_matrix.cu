@@ -42,9 +42,10 @@
 // pot[r] = bm[j*R + r] + M[pred(j, r)], one f32 add, gives the dense
 // sum's value exactly, and the tropical kernel stays bit-identical to
 // `transfer_matrix_ref`.  K3-LOGPROB reduces the same potentials by
-// acs_step.cuh's reduce_slots, which skips exp(max - max) = 1 and so sums
-// in another order than acs_best: within f32 rounding of the dense
-// kernel's logsumexp (logprob_bound in chip_smoke.py), not its bits.
+// acs_step.cuh's reduce_slots, as K1-LOGPROB does, which skips exp(max -
+// max) = 1 and sums the other terms in its tournament's order: within
+// f32 rounding of the plain version's logsumexp (logprob_bound in
+// chip_smoke.py), not its bits.
 //
 // Design:
 //   * one block of kThreads = 128 threads per (tile, kFrames = 128 / S

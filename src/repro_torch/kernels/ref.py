@@ -16,6 +16,7 @@ import torch
 from repro_torch.core.kernel_geometry import (
     SLOT_BITS,
     check_packable,
+    gather_tables,
     pack_slots,
     ring_dtype,
     ring_words,
@@ -24,8 +25,8 @@ from repro_torch.core.semiring import get_semiring
 from repro_torch.core.viterbi import AcsPrecision, dot_f32, fused_potentials
 
 __all__ = [
-    "acs_forward_ref", "acs_decode_fused_ref", "acs_decode_fused_maps_ref",
-    "transfer_matrix_ref",
+    "acs_forward_ref", "acs_forward_gather_ref", "acs_decode_fused_ref",
+    "acs_decode_fused_maps_ref", "transfer_matrix_ref",
 ]
 
 
@@ -70,6 +71,90 @@ def acs_forward_ref(
             new = new - new.amax(dim=-1, keepdim=True)
         lam = new.to(carry_dtype)
     return lam.to(torch.float32), phis
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf(a, b, c) of f32 tensors: the product is exact in f64, the sum
+    rounds once to f64 and then to f32 (a double rounding, which can move
+    a result that falls exactly between two f32 values by one unit)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _tournament_logsumexp(pot: torch.Tensor) -> torch.Tensor:
+    """``reduce_slots<R, kLogprob>`` of csrc/acs_step.cuh over the last
+    axis: the max by a tournament of pairs, then 1 and the R - 1 losers'
+    exp summed in the tournament's order (its first level's pairs first),
+    then the log; f32 throughout."""
+    top, losers = pot, []
+    while top.shape[-1] > 1:
+        a, b = top[..., 0::2], top[..., 1::2]
+        losers.append(torch.minimum(a, b))
+        top = torch.maximum(a, b)
+    top = top[..., 0]
+    total = torch.ones_like(top)
+    for lose in torch.cat(losers, dim=-1).unbind(-1):
+        total = total + torch.exp(lose - top)
+    return top + torch.log(total)
+
+
+def acs_forward_gather_ref(
+    blocks: torch.Tensor,  # (T, F, B)
+    lam0: torch.Tensor,  # (F, S)
+    w: torch.Tensor,  # (B+S, S*R), its metric half the shift register's one-hot
+    *,
+    n_states: int,
+    n_slots: int,
+    carry_dtype: torch.dtype = torch.float32,
+    matmul_dtype: torch.dtype = torch.float32,
+    renorm: bool = True,
+    pack_survivors: bool = False,
+    semiring: str = "tropical",
+):
+    """A model of K1's gathered step (csrc/acs_forward.cu), for the tests:
+    ``acs_forward_ref``'s contract and outputs, in the kernel's own
+    arithmetic order.  The tests hold it to the reference's K1 on the CPU
+    and, on the card, hold the kernel to it at a bound that allows only
+    the exponentials, the log and what they move to differ.
+
+    Per step: the branch metric of each of Theta's distinct columns, an
+    fmaf chain in k order from 0 over L and Theta rounded to
+    ``matmul_dtype`` (``_fma_f32``); each potential one f32 add of its
+    column's branch metric and the one predecessor metric that W's
+    one-hot half routes (``kernel_geometry.gather_tables``, which raises
+    on any other W); the first argmax; the slot value the max, or at
+    ``"logprob"`` the tournament logsumexp of ``reduce_slots``
+    (``torch.exp`` and ``torch.log`` where the kernel takes CUDA's
+    accurate ``expf`` and ``log_of_sum``, each within 2 ulp); the renorm
+    by the frame max of those values; the carry rounded to
+    ``carry_dtype``, the next metrics to ``matmul_dtype``."""
+    get_semiring(semiring)  # raises on a name it does not know
+    S, R = n_states, n_slots
+    if pack_survivors:
+        check_packable(S, R)
+    T, F, B = blocks.shape
+    theta, pred = gather_tables(w, B, S, R)
+    cols, cid = torch.unique(theta.T.to(torch.float32), dim=0, return_inverse=True)
+    cols = cols.T.to(matmul_dtype).to(torch.float32)  # (B, n_u)
+    pred = pred.to(blocks.device)
+    lsum = blocks.to(matmul_dtype).to(torch.float32)
+    phis = torch.empty(
+        (T, F, ring_words(S, pack_survivors)),
+        dtype=ring_dtype(pack_survivors), device=blocks.device,
+    )
+    lam = lam0.to(torch.float32).to(carry_dtype).to(torch.float32)
+    for t in range(T):
+        bm = torch.zeros((F, cols.shape[1]), dtype=torch.float32, device=blocks.device)
+        for k in range(B):
+            bm = _fma_f32(lsum[t, :, k, None], cols[k][None, :], bm)
+        x = lam.to(matmul_dtype).to(torch.float32)
+        pot = (bm[:, cid.to(blocks.device)] + x[:, pred.reshape(-1)]).view(F, S, R)
+        phi = pot.argmax(dim=-1)  # the first of equal maxima
+        new = _tournament_logsumexp(pot) if semiring == "logprob" else pot.amax(dim=-1)
+        phis[t] = pack_slots(phi, R) if pack_survivors else phi
+        if renorm:
+            new = new - new.amax(dim=-1, keepdim=True)
+        lam = new.to(carry_dtype).to(torch.float32)
+    return lam, phis
 
 
 def _ring_select(row: torch.Tensor, state: torch.Tensor, n_slots: int,

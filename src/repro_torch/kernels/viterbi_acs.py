@@ -19,16 +19,15 @@ max) or ``"logprob"`` (the max-normalised logsumexp of the BCJR).
 ``launches`` counts every launch of a kernel, ``logprob_launches``
 those of its LOGPROB variant.
 
-The gather.  K1 (tropical), K2 and K3 form each potential as a branch
-metric plus the one predecessor metric that W's metric half routes, so
-they take only a W whose metric half is the shift register's one-hot:
-``gather_operands`` checks that (``kernel_geometry.gather_tables``) and
-raises ``ValueError`` before any launch on another W; there is no dense
-fallback.  It reads W on the host, so a caller that launches often with
-one W makes its operands once and passes them (``operands=``), as
+The gather.  K1 and K3 at both semirings, and K2, form each potential as
+a branch metric plus the one predecessor metric that W's metric half
+routes, so they take only a W whose metric half is the shift register's
+one-hot: ``gather_operands`` checks that (``kernel_geometry.gather_tables``)
+and raises ``ValueError`` before any launch on another W; there is no
+dense fallback.  It reads W on the host, so a caller that launches often
+with one W makes its operands once and passes them (``operands=``), as
 ``ops.device_tables`` does once per tables and device; without them
-each launch checks W itself.  K1-LOGPROB keeps the dense product over
-all of W.
+each launch checks W itself.
 
 Build and binding: at the first call on a CUDA tensor, ``nvcc`` compiles
 each kernel's source for ``sm_90a`` into a shared library of its own with
@@ -62,7 +61,6 @@ from repro_torch.core.kernel_geometry import (
     check_packable,
     gather_stage_steps,
     gather_tables,
-    k1_block_frames,
     k1_smem_bytes,
     k2_block_frames,
     k2_frame_bytes,
@@ -182,14 +180,8 @@ def bind(path: Path, name: str) -> ctypes.CDLL:
     declare its C interface."""
     lib = ctypes.CDLL(str(path))
     if name == "acs_forward":
-        lib.acs_forward_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
-        )
-        lib.acs_forward_launch.restype = ctypes.c_int
-        lib.acs_forward_smem_bytes.argtypes = [ctypes.c_int] * 4
-        lib.acs_forward_smem_bytes.restype = ctypes.c_longlong
         lib.acs_forward_gather_launch.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         )
         lib.acs_forward_gather_launch.restype = ctypes.c_int
@@ -256,7 +248,7 @@ def _raise_on(lib, name: str, err: int) -> None:
 
 
 class GatherOperands(NamedTuple):
-    """What K1 (tropical) and K2 take in place of W."""
+    """What K1, K2 and K3 take in place of W."""
 
     cols: torch.Tensor  # (B, n_u) float32: Theta's distinct columns
     cid: torch.Tensor  # (S*R,) int16: each column's index in ``cols``
@@ -316,11 +308,10 @@ def acs_forward(
     the first argmax).  On CUDA tensors this launches K1 and adds one to
     ``acs_forward.launches`` (and, at LOGPROB, to
     ``acs_forward.logprob_launches``); on CPU tensors it runs
-    ``acs_forward_ref``.  The tropical K1 takes only a W whose metric half
-    is the shift register's one-hot (``gather_operands`` raises
+    ``acs_forward_ref``.  K1 takes only a W whose metric half is the shift
+    register's one-hot, at both semirings (``gather_operands`` raises
     ``ValueError`` before any launch on another; ``operands``, if given,
-    are ``gather_operands(w, ...)`` made once by the caller); K1-LOGPROB
-    takes any W.
+    are ``gather_operands(w, ...)`` made once by the caller).
     """
     check_semiring(semiring)
     dev = _one_device("acs_forward", blocks, lam0, w)
@@ -362,14 +353,9 @@ def _launch_k1(blocks, lam0, w, *, n_states, n_slots, carry_dtype,
         "acs_forward", blocks=(blocks, (T, F, B), f32),
         lam0=(lam0, (F, S), f32), w=(w, (B + S, S * R), f32),
     )
-    lib = _library("acs_forward")
-    if semiring == "tropical":
-        ops = _operands("acs_forward", w, operands, B, S, R)
-        n_cols = ops.cols.shape[1]
-        smem = k1_smem_bytes(S, B, n_cols)
-    else:
-        BF = k1_block_frames(S)
-        smem = lib.acs_forward_smem_bytes(B, S, R, BF)
+    ops = _operands("acs_forward", w, operands, B, S, R)
+    n_cols = ops.cols.shape[1]
+    smem = k1_smem_bytes(S, B, n_cols)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(
             f"acs_forward: a block needs {smem} bytes of shared memory, more "
@@ -382,22 +368,15 @@ def _launch_k1(blocks, lam0, w, *, n_states, n_slots, carry_dtype,
     )
     if F == 0:
         return lam_out, phi
-    codes = (_DTYPE_CODES[matmul_dtype], _DTYPE_CODES[carry_dtype],
-             int(renorm), int(pack_survivors))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if semiring == "tropical":
-        err = lib.acs_forward_gather_launch(
-            blocks.data_ptr(), lam0.data_ptr(), ops.cols.data_ptr(),
-            ops.cid.data_ptr(), lam_out.data_ptr(), phi.data_ptr(),
-            T, F, B, S, R, n_cols, gather_stage_steps(S, B, n_cols, False),
-            *codes, smem, _device_index(dev), stream,
-        )
-    else:
-        err = lib.acs_forward_launch(
-            blocks.data_ptr(), lam0.data_ptr(), w.data_ptr(),
-            lam_out.data_ptr(), phi.data_ptr(), T, F, B, S, R, BF, *codes,
-            _SEMIRING_CODES[semiring], _device_index(dev), stream,
-        )
+    lib = _library("acs_forward")
+    err = lib.acs_forward_gather_launch(
+        blocks.data_ptr(), lam0.data_ptr(), ops.cols.data_ptr(),
+        ops.cid.data_ptr(), lam_out.data_ptr(), phi.data_ptr(),
+        T, F, B, S, R, n_cols, gather_stage_steps(S, B, n_cols, False),
+        _DTYPE_CODES[matmul_dtype], _DTYPE_CODES[carry_dtype], int(renorm),
+        int(pack_survivors), _SEMIRING_CODES[semiring], smem,
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+    )
     _raise_on(lib, "acs_forward", err)
     _count_launch(acs_forward, semiring)
     return lam_out, phi

@@ -459,7 +459,7 @@ def test_gather_block_shape(n_states, frames, threads, nq):
     (1024, 16, 16384, 1, 74944),  # every column distinct: one step a stage
 ])
 def test_k1_smem_bytes(n_states, llr_block, n_cols, stage, smem):
-    """The tropical K1's shared memory: its frame groups' staging (LLRs,
+    """K1's shared memory, at both semirings: its frame groups' staging (LLRs,
     branch metrics of the distinct columns, metrics double-buffered,
     survivors) at stages of up to 32 steps, cut while a group's region
     passes GATHER_GROUP_BUDGET; W is not in shared memory."""
@@ -643,7 +643,7 @@ REGISTRY_CODES = ("ccsds-k7", "dvb-s", "dvb-s-r78", "gsm-cs1", "lte-tbcc",
 @pytest.mark.parametrize("rho", [1, 2, 3, 4])
 @pytest.mark.parametrize("code", REGISTRY_CODES)
 def test_k3_gather_tables_match_the_trellis(code, rho):
-    """The tables the gathered kernels' wrappers (K1 tropical, K2, K3)
+    """The tables the gathered kernels' wrappers (K1, K2, K3)
     derive from W, ``kernel_geometry.gather_tables``: its LLR half and
     each column's predecessor are the trellis's own, for every registry
     code and radix."""
@@ -948,6 +948,102 @@ def test_k1_logprob_matches_reference(init, renorm, pack):
     assert decided.mean() > 0.5
 
 
+def _logprob_potential_gaps(blocks, lam0, tb, renorm):
+    """(T, F, S) gap between the top two potentials of each state at each
+    step, the metrics carried by the port's plain LOGPROB forward."""
+    from repro_torch.core.soft import _alpha_scan
+    from repro_torch.core.viterbi import AcsPrecision, fused_potentials
+
+    T, F, B = blocks.shape
+    S, R = tb.n_states, tb.n_slots
+    prec = AcsPrecision(renorm=renorm)
+    alphas = _alpha_scan(blocks, lam0, tb, prec)
+    prev = torch.cat([lam0[None], alphas[:-1]]).reshape(-1, S)
+    w = torch.from_numpy(tb.fused_w)
+    pot = fused_potentials(blocks.reshape(-1, B), prev, w, w[:B], w[B:], prec)
+    top = pot.view(T, F, S, R).topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+K1_MODEL_CASES = [
+    (code, rho, renorm, pack) for code in ("ccsds-k7", "gsm-cs1") for rho in (1, 2, 3, 4)
+    for renorm in (True, False) for pack in ((False, True) if rho <= 2 else (False,))
+]  # packed where 16 slots fit a word
+
+
+@pytest.mark.parametrize(
+    "code,rho,renorm,pack", K1_MODEL_CASES,
+    ids=[f"{c}-rho{r}-{'renorm' if n else 'raw'}-{'packed' if p else 'int8'}"
+         for c, r, n, p in K1_MODEL_CASES])
+def test_k1_gathered_logprob_model_matches_reference(code, rho, renorm, pack):
+    """``acs_forward_gather_ref``, the model of K1's gathered LOGPROB step
+    in the kernel's arithmetic order (branch metrics by fmaf in k order,
+    one add of the predecessor metric, the tournament logsumexp), against
+    the reference's interpret-mode K1 at semiring="logprob", by
+    ``test_k1_logprob_matches_reference``'s criteria: metrics within atol
+    1e-4, survivors equal wherever the top two potentials differ by more
+    than 1e-3.  Renormalised runs start pinned to state 0 (the -1e9
+    entries), raw ones from all-equal metrics."""
+    import jax.numpy as jnp
+    from repro.core.trellis import build_acs_tables as ref_tables
+    from repro.core.viterbi import AcsPrecision as RefPrecision
+    from repro.kernels.ops import viterbi_forward as ref_forward
+
+    from repro_torch.codes import get_code
+    from repro_torch.core import build_acs_tables
+    from repro_torch.kernels.ref import acs_forward_gather_ref
+
+    spec = get_code(code).spec
+    tb = build_acs_tables(spec, rho)
+    F, T = 5, 48 // rho
+    rng = np.random.default_rng(10 * rho + len(code))
+    blocks = (rng.normal(0.0, 3.0, (T, F, tb.llr_block)) * 0.5).astype(np.float32)
+    _, lam0 = _inputs(spec, rho, F, 1, 0, True, 0 if renorm else None)
+    lam_r, phi_r = ref_forward(
+        jnp.asarray(blocks), jnp.asarray(lam0), ref_tables(_ref_spec(spec), rho),
+        RefPrecision(renorm=renorm), pack_survivors=pack, semiring="logprob",
+    )
+    args = (torch.from_numpy(blocks), torch.from_numpy(lam0))
+    lam_m, phi_m = acs_forward_gather_ref(
+        *args, torch.from_numpy(tb.fused_w), n_states=tb.n_states,
+        n_slots=tb.n_slots, renorm=renorm, pack_survivors=pack, semiring="logprob")
+    np.testing.assert_allclose(lam_m.numpy(), np.asarray(lam_r), atol=1e-4, rtol=0)
+    decided = (_logprob_potential_gaps(*args, tb, renorm) > 1e-3).numpy()
+    if pack:  # a word is held where all 16 of its slots are decided
+        decided = decided.reshape(T, F, tb.n_states // 16, 16).all(axis=-1)
+    phi_m, phi_r = phi_m.numpy(), np.asarray(phi_r)
+    assert phi_m.shape == phi_r.shape
+    np.testing.assert_array_equal(phi_m[decided], phi_r[decided])
+    assert decided.mean() > 0.5
+
+
+@pytest.mark.parametrize("rho", [1, 2, 3, 4])
+@pytest.mark.parametrize("code", ["ccsds-k7", "gsm-cs1"])
+def test_k1_gathered_model_is_the_plain_version_at_tropical(code, rho):
+    """At TROPICAL the gathered model (a branch metric plus the one
+    predecessor metric) gives the plain version's bits, on integer LLRs
+    where ties abound, at f32 and bf16 matmul and carry, packed where 16
+    slots fit a word: the potentials are the dense sum's values."""
+    from repro_torch.codes import get_code
+    from repro_torch.core import build_acs_tables
+    from repro_torch.kernels.ref import acs_forward_gather_ref, acs_forward_ref
+
+    spec = get_code(code).spec
+    tb = build_acs_tables(spec, rho)
+    rng = np.random.default_rng(rho)
+    blocks = torch.from_numpy(rng.integers(-8, 9, (40, 5, tb.llr_block)).astype(np.float32))
+    w = torch.from_numpy(tb.fused_w)
+    for mm, renorm, pack in ((torch.float32, True, False),
+                             (torch.bfloat16, False, rho <= 2)):
+        lam0 = torch.zeros((5, tb.n_states))
+        kw = dict(n_states=tb.n_states, n_slots=tb.n_slots, matmul_dtype=mm,
+                  carry_dtype=mm, renorm=renorm, pack_survivors=pack)
+        got = acs_forward_gather_ref(blocks, lam0, w, **kw)
+        want = acs_forward_ref(blocks, lam0, w, **kw)
+        for g, r in zip(got, want):
+            assert g.dtype == r.dtype and torch.equal(g, r)
+
+
 def _k3_logprob_pair(code, F, T, tile, seed, mm="f32", split=False):
     import jax.numpy as jnp
     from repro.core.trellis import build_acs_tables as ref_tables
@@ -1016,12 +1112,19 @@ def _max_reachable_diff(a, b):
 def test_cuda_k1_logprob_matches_plain():
     """K1-LOGPROB against its plain version on the card (needs an H100
     and nvcc): metrics within f32 rounding, survivors equal; after 8
-    steps the bound rejects the tropical instantiation."""
+    steps the bound rejects the tropical instantiation; then at every
+    (code, rho) of ``chip_smoke.py``'s shape sweep, and a W whose metric
+    half is not the one-hot raises before any launch.  Each run is also
+    held to ``acs_forward_gather_ref``, the model of the kernel's own
+    arithmetic order: its LLR terms round as the kernel's do, so only the
+    exponentials, the log and the roundings they move may differ
+    (``n_llr=0`` in the bound)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
-    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.codes import get_code
+    from repro_torch.core import CODE_K7_CCSDS, CodeSpec, build_acs_tables
     from repro_torch.kernels import acs_forward
-    from repro_torch.kernels.ref import acs_forward_ref
+    from repro_torch.kernels.ref import acs_forward_gather_ref, acs_forward_ref
 
     dev = torch.device("cuda")
     tb = build_acs_tables(CODE_K7_CCSDS, 2)
@@ -1041,12 +1144,48 @@ def test_cuda_k1_logprob_matches_plain():
     diff = (lam_k - lam_r).abs().max().item()
     assert diff <= _cuda_logprob_bound(100, scale, True)
     assert (phi_k != phi_r).float().mean().item() < 1e-3
+    lam_m, phi_m = acs_forward_gather_ref(*args, **kw)
+    assert (lam_k - lam_m).abs().max().item() <= _cuda_logprob_bound(100, scale, True, 0)
+    assert (phi_k != phi_m).float().mean().item() < 1e-3
     short = (args[0][:8], args[1], args[2])
     bound = _cuda_logprob_bound(8, scale, True)
     want = acs_forward_ref(*short, **kw)[0]
     assert _max_reachable_diff(acs_forward(*short, **kw)[0], want) <= bound
     trop = acs_forward(*short, **dict(kw, semiring="tropical"))[0]
     assert _max_reachable_diff(trop, want) > bound
+
+    specs = [get_code(c).spec for c in ("ccsds-k7", "gsm-cs1", "lte-tbcc")] + [
+        CodeSpec(k=6, polys=(0o53, 0o75)), CodeSpec(k=8, polys=(0o371, 0o247)),
+        CodeSpec(k=10, polys=(0o1167, 0o1545))]
+    rng = np.random.default_rng(7)
+    for spec in specs:
+        for rho in (1, 2, 3, 4):
+            tbc = build_acs_tables(spec, rho)
+            S, R, B = tbc.n_states, tbc.n_slots, tbc.llr_block
+            x = torch.from_numpy(
+                (rng.normal(0.0, 3.0, (64, 37, B)) * 0.5).astype(np.float32)).to(dev)
+            wc = torch.as_tensor(tbc.fused_w, device=dev)
+            l0 = torch.zeros((37, S), device=dev)
+            kwc = dict(n_states=S, n_slots=R, semiring="logprob")
+            lam_k, phi_k = acs_forward(x, l0, wc, **kwc)
+            lam_r, phi_r = acs_forward_ref(x, l0, wc, **kwc)
+            torch.cuda.synchronize()
+            m = x.abs().sum(dim=-1).max().item() + math.log(R)
+            d = -(-(spec.k - 1) // rho)  # steps in which every state reaches every state
+            bound = _cuda_logprob_bound(64, d * (2 * m) + m, True, B, R)
+            assert (lam_k - lam_r).abs().max().item() <= bound, (spec, rho)
+            assert (phi_k != phi_r).float().mean().item() < 1e-3, (spec, rho)
+            lam_m, phi_m = acs_forward_gather_ref(x, l0, wc, **kwc)
+            bound_m = _cuda_logprob_bound(64, d * (2 * m) + m, True, 0, R)
+            assert (lam_k - lam_m).abs().max().item() <= bound_m, (spec, rho)
+            assert (phi_k != phi_m).float().mean().item() < 1e-3, (spec, rho)
+
+    bad = args[2].clone()
+    bad[4:] = bad[4:].roll(1, dims=0)
+    launches = acs_forward.launches
+    with pytest.raises(ValueError, match="one-hot|predecessors"):
+        acs_forward(args[0], args[1], bad, **kw)
+    assert acs_forward.launches == launches
 
 
 @pytest.mark.cuda
@@ -1093,10 +1232,11 @@ def test_cuda_k3_logprob_matches_plain():
 
 
 def test_logprob_variants_build_without_fast_math():
-    """The logsumexp of K1-LOGPROB and K3-LOGPROB uses the accurate
-    expf/logf: no fast-math flag in the build, no __expf/__logf
-    intrinsics in the shared ACS step, and the semiring codes the
-    wrappers pass are the ones the kernels switch on."""
+    """The logsumexp of K1-LOGPROB and K3-LOGPROB uses the accurate expf
+    and log_of_sum (the accurate logf's own steps): no fast-math flag in
+    the build, no __expf/__logf intrinsics in the shared ACS step, and
+    the semiring codes the wrappers pass are the ones the kernels switch
+    on."""
     import re
 
     from repro_torch.kernels import viterbi_acs
@@ -1105,7 +1245,7 @@ def test_logprob_variants_build_without_fast_math():
     assert "fast" not in flags and "ftz=true" not in flags
     step = (viterbi_acs._CSRC / "acs_step.cuh").read_text()
     code = re.sub(r"//[^\n]*", "", step)  # the notes name the intrinsics
-    assert "expf(" in code and "logf(" in code
+    assert "expf(" in code and "log_of_sum(" in code
     assert "__expf" not in code and "__logf" not in code
     assert re.search(r"kTropical = 0, kLogprob = 1", code)
     assert viterbi_acs._SEMIRING_CODES == {"tropical": 0, "logprob": 1}

@@ -64,8 +64,11 @@ def test_ring_layout_and_packing_equal_reference():
         )
     with pytest.raises(ValueError, match="rho <= 2"):
         ours.check_packable(64, 8)
-    assert ours.k1_block_frames(64) * 64 == ours.K1_THREADS
-    assert ours.k1_block_frames(1024) == 1
+    # K1-LOGPROB's block, the gathered step's at ccsds-k7: a warp a frame,
+    # two states a lane, four frames a block; from S = 128 one frame a block
+    assert ours.gather_states_per_thread(64) == 2
+    assert ours.gather_block_shape(64) == (4, 128)
+    assert ours.gather_block_shape(1024) == (1, 512)
 
 
 @pytest.mark.parametrize("sanitize", [False, True])

@@ -16,11 +16,16 @@ made on the card from one seed:
     launch, tile 32 (``decode_stream_chunked``'s launches);
   * the recovery K1: 8,192 frames x 512 steps from integer entry metrics
     (the time-parallel decode's launch at decode_512k_f16);
-  * K1-LOGPROB: 64 frames x 32,768 steps of half-scaled Gaussian LLRs.
+  * K1-LOGPROB: 64 frames x 32,768 steps of half-scaled Gaussian LLRs
+    (``forward_fused(semiring=LOGPROB)``'s launch at the soft cell's
+    shape).
 Prints each turn's mean time over 3 calls after a warm-up (CUDA events)
 and whether each output of this checkout is bit-identical to the other's
-(SHA-256 of every output tensor's bytes).  Needs one card and ``nvcc``;
-imports nothing of JAX.
+(SHA-256 of every output tensor's bytes).  Where a checkout sums
+K1-LOGPROB's logsumexp in another order than the other (the dense step
+before the gathered one), its outputs are held to the other's within
+1e-3 on the metrics instead, and the survivors that differ are counted.
+Needs one card and ``nvcc``; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ CHUNK_STEPS, DEPTH, TILE = 2048, 2560, 32  # the stream: 16 chunks of 4096 stage
 F_REC, T_REC = 8192, 512  # the recovery: 16 frames x 512 tiles of 512 steps
 F_SOFT = 64
 CASES = ("K1 decode_64k", "K2 stream (16 launches)", "K1 recovery", "K1-LOGPROB")
+LOGPROB_ATOL = 1e-3  # K1-LOGPROB's metrics between checkouts that sum in other orders
 
 
 def digest(*tensors) -> str:
@@ -111,8 +117,10 @@ def worker(root: str, out_path: str) -> None:
 
     soft = torch.randn((T_64K, F_SOFT, 4), generator=gen, device=dev) * 1.5
     lam_s = torch.zeros((F_SOFT, 64), device=dev)
-    ms = cuda_ms(lambda: k1(soft, lam_s, w, semiring="logprob", **kw))
-    res[CASES[3]] = (ms, digest(*k1(soft, lam_s, w, semiring="logprob", **kw)))
+    ms = cuda_ms(lambda: k1(soft, lam_s, w, semiring="logprob", **trop))
+    out = k1(soft, lam_s, w, semiring="logprob", **trop)
+    res[CASES[3]] = (ms, digest(*out))
+    torch.save([t.cpu() for t in out], out_path + ".pt")
     Path(out_path).write_text(json.dumps(res))
 
 
@@ -132,16 +140,28 @@ def main() -> None:
             subprocess.run([sys.executable, __file__, "--worker", str(root), str(out)],
                            check=True)
             turns.append(json.loads(out.read_text()))
+            turns[-1]["logprob"] = torch.load(str(out) + ".pt")
             print(f"turn {turn} ({'this' if root == this else 'other'} checkout): "
                   + "; ".join(f"{c} {turns[-1][c][0]:.3f} ms" for c in CASES), flush=True)
     for c in CASES:
         this_ms = [turns[1][c][0], turns[2][c][0]]
         other_ms = [turns[0][c][0], turns[3][c][0]]
         same = len({t[c][1] for t in turns}) == 1
+        note = ""
+        if c == "K1-LOGPROB" and not same:
+            # each checkout must repeat its own bits; across them, a rounding
+            if turns[0][c][1] != turns[3][c][1] or turns[1][c][1] != turns[2][c][1]:
+                sys.exit("k12_vs_parent: K1-LOGPROB is not deterministic")
+            (lam_t, phi_t), (lam_o, phi_o) = turns[1]["logprob"], turns[0]["logprob"]
+            err = (lam_t - lam_o).abs().max().item()
+            note = (f" (metrics within {err!r} of the other's, limit {LOGPROB_ATOL}; "
+                    f"{int((phi_t != phi_o).sum())} of {phi_t.numel()} survivors differ)")
+            same = err <= LOGPROB_ATOL
         print(f"{c}: this {this_ms[0]:.3f}, {this_ms[1]:.3f} ms; other "
               f"{other_ms[0]:.3f}, {other_ms[1]:.3f} ms; this/other "
               f"{sum(this_ms) / sum(other_ms):.4f}; outputs "
-              f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
+              f"{'bit-identical' if not note and same else 'DIFFERENT'}{note}",
+              flush=True)
         if not same:
             sys.exit(f"k12_vs_parent: {c} differs between the checkouts")
 

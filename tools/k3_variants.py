@@ -11,8 +11,9 @@ it (``K3_PARTS`` translation units, then one link), into
     ``__launch_bounds__(128, 4)`` (at most 128 registers) where the source
     asks for three blocks an SM;
   * ``slot-order sum``: K3-LOGPROB's ``reduce_slots`` summing all R
-    ``expf`` in slot order from 0 and taking the library ``logf``, as
-    ``acs_best`` does, where the source sums 1 and the R - 1 others;
+    ``expf`` in slot order from 0 and taking the library ``logf``, as the
+    plain version's ``Semiring.sum`` does, where the source sums 1 and
+    the R - 1 others;
   * ``library logf``: ``reduce_slots`` taking the library ``logf`` of the
     sum where the source takes ``log_of_sum``, which must give its bits.
 
