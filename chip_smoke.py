@@ -115,7 +115,40 @@ which ends the run with a non-zero exit when it fails:
                and on the integer LLRs), and lte-tbcc, 512 tail-biting
                frames x 64 bits through ``bcjr_circular_llrs``: K3-LOGPROB
                at one step a tile (beta=3) against its plain version, BER,
-               times.
+               times;
+ 11. codes   — the standard codes on the reference's cells
+               (``configs/viterbi_k7.py``), LLRs drawn on the card
+               (``simulate.point_key`` seeds, ``sim_frame_batch``):
+               decode_64k_wifi_r34 (512 frames x 65536 kept LLRs, 6 dB)
+               through ``decode_batch`` (one K1) and
+               ``decode_stream_chunked(chunk_len=4096, initial_state=0)``
+               (the two-pass step, one K1 a chunk; each chunk's path,
+               launches and CUDA-event times printed), chunked bits ==
+               batch bits; ``decode_soft(output="llr")`` on 64 of its
+               frames (one K3-LOGPROB); a 2^20-LLR wifi-11a-r34 stream
+               through ``decode_stream_tiled`` (one K2) and
+               ``decode_batch(time_parallel=True)`` (one K3, one K1),
+               tiled bits == batch bits; decode_tbcc_blocks (lte-tbcc,
+               8192 x 128 bits, 6 dB) through ``decode_batch`` and
+               ``decode_tailbiting`` (WAVA, one K1 a circulation;
+               converged share printed) and 64 of them with
+               ``time_parallel=True, transfer_tile=8`` (one K3, one K1 a
+               circulation; bits and flags == sequential WAVA);
+               decode_64k_dvb_r78 (7 dB) through ``decode_batch``;
+               ``codes.smoke`` and ``core.soft_smoke`` on the card.  BER
+               <= 1e-4 on the punctured paths, <= TBCC_BER_LIMIT on
+               lte-tbcc.  Every kernel call of these paths is kept from
+               an integer-LLR run and held bit for bit to its plain
+               version on the same tensors (K1 at both batch shapes, at
+               chunks 1, 2 and the last, at each WAVA circulation and
+               recovery; K2 on the tiled windows; K3 at the stream's tile
+               and at TT=8); K3-LOGPROB from the soft run within
+               ``logprob_bound``, with the tropical instantiation rejected
+               at TT=8.  Times: CUDA events of K1, K2, K3, K3-LOGPROB and
+               the tracebacks on each path, walls (median of 3 after the
+               main run; chunked: the gated call itself, one sample) and
+               decoded Mb/s of message bits; the phase's seconds against
+               its budget of 75 s.
 
 Parity: at TROPICAL every kernel is held bit for bit to its plain version.
 At LOGPROB the slot reduction is a logsumexp, whose expf/logf (CUDA) and
@@ -184,6 +217,17 @@ SWEEP_CODES = (("ccsds-k7", None), ("gsm-cs1", None), ("lte-tbcc", None),
                ("k10 S=512", (10, (0o1167, 0o1545))))
 SWEEP_F, SWEEP_STEPS, SWEEP_DEPTH, SWEEP_TILE = 37, 64, 32, 16
 SEED = 0
+# phase 11, the reference's standard-code cells (src/repro/configs/viterbi_k7.py):
+# decode_64k_wifi_r34 and decode_64k_dvb_r78, 512 frames of 65536 kept
+# LLRs: 49152 stages at rate 3/4 and 57344 at 7/8, less the 6-bit tail
+F_CODES, N_MSG_WIFI, N_MSG_DVB = 512, 49146, 57338
+N_TILED_CODES = 2**20  # kept LLRs of the wifi-11a-r34 tiled stream
+F_TBCC_CELL, N_TBCC_CELL = 8192, 128  # decode_tbcc_blocks
+F_TBCC_TP, TT_TBCC_TP = 64, 8  # time-parallel WAVA: blocks, transfer tile
+# decode_64k_wifi_r34, the tiled stream and decode_tbcc_blocks at 6 dB;
+# decode_64k_dvb_r78 at a fixed 7 dB (the rate-7/8 code leaves errors at 6)
+EBN0_CODES, EBN0_DVB = 6.0, 7.0
+CODES_BUDGET_S = 75  # phase 11's time budget, printed beside its seconds
 # H100 SXM published peaks (NVIDIA data sheet) at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # non-tensor float32
 PEAK_HBM_BYTES = 3.35e12
@@ -1197,6 +1241,445 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w, sweep_err
     }]
 
 
+# -- phase 11: the standard codes -------------------------------------------
+
+def codes_cell(name, n_frames, n_msg, ebn0_db, dev, seed=SEED):
+    """(message bits (F, n_msg) int32, AWGN LLRs, their integer copy) of
+    one cell of a registry code, drawn on the card:
+    ``simulate.sim_frame_batch``'s tx chain (tail, encode, puncture,
+    BPSK + AWGN at the effective rate) on a generator seeded with
+    ``point_key(seed, name, ebn0_db)``.  Punctured codes give the serial
+    kept stream (F, Lp)."""
+    from repro_torch.codes import get_code
+    from repro_torch.codes.simulate import point_key, sim_frame_batch
+
+    gen = torch.Generator(device=dev).manual_seed(point_key(seed, name, ebn0_db))
+    bits, llrs = sim_frame_batch(gen, get_code(name), n_frames, n_msg, ebn0_db)
+    return bits, llrs, torch.clamp(torch.round(llrs), -16, 16)
+
+
+class Stages:
+    """Record CUDA events around the kernel wrappers and the tracebacks a
+    decode calls, with the launch counts each call adds: the stages of
+    one run, read without a second run.  ``patches`` maps a label to
+    (module, attribute); the calls of the labels in ``keep`` are kept in
+    ``kept`` as (label, arguments, keywords, output).  ``log`` is in the
+    order the calls return, so a call's inner calls come before it."""
+
+    def __init__(self, patches, keep=()):
+        from repro_torch.kernels import viterbi_acs
+
+        self.patches, self.keep = patches, keep
+        self.log, self.kept, self.saved = [], [], {}
+        self.counters = (viterbi_acs.acs_forward, viterbi_acs.acs_decode_fused,
+                         viterbi_acs.transfer_matrix)
+
+    def __enter__(self):
+        for label, (mod, attr) in self.patches.items():
+            fn = getattr(mod, attr)
+            self.saved[label] = fn
+            setattr(mod, attr, self._wrap(label, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for label, (mod, attr) in self.patches.items():
+            setattr(mod, attr, self.saved[label])
+
+    def _wrap(self, label, fn):
+        def timed(*args, **kw):
+            before = [c.launches for c in self.counters]
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            stop.record()
+            self.log.append((label, start, stop, [c.launches - b for c, b in
+                                                  zip(self.counters, before)]))
+            if label in self.keep:
+                self.kept.append((label, args, kw, out))
+            return out
+        return timed
+
+    def ms(self, label):
+        """Summed event time of the calls labelled ``label``, after a
+        synchronize."""
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for lab, s, e, _ in self.log if lab == label)
+
+    def count(self, label):
+        return sum(lab == label for lab, *_ in self.log)
+
+
+def kernel_patches(**extra):
+    """Stages' patches: the kernel wrappers where ``kernels/ops.py`` calls
+    them, and ``extra`` (label=(module, attribute))."""
+    from repro_torch.kernels import ops
+
+    return {"K1": (ops, "acs_forward"), "K2": (ops, "acs_decode_fused"),
+            "K3": (ops, "transfer_matrix"), **extra}
+
+
+def launch_counts():
+    from repro_torch.kernels import viterbi_acs
+
+    k1, k2, k3 = (viterbi_acs.acs_forward, viterbi_acs.acs_decode_fused,
+                  viterbi_acs.transfer_matrix)
+    return {"K1": k1.launches - k1.logprob_launches, "K1-LOGPROB": k1.logprob_launches,
+            "K2": k2.launches, "K3": k3.launches - k3.logprob_launches,
+            "K3-LOGPROB": k3.logprob_launches}
+
+
+def zero_counts():
+    from repro_torch.kernels import viterbi_acs
+
+    for kernel in (viterbi_acs.acs_forward, viterbi_acs.transfer_matrix):
+        kernel.launches = kernel.logprob_launches = 0
+    viterbi_acs.acs_decode_fused.launches = 0
+
+
+def main_path(label, fn, want_paths, want_launches, patches=None, keep=()):
+    """Drive one path of phase 11: counts zeroed just before, read just
+    after; fails unless the dispatches and launches are ``want_*``.
+    Returns (result, the launches read, its wall in ms (host clock), the
+    run's Stages, which keeps the calls of the kernels in ``keep``)."""
+    stages = Stages(patches or kernel_patches(), keep)
+    zero_counts()
+    with stages:
+        (out, wall), paths = dispatched(lambda: host_ms(fn))
+    got = {k: v for k, v in launch_counts().items() if v}
+    print(f"{label}: dispatch {paths}; launches {got}", flush=True)
+    if paths != want_paths:
+        fail(f"{label} dispatched {paths}, not {want_paths}")
+    if got != want_launches:
+        fail(f"{label} launched {got}, not {want_launches}")
+    return out, got, wall, stages
+
+
+def kept_run(fn, keep):
+    """(result, Stages) of ``fn``, the calls of the kernels in ``keep``
+    kept."""
+    with Stages(kernel_patches(), keep) as stages:
+        out = fn()
+    return out, stages
+
+
+def hold_kept(label, stages, pick=None):
+    """Hold the kernel calls a run kept bit for bit to their plain
+    versions (``kernels/ref.py``) on the same tensors on the card: the
+    shapes, entry metrics and ring layouts that the path gave each
+    kernel.  ``pick`` chooses calls by index (default: all)."""
+    from repro_torch.kernels import ref
+
+    plain = {"K1": ref.acs_forward_ref, "K2": ref.acs_decode_fused_ref,
+             "K3": ref.transfer_matrix_ref}
+    calls = stages.kept if pick is None else [stages.kept[i] for i in pick]
+    for kernel, args, kw, out in calls:
+        want = plain[kernel](*args, **{k: v for k, v in kw.items() if k != "operands"})
+        got = out if isinstance(out, tuple) else (out,)
+        want = want if isinstance(want, tuple) else (want,)
+        if len(got) != len(want) or not all(torch.equal(g, p) for g, p in zip(got, want)):
+            fail(f"{label}: {kernel} differs from its plain version at blocks "
+                 f"{tuple(args[0].shape)}")
+    shapes = ", ".join(f"{k} {tuple(a[0].shape)}" for k, a, _, _ in calls)
+    print(f"{label}: {len(calls)} kernel calls of the path bit-identical to their "
+          f"plain versions (blocks T x F x B: {shapes})", flush=True)
+
+
+def hold_logprob_k3(label, call):
+    """K3-LOGPROB as a path called it, against its plain version on the
+    same tensors: within ``logprob_bound`` at the path's tile (the
+    tropical instantiation's distance printed), and at tiles of
+    ``TT_SEP`` steps over the first ``T_SEP`` steps of the same blocks,
+    where the gate must reject the tropical instantiation.  Returns the
+    larger error."""
+    import math
+
+    from repro_torch.kernels import viterbi_acs
+    from repro_torch.kernels.ref import transfer_matrix_ref
+
+    _, (blocks, w), kw, got = call
+    kw = {k: v for k, v in kw.items() if k != "operands"}
+    tt, R, (T, F, B) = kw["transfer_tile"], kw["n_slots"], blocks.shape
+    scale = blocks.abs().sum(dim=-1).max().item() + math.log(R)
+    err, _ = logprob_case(
+        f"{label}: K3-LOGPROB vs plain (F={F} T={T} TT={tt})", got,
+        transfer_matrix_ref(blocks, w, **kw), tt, scale, B, R, False,
+        control=viterbi_acs.transfer_matrix(blocks, w, **dict(kw, semiring="tropical")))
+    sep, kw_sep = blocks[:T_SEP].contiguous(), dict(kw, transfer_tile=TT_SEP)
+    err_sep, _ = logprob_case(
+        f"{label}: K3-LOGPROB vs plain (F={F} T={T_SEP} TT={TT_SEP})",
+        viterbi_acs.transfer_matrix(sep, w, **kw_sep),
+        transfer_matrix_ref(sep, w, **kw_sep), TT_SEP, scale, B, R, False,
+        control=viterbi_acs.transfer_matrix(sep, w, **dict(kw_sep, semiring="tropical")),
+        separate=True)
+    return max(err, err_sep)
+
+
+def gate_ber(label, decoded, bits, limit):
+    """Bit errors of ``decoded`` (message columns first) against ``bits``;
+    fails above ``limit``."""
+    errors = int((decoded[:, :bits.shape[1]] != bits).sum())
+    ber = errors / bits.numel()
+    print(f"{label}: {errors} bit errors in {bits.numel()} bits, BER {ber:.3e} "
+          f"(limit {limit:g})", flush=True)
+    if not ber <= limit:
+        fail(f"{label}: BER {ber:.3e} above {limit:g}")
+
+
+def gate_equal(label, got, want):
+    if got.shape != want.shape or not torch.equal(got, want):
+        n = int((got != want).sum()) if got.shape == want.shape else "shape"
+        fail(f"{label}: bits differ ({n})")
+    print(f"{label}: equal", flush=True)
+
+
+def timed_walls(fn, patches):
+    """Three walls of ``fn`` (host clock, synchronized) after the warm-up
+    its main run gave, each call under Stages: (median wall, "median of
+    ..." text, the median call's Stages, whose CUDA events the timing
+    lines print)."""
+    runs = []
+    for _ in range(3):
+        with Stages(patches) as st:
+            _, ms = host_ms(fn)
+        runs.append((ms, st))
+    runs.sort(key=lambda r: r[0])
+    text = f"median of {', '.join(f'{ms:.3f}' for ms, _ in runs)}"
+    return runs[1][0], text, runs[1][1]
+
+
+def mbps(n_bits, ms):
+    return f"{n_bits / ms / 1e3:.3f} Mb/s"
+
+
+def punctured_batch(name, n_msg, ebn0, dev, launches):
+    """One 512-frame punctured cell through ``decode_batch`` (one K1 and
+    the plain traceback): BER, K1 held to its plain version on the
+    integer-LLR run, walls.  Returns (decoder, message bits, AWGN LLRs,
+    AWGN bits, integer LLRs, integer bits)."""
+    from repro_torch.core import ViterbiDecoder
+    from repro_torch.core import viterbi as viterbi_mod
+
+    bits, llrs, quant = codes_cell(name, F_CODES, n_msg, ebn0, dev)
+    dec = ViterbiDecoder.from_standard(name, device=dev)
+    n_stages = dec.puncture.stages_for(llrs.shape[1])
+    print(f"{name}: {F_CODES} frames x {llrs.shape[1]} kept LLRs = {n_stages} "
+          f"stages ({n_msg} message bits), Eb/N0 {ebn0} dB; decision depth "
+          f"{dec.decision_depth} stages, tiled overlap "
+          f"{dec.default_tiled_config().overlap}", flush=True)
+    label = f"{name} decode_batch"
+    out, launches[label], _, _ = main_path(
+        label, lambda: dec.decode_batch(llrs), {"batch": 1}, {"K1": 1})
+    gate_ber(f"{label} AWGN", out, bits, BER_LIMIT)
+    out_q, st = kept_run(lambda: dec.decode_batch(quant), ("K1",))
+    hold_kept(f"{label} (integer LLRs)", st)
+    del st
+    wall, text, st = timed_walls(lambda: dec.decode_batch(llrs),
+                                 kernel_patches(traceback=(viterbi_mod, "traceback")))
+    steps, tb = n_stages // dec.rho, st.ms("traceback")
+    print(f"time {label}: K1 {st.ms('K1'):.3f} ms, traceback {tb:.3f} ms "
+          f"({tb / steps * 1e3:.1f} us a step over {steps} steps) (CUDA events, "
+          f"the median call); wall {wall:.3f} ms ({text}); decoded "
+          f"{mbps(F_CODES * n_msg, wall)}", flush=True)
+    return dec, bits, llrs, out, quant, out_q
+
+
+def chunked_stream(name, dec, n_msg, llrs, out, quant, out_q, launches):
+    """The same cell through ``decode_stream_chunked``: each chunk's path,
+    launches and CUDA-event times from the main run, whose wall is the
+    one timed sample; bits == batch bits on the AWGN and the integer
+    LLRs; K1 at chunks 1, 2 and the last held to its plain version on
+    the integer-LLR run."""
+    from repro_torch.core import decoder as decoder_mod
+
+    n_chunks = -(-dec.puncture.stages_for(llrs.shape[1]) // CHUNK_LEN)
+    patches = kernel_patches(traceback=(decoder_mod, "traceback"),
+                             two_pass=(decoder_mod, "_chunk_step"),
+                             one_pass=(decoder_mod, "_chunk_step_fused"))
+    label = f"{name} decode_stream_chunked"
+    outs, launches[label], wall, st = main_path(
+        label, lambda: dec.decode_stream_chunked(llrs, chunk_len=CHUNK_LEN,
+                                                 initial_state=0),
+        {"chunk_two_pass": n_chunks}, {"K1": n_chunks}, patches)
+    torch.cuda.synchronize()
+    chunk, inner = 0, {"K1": 0.0, "K2": 0.0, "K3": 0.0, "traceback": 0.0}
+    for lab, s, e, (k1_n, k2_n, _) in st.log:
+        ms = s.elapsed_time(e)
+        if lab in inner:
+            inner[lab] += ms
+            continue
+        chunk += 1
+        print(f"  chunk {chunk}: {lab}, K1 launches {k1_n}, K2 launches {k2_n}; "
+              f"K1 {inner['K1']:.3f} ms, K2 {inner['K2']:.3f} ms, traceback "
+              f"{inner['traceback']:.3f} ms (CUDA events)")
+        inner = dict.fromkeys(inner, 0.0)
+    print(f"  flush: traceback {inner['traceback']:.3f} ms (CUDA events)")
+    print(f"time {label}: {n_chunks} chunks of {CHUNK_LEN} stages, K1 "
+          f"{st.ms('K1'):.3f} ms, tracebacks {st.ms('traceback'):.3f} ms (CUDA "
+          f"events, summed); wall {wall:.3f} ms (the gated call itself, one "
+          f"sample); decoded {mbps(F_CODES * n_msg, wall)}", flush=True)
+    del st
+    gate_equal(f"{name} chunked bits == batch bits (AWGN LLRs)", outs, out)
+    outs_q, st = kept_run(lambda: dec.decode_stream_chunked(
+        quant, chunk_len=CHUNK_LEN, initial_state=0), ("K1",))
+    gate_equal(f"{name} chunked bits == batch bits (integer LLRs)", outs_q, out_q)
+    hold_kept(f"{name} two-pass chunks 1, 2 and {n_chunks} (integer LLRs)", st,
+              pick=(0, 1, n_chunks - 1))
+
+
+def tiled_stream(name, dev, launches):
+    """One 2^20-LLR stream of ``name`` through ``decode_stream_tiled`` (one
+    K2) and through ``decode_batch(time_parallel=True)`` (one K3, one
+    K1): the two give the same bits; each kernel held to its plain
+    version on the integer-LLR runs; walls."""
+    from repro_torch.codes import get_code
+    from repro_torch.core import ViterbiDecoder
+    from repro_torch.core import timeparallel as tp_mod
+
+    code = get_code(name)
+    n_bits = code.puncture.stages_for(N_TILED_CODES) - (code.spec.k - 1)
+    bits, llrs, quant = codes_cell(name, 1, n_bits, EBN0_CODES, dev, seed=SEED + 1)
+    stream, stream_q = llrs[0], quant[0]
+    dec = ViterbiDecoder.from_standard(name, device=dev)
+    label = f"{name} decode_stream_tiled"
+    tiled, launches[label], _, st = main_path(
+        f"{label} ({N_TILED_CODES} kept LLRs)", lambda: dec.decode_stream_tiled(stream),
+        {"tiled": 1}, {"K2": 1}, keep=("K2",))
+    cfg = dec.default_tiled_config()
+    print(f"{name} tiled: windows of {cfg.window} stages (overlap {cfg.overlap}), "
+          f"K2 at tile {st.kept[0][2]['time_tile']}")
+    del st
+    gate_ber(f"{label} AWGN", tiled[None], bits, BER_LIMIT)
+    _, st = kept_run(lambda: dec.decode_stream_tiled(stream_q), ("K2",))
+    hold_kept(f"{label} (integer LLRs)", st)
+    del st
+    wall, text, st = timed_walls(lambda: dec.decode_stream_tiled(stream), kernel_patches())
+    print(f"time {label}: K2 {st.ms('K2'):.3f} ms (CUDA events, the median call); "
+          f"wall {wall:.3f} ms ({text}); decoded {mbps(n_bits, wall)}", flush=True)
+
+    label = f"{name} decode_batch(time_parallel=True)"
+    batch, launches[label], _, _ = main_path(
+        f"{label} on the tiled stream", lambda: dec.decode_batch(
+            stream[None], time_parallel=True), {"time_parallel": 1}, {"K3": 1, "K1": 1})
+    gate_equal(f"{name} tiled bits == time-parallel batch bits (AWGN LLRs)",
+               tiled, batch[0])
+    _, st = kept_run(lambda: dec.decode_batch(stream_q[None], time_parallel=True),
+                     ("K1", "K3"))
+    hold_kept(f"{label} (integer LLRs)", st)
+    del st
+    wall, text, st = timed_walls(
+        lambda: dec.decode_batch(stream[None], time_parallel=True),
+        kernel_patches(traceback=(tp_mod, "traceback")))
+    print(f"time {label}: K3 {st.ms('K3'):.3f} ms, recovery K1 {st.ms('K1'):.3f} ms, "
+          f"traceback {st.ms('traceback'):.3f} ms (CUDA events, the median call); "
+          f"wall {wall:.3f} ms ({text}); decoded {mbps(n_bits, wall)}", flush=True)
+
+
+def tailbiting_blocks(dev, launches):
+    """decode_tbcc_blocks: 8192 x 128 lte-tbcc blocks through
+    ``decode_batch`` and ``decode_tailbiting`` (WAVA, one K1 a
+    circulation), then the first 64 with ``time_parallel=True,
+    transfer_tile=8`` (one K3, one K1 a circulation), which must equal
+    sequential WAVA, bits and converged flags; every kernel call held to
+    its plain version on the integer-LLR runs; walls."""
+    from repro_torch.codes import tailbiting as tb_mod
+    from repro_torch.codes.tailbiting import DEFAULT_WAVA_ITERS
+    from repro_torch.core import ViterbiDecoder
+
+    name, n = "lte-tbcc", DEFAULT_WAVA_ITERS
+    bits, x, xq = codes_cell(name, F_TBCC_CELL, N_TBCC_CELL, EBN0_CODES, dev)
+    dec = ViterbiDecoder.from_standard(name, device=dev)
+    label = f"{name} decode_batch"
+    out, launches[label], _, _ = main_path(
+        f"{label} ({F_TBCC_CELL} x {N_TBCC_CELL} bits)", lambda: dec.decode_batch(x),
+        {"wava": 1}, {"K1": n})
+    gate_ber(f"{label} AWGN", out, bits, TBCC_BER_LIMIT)
+    label = f"{name} decode_tailbiting"
+    (wb, wc), launches[label], _, _ = main_path(
+        label, lambda: dec.decode_tailbiting(x), {"wava": 1}, {"K1": n})
+    print(f"{name}: converged share {wc.float().mean().item():.6f}")
+    gate_equal(f"{name} decode_tailbiting bits == decode_batch bits", wb, out)
+    _, st = kept_run(lambda: dec.decode_tailbiting(xq), ("K1",))
+    hold_kept(f"{name} WAVA's circulations (integer LLRs)", st)
+    del st
+    patches = kernel_patches(traceback=(tb_mod, "traceback_with_state"))
+    wall, text, st = timed_walls(lambda: dec.decode_batch(x), patches)
+    print(f"time {name} decode_batch (WAVA): K1 {st.ms('K1'):.3f} ms over "
+          f"{st.count('K1')} circulations, tracebacks {st.ms('traceback'):.3f} ms "
+          f"(CUDA events, the median call); wall {wall:.3f} ms ({text}); decoded "
+          f"{mbps(bits.numel(), wall)}", flush=True)
+
+    tp_dec = ViterbiDecoder.from_standard(name, time_parallel=True,
+                                          transfer_tile=TT_TBCC_TP, device=dev)
+    xt = x[:F_TBCC_TP]
+    label = f"{name} time-parallel WAVA"
+    (tb, tc), launches[label], _, _ = main_path(
+        f"{name} decode_tailbiting(time_parallel=True, transfer_tile={TT_TBCC_TP}) "
+        f"on {F_TBCC_TP} blocks", lambda: tp_dec.decode_tailbiting(xt),
+        {"wava": 1}, {"K1": n, "K3": 1})
+    gate_equal(f"{label} bits == sequential WAVA's", tb, wb[:F_TBCC_TP])
+    gate_equal(f"{label} converged flags == sequential WAVA's", tc, wc[:F_TBCC_TP])
+    _, st = kept_run(lambda: tp_dec.decode_tailbiting(xq[:F_TBCC_TP]), ("K1", "K3"))
+    hold_kept(f"{label}, K3 and the recoveries (integer LLRs)", st)
+    del st
+    wall, text, st = timed_walls(lambda: tp_dec.decode_tailbiting(xt), patches)
+    print(f"time {label} ({F_TBCC_TP} blocks, transfer_tile={TT_TBCC_TP}): K3 "
+          f"{st.ms('K3'):.3f} ms, K1 {st.ms('K1'):.3f} ms over {st.count('K1')} "
+          f"recoveries, tracebacks {st.ms('traceback'):.3f} ms (CUDA events, the "
+          f"median call); wall {wall:.3f} ms ({text}); decoded "
+          f"{mbps(F_TBCC_TP * N_TBCC_CELL, wall)}", flush=True)
+
+
+def punctured_soft(name, dec, bits, llrs, hard, launches):
+    """``decode_soft(output="llr")`` on the first ``F_SOFT`` frames of a
+    punctured cell (one K3-LOGPROB): BER of ``llr < 0``, K3-LOGPROB held
+    to its plain version within ``logprob_bound``; walls.  Returns
+    K3-LOGPROB's largest error."""
+    xs, bits = llrs[:F_SOFT], bits[:F_SOFT]
+    label = f"{name} decode_soft"
+    soft, launches[label], _, st = main_path(
+        f"{label}(llr) on {F_SOFT} frames", lambda: dec.decode_soft(xs),
+        {"soft": 1}, {"K3-LOGPROB": 1}, keep=("K3",))
+    signs = (soft < 0).to(torch.int32)
+    print(f"{name} soft: {int((signs != hard[:F_SOFT]).sum())} bits of llr < 0 "
+          f"differ from decode_batch's; min |llr| {soft.abs().min().item():.3f}")
+    gate_ber(f"{label} llr < 0", signs, bits, BER_LIMIT)
+    err = hold_logprob_k3(label, st.kept[0])
+    del st, soft
+    wall, text, st = timed_walls(lambda: dec.decode_soft(xs), kernel_patches())
+    print(f"time {label}(llr) on {F_SOFT} frames: K3-LOGPROB {st.ms('K3'):.3f} ms "
+          f"(CUDA events, the median call); wall {wall:.3f} ms ({text}); decoded "
+          f"{mbps(bits.numel(), wall)}", flush=True)
+    return err
+
+
+def codes_phase(dev):
+    """Phase 11: the standard codes on the reference's cells, through the
+    kernels, all on the card.  Returns ({path: {kernel: launches}} of the
+    main-path runs, K3-LOGPROB's largest error against its plain
+    version)."""
+    from repro_torch.codes import smoke
+    from repro_torch.core import soft_smoke
+
+    t_phase = time.perf_counter()
+    launches = {}
+    wifi = "wifi-11a-r34"
+    dec, bits, llrs, out, quant, out_q = punctured_batch(
+        wifi, N_MSG_WIFI, EBN0_CODES, dev, launches)
+    chunked_stream(wifi, dec, N_MSG_WIFI, llrs, out, quant, out_q, launches)
+    del quant, out_q
+    k3_logprob_err = punctured_soft(wifi, dec, bits, llrs, out, launches)
+    del dec, bits, llrs, out
+    tiled_stream(wifi, dev, launches)
+    tailbiting_blocks(dev, launches)
+    punctured_batch("dvb-s-r78", N_MSG_DVB, EBN0_DVB, dev, launches)
+    smoke.main(device=dev)
+    soft_smoke.main(device=dev)
+    print(f"phase 11 (codes) took {time.perf_counter() - t_phase:.1f} s "
+          f"(budget {CODES_BUDGET_S} s)", flush=True)
+    return launches, {"K3-LOGPROB": k3_logprob_err}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1653,9 +2136,11 @@ def main() -> None:
     k3_row = time_parallel_phase(decoder, llrs, gen, tables, w)
     logprob_rows = soft_phase(decoder, llrs, info, bits, quant, gen, tables, w,
                               sweep_lp_err)
+    del llrs, quant, bits, info
+    codes_launches, codes_err = codes_phase(dev)
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [k1_row, {
+    rows = [k1_row, {
         "name": "K2 acs_decode_fused",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/acs_decode_fused.cu",
@@ -1671,7 +2156,15 @@ def main() -> None:
         "bound_ms": k2_bound,
         "bound_by": k2_bound_by,
         "library_ms": None,
-    }, k3_row, *logprob_rows]}))
+    }, k3_row, *logprob_rows]
+    # each kernel's launches on phase 11's paths, each its own main run,
+    # and its largest error there against its plain version
+    for row in rows:
+        kernel = row["name"].split()[0]
+        row["codes_launches"] = {path: counts[kernel] for path, counts
+                                 in codes_launches.items() if kernel in counts}
+        row["max_abs_err"] = max(row["max_abs_err"], codes_err.get(kernel, 0.0))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))

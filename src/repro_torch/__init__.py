@@ -12,12 +12,15 @@ CPU.
 Subpackages ported so far:
   core     — trellis tables, encoder, channel, the matrix-form ACS scan,
              traceback, the time-parallel decode, soft output (BCJR and
-             list-Viterbi) and the ``ViterbiDecoder`` front door (batch,
-             tiled and chunked streaming, soft)
+             list-Viterbi), the BER harness and the ``ViterbiDecoder``
+             front door (batch, tail-biting, tiled and chunked
+             streaming, soft; punctured input on each)
   kernels  — K1, the fused ACS forward pass, K2, the one-pass
              ACS+traceback decode, and K3, the transfer-matrix formation
              (CUDA; K1 and K3 also at LOGPROB), with their plain versions
-  codes    — the standard-code registry (puncture patterns as data only)
+  codes    — the standard-code registry, puncturing, tail-biting (WAVA)
+             decode and the end-to-end simulation
+  data     — ``ChannelStream``, the seeded transmitter + channel batches
   obs      — the metrics registry the decoder's dispatch counters use
 """
 

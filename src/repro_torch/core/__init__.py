@@ -1,7 +1,8 @@
-"""Core library: the paper's tensor-formulated Viterbi decoder, as far as
-the port goes (batch decode of zero-terminated frames, sequential or
-time-parallel; tiled and chunked streaming of unpunctured open-trellis
-codes; soft output: BCJR and list-Viterbi, open and tail-biting)."""
+"""Core library: the paper's tensor-formulated Viterbi decoder (batch
+decode, sequential or time-parallel, of zero-terminated and tail-biting
+frames; tiled and chunked streaming; soft output: BCJR and list-Viterbi;
+punctured input through every entry point; the BER harness in
+``core/ber.py``)."""
 from .trellis import (  # noqa: F401
     AcsTables,
     CodeSpec,
@@ -31,5 +32,10 @@ from .decoder import (  # noqa: F401
     StreamState,
     ViterbiDecoder,
 )
-from .encoder import conv_encode, conv_encode_torch, tail_flush  # noqa: F401
+from .encoder import (  # noqa: F401
+    conv_encode,
+    conv_encode_torch,
+    tail_bite_state,
+    tail_flush,
+)
 from .viterbi_ref import viterbi_decode_ref  # noqa: F401

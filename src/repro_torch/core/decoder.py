@@ -1,14 +1,19 @@
 """Decoder front door: ``ViterbiDecoder``.
 
-Ported so far, for unpunctured open-trellis codes:
+Every registry code decodes through it (``ViterbiDecoder.from_standard``):
+zero-terminated and tail-biting frames, with or without puncturing.
 
-  * ``decode_batch`` — one-shot decode of independent zero-terminated
-    frames (the paper's §IX workload): on the sequential path, the
-    forward pass in K1 and a plain PyTorch traceback; or on the
-    time-parallel path (``core/timeparallel.py``: transfer matrices in
-    K3, a log-depth scan, every tile re-run at once in K1 and one
-    traceback over all tiles), on request or when the frames alone leave
-    the card idle (``backend.device_underfill_rows``);
+  * ``decode_batch`` — one-shot decode of independent frames (the
+    paper's §IX workload): on the sequential path, the forward pass in
+    K1 and a plain PyTorch traceback; or on the time-parallel path
+    (``core/timeparallel.py``: transfer matrices in K3, a log-depth scan,
+    every tile re-run at once in K1 and one traceback over all tiles),
+    on request or when the frames alone leave the card idle
+    (``backend.device_underfill_rows``).  Tail-biting frames go to
+    ``decode_tailbiting``;
+  * ``decode_tailbiting`` — the wrap-around Viterbi algorithm
+    (``codes/tailbiting.py``): K1 once per circulation, or with the
+    time-parallel plan K3 once and K1 per circulation;
   * ``decode_stream_tiled`` — overlapping-window decode of one stream
     (paper §III), through K2 when the one-pass rule admits the window;
   * ``init_stream_state`` / ``decode_chunk`` / ``decode_chunk_multi`` /
@@ -25,9 +30,14 @@ Ported so far, for unpunctured open-trellis codes:
     BCJR for tail-biting frames), and top-L list-Viterbi (plain scans;
     the WAVA list loop for tail-biting frames).
 
-The other entry points of the reference (tail-biting hard decode,
-punctured input, sharding) belong to later slices and raise
-``NotImplementedError`` naming theirs.
+A punctured decoder takes the serial kept-LLR stream, (F, Lp) for the
+batch, chunked and soft entry points and (Lp,) for the tiled one, and
+re-inserts zero-LLR erasures (``depunctured``); the depunctured stages
+flow through the same kernels.  Its decision depth and tiled overlap are
+stretched by the puncture expansion.
+
+The reference's sharded decode and ``from_config`` belong to later
+slices of the port and raise ``NotImplementedError`` naming theirs.
 
 Entry points run on the card: ``device=None`` resolves to ``"cuda"`` and
 raises where there is none; the CPU is used only when asked for.
@@ -339,12 +349,30 @@ class ViterbiDecoder:
         self.sanitized_total += n_bad
         return llrs
 
-    def depunctured(self, llrs):
-        """Pass the LLRs of an unpunctured decoder through; a punctured
-        decoder raises (depuncturing is the standard-codes slice)."""
-        if self.puncture is not None:
-            _later("depuncturing", "standard-codes")
-        return llrs
+    def depunctured(self, llrs, stream: bool = False) -> torch.Tensor:
+        """The LLRs as float32 on the decoder's device, with zero-LLR
+        erasures re-inserted when this decoder is punctured.
+
+        Punctured inputs are the serial kept-LLR stream: (F, Lp) for the
+        batch entry points, (Lp,) for single-stream ones.  Already
+        depunctured (..., n, beta) inputs pass through unchanged, so
+        upstream stages may depuncture once themselves.
+        """
+        llrs = torch.as_tensor(llrs, device=self.device).to(torch.float32)
+        shaped_ndim = 2 if stream else 3
+        if self.puncture is None or llrs.dim() == shaped_ndim:
+            return llrs
+        from repro_torch.codes.puncture import depuncture
+
+        return depuncture(llrs, self.puncture)
+
+    def _check_shaped(self, llrs, where: str) -> None:
+        if llrs.dim() != 3 or llrs.shape[2] != self.spec.beta:
+            raise InvalidInputError(
+                f"{where} expects (F, n, beta={self.spec.beta}) LLRs, "
+                f"got shape {tuple(llrs.shape)}",
+                reason="shape",
+            )
 
     def _time_parallel_tile(
         self, n_frames: int, t_steps: int, time_parallel: Optional[bool]
@@ -371,11 +399,15 @@ class ViterbiDecoder:
     ) -> torch.Tensor:
         """One-shot decode of independent frames.
 
-        llrs: (F, n, beta), a tensor or array; it is moved to the
-        decoder's device as float32.  n not divisible by rho is zero-LLR
-        padded internally (information-free) unless a final-state pin
-        would land on the padding.  Returns (F, n) int32 bits on the
-        decoder's device.
+        llrs: (F, n, beta), or the serial punctured stream (F, Lp) when
+        the decoder carries a puncture pattern; a tensor or array, moved
+        to the decoder's device as float32.  With
+        ``termination="tailbiting"`` (or a tail-biting standard) the
+        frames decode through ``decode_tailbiting`` and
+        initial/final_state are ignored.  n not divisible by rho is
+        zero-LLR padded internally (information-free) unless a
+        final-state pin would land on the padding.  Returns (F, n) int32
+        bits on the decoder's device.
 
         ``time_parallel`` (None: the decoder's choice, which defaults to
         auto) decodes through the time-parallel path — the same bits,
@@ -383,17 +415,10 @@ class ViterbiDecoder:
         request, or on auto when the frames underfill the card.
         """
         term = termination or self.termination
+        llrs = self.depunctured(llrs)
         if term == "tailbiting":
-            _later("tail-biting (WAVA) decode", "standard-codes")
-        llrs = self.depunctured(
-            torch.as_tensor(llrs, device=self.device).to(torch.float32)
-        )
-        if llrs.dim() != 3 or llrs.shape[2] != self.spec.beta:
-            raise InvalidInputError(
-                f"decode_batch expects (F, n, beta={self.spec.beta}) LLRs, "
-                f"got shape {tuple(llrs.shape)}",
-                reason="shape",
-            )
+            return self.decode_tailbiting(llrs, time_parallel=time_parallel)[0]
+        self._check_shaped(llrs, "decode_batch")
         llrs = self._harden(llrs)
         F, n, _ = llrs.shape
         if self.validate_inputs and not self.precision.renorm:
@@ -465,16 +490,17 @@ class ViterbiDecoder:
     def decode_stream_tiled(
         self, llrs, cfg: Optional[TiledDecoderConfig] = None
     ) -> torch.Tensor:
-        """Overlapping-window decode of one (n, beta) stream (paper §III);
-        returns (n,) int32 bits on the decoder's device."""
+        """Overlapping-window decode of one stream (paper §III): (n, beta),
+        or the serial punctured (Lp,) stream for a punctured decoder;
+        returns (n,) int32 bits on the decoder's device.  Without a
+        ``cfg``, a punctured decoder stretches the default overlap by
+        the puncture expansion (``default_tiled_config``)."""
         if self.termination == "tailbiting":
             raise ValueError(
                 "tiled stream decode assumes an open (non-circular) "
                 "trellis; use decode_batch/decode_tailbiting per frame"
             )
-        llrs = self._harden(self.depunctured(
-            torch.as_tensor(llrs, device=self.device).to(torch.float32)
-        ))
+        llrs = self._harden(self.depunctured(llrs, stream=True))
         cfg = cfg or self.default_tiled_config()
         if cfg.rho != self.rho:
             raise ValueError(f"cfg.rho={cfg.rho} != decoder rho={self.rho}")
@@ -665,16 +691,16 @@ class ViterbiDecoder:
         trailing stages are zero-LLR padded, and their decisions are cut
         off.  ``final_state`` pins the traceback at the last stage, so it
         is refused when that stage would be padding (n not a multiple of
-        rho).
+        rho).  A punctured decoder also takes the serial (F, Lp) streams:
+        the erasures are re-inserted up front, and the decision depth
+        was stretched by the puncture expansion at construction.
         """
         if self.termination == "tailbiting":
             raise ValueError(
                 "chunked streaming assumes an open trellis; tail-biting "
                 "frames decode whole via decode_batch/decode_tailbiting"
             )
-        llrs = self.depunctured(
-            torch.as_tensor(llrs, device=self.device).to(torch.float32)
-        )
+        llrs = self.depunctured(llrs)
         F, n, _ = llrs.shape
         c = chunk_len - (chunk_len % self.rho) or self.rho
         pad = (-n) % self.rho
@@ -695,10 +721,53 @@ class ViterbiDecoder:
         outs.append(self.flush_stream(state, final_state=final_state))
         return torch.cat(outs, dim=1)[:, :n]
 
+    def decode_tailbiting(
+        self,
+        llrs,
+        max_iters: Optional[int] = None,
+        time_parallel: Optional[bool] = None,
+    ):
+        """Wrap-around (WAVA) decode of tail-biting frames.
+
+        llrs as in ``decode_batch``.  Returns (bits (F, n) int32,
+        converged (F,) bool) on the decoder's device.  Frame lengths not
+        divisible by rho fall back to radix-2 tables, since the circular
+        trellis cannot be padded.  With the time-parallel plan (on
+        request, or on auto when the frames underfill the card) each
+        circulation runs the transfer-matrix scan.
+        """
+        from repro_torch.codes.tailbiting import DEFAULT_WAVA_ITERS, wava_decode
+
+        llrs = self.depunctured(llrs)
+        self._check_shaped(llrs, "decode_tailbiting")
+        llrs = self._harden(llrs)
+        F, n = llrs.shape[0], llrs.shape[1]
+        tables = (
+            self.tables if n % self.rho == 0
+            else build_acs_tables(self.spec, 1)
+        )
+        tp_tile = self._time_parallel_tile(F, n // tables.rho, time_parallel)
+        _count_dispatch("wava")
+        return wava_decode(
+            llrs,
+            tables,
+            precision=self.precision,
+            use_kernel=self.use_kernel,
+            pack_survivors=self.pack_survivors,
+            max_iters=max_iters or DEFAULT_WAVA_ITERS,
+            time_parallel=tp_tile is not None,
+            transfer_tile=tp_tile,
+            device=self.device,
+        )
+
     # -- entry points of later slices -------------------------------------
 
-    def decode_tailbiting(self, llrs, max_iters=None, time_parallel=None):
-        _later("tail-biting (WAVA) decode", "standard-codes")
+    def decode_sharded(self, llrs, mesh=None, initial_state=0, final_state=None):
+        _later("sharded decode", "multi-device")
+
+    @classmethod
+    def from_config(cls, vcfg, **kw):
+        _later("from_config", "tooling")
 
     # -- soft output --------------------------------------------------------
 
@@ -731,23 +800,17 @@ class ViterbiDecoder:
         ``initial_state`` and ``final_state`` are then ignored, as in
         ``decode_batch``.  Open frames of a length not divisible by rho
         are zero-LLR padded, and a ``final_state`` pin on padded stages
-        is refused.  Punctured codes raise through ``depunctured`` until
-        the standard-codes slice.
+        is refused.  Punctured serial streams (F, Lp) are depunctured
+        first: the zero-LLR erasures carry no information in the log
+        semiring either.
         """
         if output not in ("llr", "bits", "list"):
             raise ValueError(
                 f"output must be 'llr', 'bits' or 'list', got {output!r}"
             )
         term = termination or self.termination
-        llrs = self.depunctured(
-            torch.as_tensor(llrs, device=self.device).to(torch.float32)
-        )
-        if llrs.dim() != 3 or llrs.shape[2] != self.spec.beta:
-            raise InvalidInputError(
-                f"decode_soft expects (F, n, beta={self.spec.beta}) LLRs, "
-                f"got shape {tuple(llrs.shape)}",
-                reason="shape",
-            )
+        llrs = self.depunctured(llrs)
+        self._check_shaped(llrs, "decode_soft")
         llrs = self._harden(llrs)
         F, n, _ = llrs.shape
         if self.validate_inputs and not self.precision.renorm:

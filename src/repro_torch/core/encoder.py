@@ -7,6 +7,10 @@
     its generator polynomial selects, so the whole batch encodes in k
     shifted XORs instead of a loop over stages.  It stands where the
     reference has ``conv_encode_jax`` and makes full-width test data.
+
+Both take ``tail_bite=True`` for tail-biting frames: the register starts
+from the frame's last k-1 bits (``tail_bite_state``), so the encoder ends
+where it started and no tail is sent (LTE TBCC termination).
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import torch
 
 from .trellis import CodeSpec, build_transitions
 
-__all__ = ["conv_encode", "conv_encode_torch", "tail_flush"]
+__all__ = ["conv_encode", "conv_encode_torch", "tail_flush", "tail_bite_state"]
 
 
 def tail_flush(bits: np.ndarray, spec: CodeSpec) -> np.ndarray:
@@ -23,11 +27,30 @@ def tail_flush(bits: np.ndarray, spec: CodeSpec) -> np.ndarray:
     return np.concatenate([np.asarray(bits), np.zeros(spec.k - 1, dtype=np.int64)])
 
 
-def conv_encode(bits, spec: CodeSpec, initial_state: int = 0) -> np.ndarray:
-    """Encode a bit vector.  Returns (n, beta) array of 0/1 output bits."""
+def tail_bite_state(bits, k: int) -> int:
+    """Tail-biting boundary state: the last k-1 message bits, most recent
+    at the MSB (trellis.py state convention).  The encoder starts AND
+    ends here; the WAVA consistency probe (codes/tailbiting.py) tests
+    against the same value."""
+    bits = np.asarray(bits)
+    if bits.shape[0] < k - 1:
+        raise ValueError(
+            f"tail-biting needs >= k-1={k - 1} bits, got {bits.shape[0]}"
+        )
+    s = 0
+    for i in range(k - 1):
+        s |= int(bits[-1 - i]) << (k - 2 - i)
+    return s
+
+
+def conv_encode(
+    bits, spec: CodeSpec, initial_state: int = 0, tail_bite: bool = False
+) -> np.ndarray:
+    """Encode a bit vector.  Returns (n, beta) array of 0/1 output bits.
+    ``tail_bite=True`` starts the register from the last k-1 bits."""
     tr = build_transitions(spec)
     bits = np.asarray(bits, dtype=np.int64)
-    s = initial_state
+    s = tail_bite_state(bits, spec.k) if tail_bite else initial_state
     out = np.zeros((bits.shape[0], spec.beta), dtype=np.int64)
     for t, u in enumerate(bits):
         out[t] = tr.out_bits[s, u]
@@ -36,21 +59,30 @@ def conv_encode(bits, spec: CodeSpec, initial_state: int = 0) -> np.ndarray:
 
 
 def conv_encode_torch(
-    bits: torch.Tensor, spec: CodeSpec, initial_state: int = 0
+    bits: torch.Tensor,
+    spec: CodeSpec,
+    initial_state: int = 0,
+    tail_bite: bool = False,
 ) -> torch.Tensor:
     """bits (..., n) 0/1 integers -> (..., n, beta) uint8 coded bits.
 
     The register at stage t is (u_t, u_{t-1}, ..., u_{t-k+1}) from the
     MSB down (trellis.py), so output b is the XOR over taps i of
     u_{t-i} wherever bit (k-1-i) of poly_b is set; the k-1 bits before
-    the first stage come from ``initial_state``."""
+    the first stage come from ``initial_state``, or with ``tail_bite``
+    from each row's own last k-1 bits (u_{-i} = u_{n-i})."""
     k = spec.k
-    bits = bits.to(torch.uint8)
+    bits = torch.as_tensor(bits).to(torch.uint8)
     n = bits.shape[-1]
-    pre = torch.tensor(
-        [(initial_state >> (k - 1 - i)) & 1 for i in range(k - 1, 0, -1)],
-        dtype=torch.uint8, device=bits.device,
-    ).expand(*bits.shape[:-1], k - 1)
+    if tail_bite:
+        if n < k - 1:
+            raise ValueError(f"tail-biting needs >= k-1={k - 1} bits, got {n}")
+        pre = bits[..., n - (k - 1):]
+    else:
+        pre = torch.tensor(
+            [(initial_state >> (k - 1 - i)) & 1 for i in range(k - 1, 0, -1)],
+            dtype=torch.uint8, device=bits.device,
+        ).expand(*bits.shape[:-1], k - 1)
     reg = torch.cat([pre, bits], dim=-1)  # reg[..., k-1+t] = u_t
     outs = []
     for g in spec.polys:

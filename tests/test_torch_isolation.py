@@ -152,29 +152,27 @@ def test_later_slices_refuse():
             torch.as_tensor(tb.fused_w), n_states=64, n_slots=4, k=7, rho=2,
             time_tile=4, semiring="logprob",
         )
-    with pytest.raises(NotImplementedError, match="tail-biting"):
-        ViterbiDecoder.from_standard("lte-tbcc", device="cpu").decode_batch(
-            torch.zeros(1, 8, 3)
-        )
-    with pytest.raises(NotImplementedError, match="depuncturing"):
-        ViterbiDecoder.from_standard("wifi-11a-r34", device="cpu").decode_batch(
-            torch.zeros(1, 8, 2)
-        )
-    # streaming, time-parallel and soft decode are ported; punctured
-    # streams and soft input, and time-parallel WAVA circulations are not
-    with pytest.raises(NotImplementedError, match="depuncturing"):
-        ViterbiDecoder.from_standard(
-            "wifi-11a-r34", device="cpu"
-        ).decode_stream_chunked(torch.zeros(1, 8, 2))
-    with pytest.raises(NotImplementedError, match="standard-codes"):
-        dec.decode_tailbiting(llrs, time_parallel=True)
-    for call in (
-        lambda: dec.decode_tailbiting(llrs),
-        lambda: ViterbiDecoder.from_standard(
-            "wifi-11a-r34", device="cpu").decode_soft(torch.zeros(1, 8, 2)),
-    ):
-        with pytest.raises(NotImplementedError):
-            call()
+    # the standard codes are ported: tail-biting and punctured input pass
+    # through every entry point the reference gives them
+    tbcc = ViterbiDecoder.from_standard("lte-tbcc", device="cpu")
+    assert tbcc.decode_batch(torch.zeros(1, 8, 3)).shape == (1, 8)
+    bits, conv = dec.decode_tailbiting(llrs, time_parallel=True)
+    assert bits.shape == (2, 8) and conv.shape == (2,)
+    r34 = ViterbiDecoder.from_standard("wifi-11a-r34", device="cpu")
+    assert r34.decode_batch(torch.zeros(1, 8)).shape == (1, 6)
+    assert r34.decode_stream_chunked(torch.zeros(1, 8)).shape == (1, 6)
+    assert r34.decode_stream_tiled(torch.zeros(8)).shape == (6,)
+    assert r34.decode_soft(torch.zeros(1, 8)).shape == (1, 6)
+    # a circular trellis still refuses the open-trellis stream modes
+    with pytest.raises(ValueError, match="open trellis"):
+        tbcc.decode_stream_chunked(torch.zeros(1, 8, 3))
+    with pytest.raises(ValueError, match="open"):
+        tbcc.decode_stream_tiled(torch.zeros(8, 3))
+    # sharded decode and from_config belong to later slices
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        dec.decode_sharded(llrs)
+    with pytest.raises(NotImplementedError, match="tooling"):
+        ViterbiDecoder.from_config(None)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

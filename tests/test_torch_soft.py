@@ -548,15 +548,17 @@ def test_decode_soft_list_matches_reference(name, n, kw):
 
 def test_decode_soft_refuses_what_it_cannot_do():
     from repro_torch.core import AcsPrecision
-    from repro_torch.core.validate import MetricOverflowError
+    from repro_torch.core.validate import InvalidInputError, MetricOverflowError
 
     dec = _port_decoder("ccsds-k7")
     with pytest.raises(ValueError, match="output"):
         dec.decode_soft(torch.zeros(1, 4, 2), output="posterior")
     with pytest.raises(ValueError, match="final_state requires"):
         dec.decode_soft(torch.zeros(1, 5, 2), final_state=0)
-    with pytest.raises(NotImplementedError, match="depuncturing"):
-        _port_decoder("wifi-11a-r34").decode_soft(torch.zeros(1, 8, 2))
+    # punctured serial input is depunctured now; input that is neither the
+    # serial stream nor (F, n, beta) still raises
+    with pytest.raises(InvalidInputError, match="decode_soft expects"):
+        _port_decoder("wifi-11a-r34").decode_soft(torch.zeros(1, 8, 3))
     loose = _port_decoder(
         "ccsds-k7", precision=AcsPrecision(carry_dtype=torch.bfloat16, renorm=False))
     with pytest.raises(MetricOverflowError, match="enable renorm"):

@@ -392,3 +392,50 @@ def test_map_walk_model_tiled_as_the_reference(monkeypatch):
                      one_pass=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert calls
+
+
+@pytest.mark.parametrize("integer", [False, True], ids=["awgn", "integer"])
+def test_radix8_tiled_one_pass_keeps_an_int8_ring(monkeypatch, integer):
+    """``decode_stream_tiled`` at rho = 3 with one-pass on: the reference
+    packs the windows' ring although 16 slots of 3 bits do not fit a word
+    (fault R1), so it is held here with its ring forced unpacked
+    (``repro.core.viterbi.ring_auto_packed`` patched for this test); and
+    where the overlap lets survivor paths merge, the port's one-pass
+    windows give the reference's two-pass bits too."""
+    import jax.numpy as jnp
+    import repro.core.viterbi as ref_viterbi
+
+    from repro_torch.core import TiledDecoderConfig, tiled_decode_stream
+
+    spec, ref_spec = _specs(k=5, polys=(0o23, 0o35))
+    rng = np.random.default_rng(21)
+    n = 64
+    from repro_torch.core import conv_encode
+
+    llr = 1.0 - 2.0 * conv_encode(rng.integers(0, 2, n), spec)
+    llr = llr + rng.normal(0.0, 0.8, llr.shape)
+    if integer:
+        llr = np.clip(np.round(2.0 * llr), -4, 4)
+    llr = llr.astype(np.float32)
+    cfg = TiledDecoderConfig(frame_len=30, overlap=3, rho=3)
+    got = tiled_decode_stream(llr, spec, cfg, one_pass=True, device="cpu")
+    monkeypatch.setattr(ref_viterbi, "ring_auto_packed", lambda *a, **k: False)
+    want = ref_viterbi.tiled_decode_stream(
+        jnp.asarray(llr), ref_spec, ref_viterbi.TiledDecoderConfig(
+            frame_len=30, overlap=3, rho=3), use_kernel=True, one_pass=True,
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    sent = rng.integers(0, 2, 600)
+    llr = 1.0 - 2.0 * conv_encode(sent, spec) + rng.normal(0.0, 0.5, (600, 2))
+    llr = llr.astype(np.float32)
+    if integer:
+        llr = np.clip(np.round(2.0 * llr), -4, 4)
+    cfg = TiledDecoderConfig(frame_len=60, overlap=36, rho=3)
+    got = tiled_decode_stream(llr, spec, cfg, one_pass=True, device="cpu")
+    want = ref_viterbi.tiled_decode_stream(
+        jnp.asarray(llr), ref_spec, ref_viterbi.TiledDecoderConfig(
+            frame_len=60, overlap=36, rho=3), use_kernel=True, one_pass=False,
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy() != sent).mean() < 1e-2
