@@ -149,6 +149,38 @@ which ends the run with a non-zero exit when it fails:
                main run; chunked: the gated call itself, one sample) and
                decoded Mb/s of message bits; the phase's seconds against
                its budget of 75 s.
+ 12. serve   — the serving engine (``serve.make_decode_engine(device=
+               "cuda")``, max_batch 64) on requests drawn on the card at
+               5.5 dB: ccsds-k7 throughput traffic of 1000, 3000, 6000 and
+               8192 stages (32 each, flushed and not), 12000 and 16384
+               stages (stream route), latency traffic of 2000 and 4096
+               stages (time-parallel route), wifi-11a-r34 of 3000 and 8192
+               kept LLRs, 512 lte-tbcc blocks of 40 bits (WAVA), 16 soft
+               requests of 4096 stages, and 8 session tenants x 4 chunks of
+               4096 stages in a table of 6 (two evictions).  The clean run,
+               on the host clock, is the main path: launch counts zeroed
+               just before; each dispatch's launches must be its route's
+               (K1 a batch cell, K1 a shard, K3 + K1, K2 a stream chunk or
+               session group, K1 a WAVA circulation, K3-LOGPROB); no fault,
+               retry or degradation; every ticket's bits equal a direct
+               call of its route's entry point on the unpadded frames (one
+               call a request group; soft LLRs within 1e-4), each tenant's
+               output ``decode_stream_chunked`` on what it consumed.  The
+               batch traffic again on ``frame_mesh()`` and on two logical
+               shards (the sharded route, K1 once a shard); under a chaos
+               schedule on four shards (3 device failures, 2 timeouts, a
+               compile flake: 4 -> 2 -> 1 shard, then batch), with the
+               sessions, bits equal to the clean run's; scrubbed at rate 1
+               with one bit flip on two shards: exactly the flipped ticket
+               ``sdc_detected`` and its device quarantined.  Then one
+               recorder-enabled cell (``engine_dispatch_seconds`` beside
+               K1's CUDA-event time) and an integer-LLR replay whose K1
+               and K3 calls are held bit for bit to their plain versions,
+               K2's on their first two tiles (its plain version walks the
+               ring in Python), K3-LOGPROB within ``logprob_bound``.
+               Prints routes, padding, walls, sojourns and the phase's
+               seconds against a budget of 60 s; the kernels line gains
+               each kernel's ``serve_launches`` per route.
 
 Parity: at TROPICAL every kernel is held bit for bit to its plain version.
 At LOGPROB the slot reduction is a logsumexp, whose expf/logf (CUDA) and
@@ -1680,6 +1712,521 @@ def codes_phase(dev):
     return launches, {"K3-LOGPROB": k3_logprob_err}
 
 
+# -- phase 12: the serving engine ---------------------------------------------
+
+# (code, SLO class, length, flushed, requests): the length is stages, or
+# kept LLRs for a punctured code; flushed frames carry their zero tail
+SERVE_BATCH = tuple(("ccsds-k7", "throughput", n, fl, 32)
+                    for n in (1000, 3000, 6000, 8192) for fl in (False, True))
+SERVE_OTHER = (
+    ("ccsds-k7", "throughput", 12000, False, 32),
+    ("ccsds-k7", "throughput", 16384, False, 32),
+    ("ccsds-k7", "latency", 2000, False, 32),
+    ("ccsds-k7", "latency", 4096, False, 32),
+    ("wifi-11a-r34", "throughput", 3000, False, 32),
+    ("wifi-11a-r34", "throughput", 8192, False, 32),
+    ("lte-tbcc", "latency", 40, False, 512),
+    ("ccsds-k7", "soft", 4096, False, 16),
+)
+SERVE_TENANTS, SERVE_CHUNKS, SERVE_CHUNK = 8, 4, 4096  # sessions: ccsds-k7 stages
+STREAM_CHUNK = 4096  # decode_stream_chunked's default chunk, the stream route's
+SERVE_CAPACITY, SERVE_MAX_BATCH = 6, 64
+SERVE_EBN0 = 5.5
+SERVE_BUDGET_S = 60  # phase 12's time budget, printed beside its seconds
+SERVE_SOFT_ATOL = 1e-4  # the parity contract's LOGPROB tolerance
+
+
+def serve_traffic(dev):
+    """Phase 12's requests, drawn on the card (``sim_frame_batch`` on a
+    generator seeded with ``point_key``): per group (message bits, AWGN
+    LLRs, their integer copy, all (count, n, beta) or (count, Lp) on the
+    card); and the sessions' streams, (tenants, chunks x SERVE_CHUNK, 2)."""
+    from repro_torch.codes import get_code
+    from repro_torch.codes.simulate import point_key, sim_frame_batch
+
+    groups = []
+    for gi, (name, slo, length, flushed, count) in enumerate(SERVE_BATCH + SERVE_OTHER):
+        code = get_code(name)
+        stages = code.puncture.stages_for(length) if code.puncture else length
+        if code.puncture and code.puncture.punctured_len(stages) != length:
+            fail(f"{name}: {length} kept LLRs are not whole stages")
+        n_bits = stages if code.termination == "tailbiting" else stages - (code.spec.k - 1)
+        gen = torch.Generator(device=dev).manual_seed(
+            point_key(SEED + gi, name, SERVE_EBN0))
+        bits, llrs = sim_frame_batch(gen, code, count, n_bits, SERVE_EBN0)
+        groups.append(dict(code=name, slo=slo, length=length, flushed=flushed,
+                           bits=bits, llrs=llrs, quant=torch.clamp(torch.round(llrs), -16, 16)))
+    gen = torch.Generator(device=dev).manual_seed(
+        point_key(SEED + len(groups), "ccsds-k7", SERVE_EBN0))
+    _, streams = sim_frame_batch(gen, get_code("ccsds-k7"), SERVE_TENANTS,
+                                 SERVE_CHUNKS * SERVE_CHUNK - 6, SERVE_EBN0)
+    return groups, streams
+
+
+class RouteLog:
+    """Per dispatch of an engine: (code, route, frames, length, shards of
+    the mesh, {kernel: launches}), read from the launch counters around
+    ``_dispatch_with_faults`` and ``_dispatch_session_group`` (the route
+    is the one the dispatch ended on)."""
+
+    def __init__(self, engine):
+        self.rows = []
+        batch, session = engine._dispatch_with_faults, engine._dispatch_session_group
+
+        def logged_batch(code, fn, path, f, l, *rest):
+            before, mesh = launch_counts(), engine.mesh
+            out = batch(code, fn, path, f, l, *rest)
+            self._add(before, code, out[0], f, l, 0 if mesh is None else mesh.size)
+            return out
+
+        def logged_session(code, c, sessions, *rest, **kw):
+            before = launch_counts()
+            out = session(code, c, sessions, *rest, **kw)
+            self._add(before, code, "session", len(sessions), c, 0)
+            return out
+
+        engine._dispatch_with_faults = logged_batch
+        engine._dispatch_session_group = logged_session
+
+    def _add(self, before, *key):
+        after = launch_counts()
+        self.rows.append((*key, {k: after[k] - before[k] for k in after
+                                 if after[k] != before[k]}))
+
+    def per_route(self):
+        """{route: {kernel: launches}} summed over the dispatches."""
+        out = {}
+        for _code, path, _f, _l, _sh, got in self.rows:
+            acc = out.setdefault(path, {})
+            for k, v in got.items():
+                acc[k] = acc.get(k, 0) + v
+        return out
+
+
+def serve_want(path, length, shards):
+    """The launches one dispatch of ``path`` makes: the routing table's
+    kernels, K1 once a shard, K2 once a chunk of the stream, K1 once a
+    WAVA circulation."""
+    from repro_torch.codes.tailbiting import DEFAULT_WAVA_ITERS
+
+    return {"batch": {"K1": 1}, "sharded": {"K1": shards},
+            "time_parallel": {"K3": 1, "K1": 1},
+            "stream": {"K2": -(-length // STREAM_CHUNK)},
+            "wava": {"K1": DEFAULT_WAVA_ITERS}, "soft": {"K3-LOGPROB": 1},
+            "session": {"K2": 1}}[path]
+
+
+def hold_k2_prefix(label, call, tiles=2):
+    """Hold a K2 call a path made on its first ``tiles`` time tiles: K2
+    and its plain version launched on them from the call's own entry
+    metrics, ring and geometry must agree bit for bit (bits, metrics,
+    exit ring), and their bits must be the first rows of the path's own
+    output (a tile's decisions depend on no later step)."""
+    from repro_torch.kernels import viterbi_acs
+    from repro_torch.kernels.ref import acs_decode_fused_ref
+
+    _, (blocks, lam0, hist0, w), kw, (bits, _, _) = call
+    kw = {k: v for k, v in kw.items() if k != "operands"}
+    n = min(tiles * kw["time_tile"], blocks.shape[0])
+    got = viterbi_acs.acs_decode_fused(blocks[:n].contiguous(), lam0, hist0, w, **kw)
+    want = acs_decode_fused_ref(blocks[:n].contiguous(), lam0, hist0, w, **kw)
+    if not all(torch.equal(g, p) for g, p in zip(got, want)):
+        fail(f"{label}: K2 differs from its plain version on the first {n} steps")
+    if not torch.equal(bits[:n * kw["rho"]], got[0]):
+        fail(f"{label}: the path's K2 bits differ from a launch on its first {n} steps")
+    print(f"{label}: K2 (blocks {tuple(blocks.shape)}, D={hist0.shape[0]}, "
+          f"TT={kw['time_tile']}) on its first {n} steps bit-identical to its plain "
+          f"version and to the path's own bits", flush=True)
+
+
+def serve_engine(dev, **kw):
+    from repro_torch.serve import make_decode_engine
+
+    return make_decode_engine(device=dev, max_batch=SERVE_MAX_BATCH,
+                              session_capacity=SERVE_CAPACITY, **kw)
+
+
+def serve_submit(engine, groups, key, now):
+    """Submit every request of ``groups`` (its ``key`` LLRs: "llrs" or
+    "quant") in group order; returns the tickets, per group, and the
+    submit times (host clock)."""
+    from repro_torch.serve import DecodeRequest
+
+    tickets, t_sub = [], []
+    for g in groups:
+        host = g[key].cpu().numpy()
+        row = []
+        for x in host:
+            t_sub.append(time.perf_counter())
+            row.append(engine.submit(DecodeRequest(
+                llrs=x, code=g["code"], slo=g["slo"], flushed=g["flushed"]), now=now))
+        tickets.append(row)
+    return tickets, t_sub
+
+
+def serve_sessions(engine, streams, now):
+    """Phase 12's tenants: t0..t5 open; four rounds, each a chunk of
+    SERVE_CHUNK stages from every open tenant with chunks left, then a
+    poll; after round 2, t6 and t7 open and evict the least recently
+    used two (t0, t1); then every tenant closes.  Returns {sid: (its bits
+    in order, tail included), consumed stages}."""
+    host = streams.cpu().numpy()
+    sids = [f"t{i}" for i in range(SERVE_TENANTS)]
+    emitted, fed = {}, {}
+    for sid in sids[:SERVE_CAPACITY]:
+        engine.open_session("ccsds-k7", sid=sid, now=now)
+    tails = {}
+    for r in range(SERVE_CHUNKS):
+        for sid in list(engine._sessions):
+            i, k = int(sid[1:]), fed.get(sid, 0)
+            if k < SERVE_CHUNKS:
+                emitted.setdefault(sid, []).append(engine.submit_chunk(
+                    sid, host[i, k * SERVE_CHUNK:(k + 1) * SERVE_CHUNK], now=now))
+                fed[sid] = k + 1
+        engine.poll(now=now)
+        if r == 1:
+            for sid in sids[SERVE_CAPACITY:]:
+                engine.open_session("ccsds-k7", sid=sid, now=now)
+            for sid in sids[:SERVE_TENANTS - SERVE_CAPACITY]:
+                tails[sid] = engine.evicted_tail(sid)
+    for sid in list(engine._sessions):
+        tails[sid] = engine.close_session(sid, now=now)
+    engine.drain(now=now)
+    if engine.stats()["sessions_evicted"] != SERVE_TENANTS - SERVE_CAPACITY:
+        fail(f"sessions: {engine.stats()['sessions_evicted']} evictions, not "
+             f"{SERVE_TENANTS - SERVE_CAPACITY}")
+    out = {}
+    for sid in sids:
+        if any(t.error or not t.done for t in emitted[sid]):
+            fail(f"session {sid}: a chunk ticket failed or never completed")
+        out[sid] = (np.concatenate([t.bits for t in emitted[sid]] + [tails[sid]]),
+                    fed[sid] * SERVE_CHUNK)
+    return out
+
+
+def serve_direct(label, engine, groups, tickets, mesh=None):
+    """Hold every ticket to a direct call, on the card, of the entry point
+    its route names (``DecodeEngine._decode_fn``), with the same
+    arguments, on the unpadded frames, one call a request group."""
+    for g, row in zip(groups, tickets):
+        paths = {t.path for t in row}
+        if len(paths) != 1 or any(t.error or not t.done for t in row):
+            fail(f"{label}: {g['code']} {g['slo']} {g['length']}: routes {paths}, "
+                 f"errors {sorted({str(t.error) for t in row})}")
+        path = paths.pop()
+        dec, x = engine._decoder(g["code"]), g["llrs"]
+        fin = 0 if g["flushed"] else None
+        if path == "batch":
+            want = dec.decode_batch(x, initial_state=0, final_state=fin, time_parallel=False)
+        elif path == "time_parallel":
+            want = dec.decode_batch(x, initial_state=0, final_state=fin, time_parallel=True)
+        elif path == "stream":
+            want = dec.decode_stream_chunked(x, initial_state=0, final_state=fin)
+        elif path == "sharded":
+            want = dec.decode_sharded(x, mesh=mesh, initial_state=0, final_state=fin)
+        elif path == "wava":
+            want = dec.decode_tailbiting(x)[0]
+        else:  # soft
+            want = dec.decode_soft(x, output="llr", initial_state=0, final_state=fin)
+            got = torch.as_tensor(np.stack([t.llrs for t in row]), device=want.device)
+            err = (got - want).abs().max().item()
+            print(f"{label}: soft LLRs of {len(row)} requests within {err!r} of a "
+                  f"direct decode_soft (atol {SERVE_SOFT_ATOL})", flush=True)
+            if not err <= SERVE_SOFT_ATOL:
+                fail(f"{label}: soft LLRs {err} from a direct decode_soft")
+            want = (want < 0).to(torch.int32)
+            got = np.stack([t.bits for t in row])
+            if not np.array_equal(got, want.cpu().numpy()):
+                fail(f"{label}: soft bits differ from a direct decode_soft's signs")
+            continue
+        got = np.stack([t.bits for t in row])
+        if not np.array_equal(got, want.cpu().numpy()):
+            n = int((got != want.cpu().numpy()).sum())
+            fail(f"{label}: {g['code']} {g['slo']} {g['length']} flushed={g['flushed']} "
+                 f"({path}): {n} bits differ from a direct call")
+    print(f"{label}: every ticket's bits equal a direct call of its route's entry "
+          f"point ({len(groups)} calls, one a request group)", flush=True)
+
+
+def serve_same_bits(label, tickets, clean):
+    for row, want in zip(tickets, clean):
+        for t, w in zip(row, want):
+            if t.error or not t.done or not np.array_equal(t.bits, w.bits):
+                fail(f"{label}: ticket {t.id} ({t.path}, error {t.error}) differs "
+                     f"from the clean run's")
+    print(f"{label}: every ticket's bits equal the clean run's", flush=True)
+
+
+def serve_sessions_direct(label, engine, streams, out):
+    """Each tenant's output == ``decode_stream_chunked`` on what it
+    consumed, tenants of one consumed length in one call."""
+    dec = engine._decoder("ccsds-k7")
+    by_len = {}
+    for sid, (_, n) in out.items():
+        by_len.setdefault(n, []).append(sid)
+    for n, sids in sorted(by_len.items()):
+        x = streams[[int(s[1:]) for s in sids], :n]
+        want = dec.decode_stream_chunked(x, chunk_len=SERVE_CHUNK, initial_state=None)
+        for sid, row in zip(sids, want.cpu().numpy()):
+            if not np.array_equal(out[sid][0], row):
+                fail(f"{label}: session {sid} ({n} stages) differs from "
+                     f"decode_stream_chunked on what it consumed")
+    print(f"{label}: each of {len(out)} tenants' output equals decode_stream_chunked "
+          f"on what it consumed ({', '.join(f'{len(s)} x {n}' for n, s in sorted(by_len.items()))} "
+          f"stages)", flush=True)
+
+
+def serve_gate_launches(label, log, mesh_size=0):
+    for code, path, f, l, shards, got in log.rows:
+        want = serve_want(path, l, shards)
+        if got != want:
+            fail(f"{label}: a {path} dispatch of {code} (F={f}, T={l}) launched "
+                 f"{got}, not {want}")
+    print(f"{label}: launches per route {log.per_route()} ({len(log.rows)} dispatches, "
+          f"each as its route says)", flush=True)
+
+
+def serve_clean_stats(label, engine):
+    s = engine.stats()
+    if s["faults"] or s["degraded"] or s["failed"] or s["retries"]:
+        fail(f"{label}: faults {s['faults']}, degraded {s['degraded']}, failed "
+             f"{s['failed']}, retries {s['retries']} on a clean run")
+    return s
+
+
+def serve_breakdown(dev, groups):
+    """The request traffic once more on a recorder-enabled engine, the
+    kernels and every traceback under CUDA events: the engine's span
+    totals (host clock) beside the device work they wrap."""
+    from repro_torch.codes import tailbiting as tb_mod
+    from repro_torch.core import decoder as decoder_mod
+    from repro_torch.core import timeparallel as tp_mod
+    from repro_torch.core import viterbi as viterbi_mod
+    from repro_torch.obs import SpanRecorder
+
+    rec = SpanRecorder()
+    eng = serve_engine(dev, recorder=rec)
+    patches = kernel_patches(tb=(viterbi_mod, "traceback"),
+                             tb_chunk=(decoder_mod, "traceback"),
+                             tb_tp=(tp_mod, "traceback"),
+                             tb_wava=(tb_mod, "traceback_with_state"))
+    with Stages(patches) as st:
+        _, wall = host_ms(lambda: (serve_submit(eng, groups, "llrs", 0.0),
+                                   eng.drain(now=0.0)))
+    spans = {}
+    for sp in rec.spans:
+        spans[sp.name] = spans.get(sp.name, 0.0) + sp.duration * 1e3
+    tb = sum(st.ms(k) for k in ("tb", "tb_chunk", "tb_tp", "tb_wava"))
+    kern = {k: st.ms(k) for k in ("K1", "K2", "K3")}
+    print(f"time serve breakdown (recorder on, the requests only): wall "
+          f"{wall:.3f} ms; spans (host clock, summed) " + ", ".join(
+              f"{k[7:]} {v:.3f}" for k, v in sorted(spans.items()))
+          + f" ms; tracebacks {tb:.3f} ms, K1 {kern['K1']:.3f}, K2 {kern['K2']:.3f}, "
+          f"K3 (both semirings) {kern['K3']:.3f} ms (CUDA events)", flush=True)
+    del st
+
+
+def serve_phase(dev):
+    """Phase 12: the serving engine on the card (``make_decode_engine``):
+    the traffic of SERVE_BATCH and SERVE_OTHER and the sessions, every
+    route held to direct calls and its launches to the routing table;
+    the batch traffic again on a one-card mesh and on two logical
+    shards, under a chaos schedule on four shards, and scrubbed with a
+    bit flip on two; recorder-enabled runs; an integer-LLR replay whose
+    kernel calls are held to their plain versions.  Returns ({route:
+    {kernel: launches}} of the clean run and of the sharded route on the
+    two meshes, K3-LOGPROB's largest error against its plain version)."""
+    from repro_torch.distributed import frame_mesh
+    from repro_torch.obs import SpanRecorder
+    from repro_torch.runtime.chaos import ChaosInjector, ChaosSchedule, FaultEvent
+
+    t_phase = time.perf_counter()
+    groups, streams = serve_traffic(dev)
+    batch_groups = groups[:len(SERVE_BATCH)]
+    n_req = sum(g["bits"].shape[0] for g in groups)
+    print(f"phase 12 (serve): {n_req} requests in {len(groups)} groups and "
+          f"{SERVE_TENANTS} tenants x {SERVE_CHUNKS} chunks of {SERVE_CHUNK} stages, "
+          f"Eb/N0 {SERVE_EBN0} dB, max_batch {SERVE_MAX_BATCH}, session_capacity "
+          f"{SERVE_CAPACITY}", flush=True)
+
+    # -- the clean run: the main path, counts zeroed just before --------
+    engine = serve_engine(dev)
+    log = RouteLog(engine)
+    zero_counts()
+    t0 = time.perf_counter()
+    tickets, t_sub = serve_submit(engine, groups, "llrs", None)
+    engine.drain()
+    torch.cuda.synchronize()
+    t_req = time.perf_counter()
+    sessions = serve_sessions(engine, streams, None)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    print(f"serve clean run: launches {counts}", flush=True)
+    for kernel in ("K1", "K2", "K3", "K3-LOGPROB"):
+        if not counts.get(kernel):
+            fail(f"serve clean run: {kernel} was not launched")
+    serve_gate_launches("serve clean run", log)
+    stats = serve_clean_stats("serve clean run", engine)
+    routes = {}
+    for b in engine.batch_log:
+        r = routes.setdefault(b["path"], [0, 0])
+        r[0] += 1
+        r[1] += b["n_real"]
+    print("serve routes (cells, requests or session chunks): " + ", ".join(
+        f"{p} {c} cells / {n}" for p, (c, n) in sorted(routes.items())), flush=True)
+    frames = engine.registry.counter("engine_frames_total")
+    elems = engine.registry.counter("engine_llr_elems_total")
+    pf, rf = frames.total(kind="pad"), frames.total(kind="real")
+    pe, re_ = elems.total(kind="pad"), elems.total(kind="real")
+    print(f"serve padding: {pf:.0f} pad frames over {rf:.0f} real ({pf / rf:.4f}); "
+          f"{pe:.0f} pad LLR elements over {re_:.0f} real ({pe / re_:.4f}); occupancy "
+          f"{stats['occupancy']:.4f}, padding_waste {stats['padding_waste']:.4f}", flush=True)
+    n_bits = sum(t.n_out for row in tickets for t in row)
+    n_sess = sum(b.shape[0] for b, _ in sessions.values())
+    wall_req, wall_sess = (t_req - t0) * 1e3, (t_end - t_req) * 1e3
+    print(f"time serve requests: {n_req} submitted and drained in {wall_req:.3f} ms "
+          f"(host clock), {mbps(n_bits, wall_req)} of decoded stages; sessions "
+          f"{wall_sess:.3f} ms, {mbps(n_sess, wall_sess)}", flush=True)
+    soj = np.array([t_req - ts for ts in t_sub]) * 1e3
+    lat = {slo: (v["p50"] * 1e3, v["p99"] * 1e3) for slo, v in stats["latency"].items()}
+    print(f"serve sojourn (host clock): submit -> drain's return p50 "
+          f"{np.percentile(soj, 50):.3f} ms, p99 {np.percentile(soj, 99):.3f} ms; the "
+          f"engine's submit -> completion stamp (ms, p50/p99) {lat}", flush=True)
+    serve_direct("serve clean run", engine, groups, tickets)
+    serve_sessions_direct("serve clean run", engine, streams, sessions)
+
+    # -- the batch traffic on a one-card mesh and on two logical shards --
+    per_route = log.per_route()
+    for label, mesh in (("serve one-card mesh", frame_mesh()),
+                        ("serve two shards", frame_mesh(2, device=dev))):
+        eng = serve_engine(dev, mesh=mesh)
+        rlog = RouteLog(eng)
+        got, _ = serve_submit(eng, batch_groups, "llrs", 0.0)
+        eng.drain(now=0.0)
+        serve_gate_launches(label, rlog)
+        per_route[f"sharded, {mesh.size} shard{'s' * (mesh.size > 1)}"] = (
+            rlog.per_route()["sharded"])
+        serve_clean_stats(label, eng)
+        paths = {t.path for row in got for t in row}
+        if "sharded" not in paths or not paths <= {"sharded", "stream"}:
+            fail(f"{label}: routes {paths}, not the sharded route")
+        serve_same_bits(label, got, tickets)
+        serve_direct(label, eng, batch_groups, got, mesh=mesh)
+
+    # -- chaos: failover 4 -> 2 -> 1 shard, then batch -------------------
+    sched = ChaosSchedule([
+        FaultEvent(at=0, kind="device_failure", device=3, path="sharded"),
+        FaultEvent(at=2, kind="timeout", path="sharded"),
+        FaultEvent(at=4, kind="device_failure", device=1, path="sharded"),
+        FaultEvent(at=5, kind="compile_error", path="sharded"),
+        FaultEvent(at=7, kind="device_failure", device=0, path="sharded"),
+        FaultEvent(at=12, kind="timeout", path="session"),
+    ])
+    inj = ChaosInjector(sched)
+    eng = serve_engine(dev, mesh=frame_mesh(4, device=dev), chaos=inj)
+    got, _ = serve_submit(eng, batch_groups, "llrs", 0.0)
+    eng.drain(now=0.0)
+    sess = serve_sessions(eng, streams, 0.0)
+    s = eng.stats()
+    print(f"serve chaos: faults {s['faults']}, retries {s['retries']}, degraded "
+          f"{s['degraded']}, failovers {s['failovers']}; routes "
+          f"{[row[0].path for row in got]}; mesh after {eng.mesh}", flush=True)
+    want_faults = {"device_failure": 3, "timeout": 2, "compile_error": 1}
+    if (s["faults"] != want_faults or s["retries"] != 5 or s["degraded"] != 1
+            or s["failovers"] != 3 or eng.mesh is not None or s["failed"]
+            or dict(inj.injected) != want_faults):
+        fail(f"serve chaos: not as scheduled (want faults {want_faults}, 5 retries, "
+             f"1 degradation, 3 failovers, no mesh left)")
+    # per request group (SERVE_BATCH order), the route its cell ended on:
+    # dispatches 0-1 (flushed 1000) and 2-3 (the 1024 rung) on two shards,
+    # 4-6 (flushed 3000) on one, 7-8 (the 4096 rung) degraded to batch,
+    # flushed 6000 with no mesh left on batch, the 8192 cells on stream
+    want_paths = ["sharded", "sharded", "batch", "sharded", "stream", "batch",
+                  "stream", "stream"]
+    if [row[0].path for row in got] != want_paths:
+        fail(f"serve chaos: routes {[row[0].path for row in got]}, not {want_paths}")
+    serve_same_bits("serve chaos", got, tickets)
+    for sid, (bits, n) in sess.items():
+        if not np.array_equal(bits, sessions[sid][0]):
+            fail(f"serve chaos: session {sid} differs from the clean run's")
+    print("serve chaos: sessions equal the clean run's", flush=True)
+
+    # -- scrub: one bit flip on two shards, quarantined ------------------
+    flip = FaultEvent(at=0, kind="bit_flip", device=1, flips=1)
+    eng = serve_engine(dev, mesh=frame_mesh(2, device=dev), scrub=1.0,
+                       chaos=ChaosInjector(ChaosSchedule([flip])))
+    got, _ = serve_submit(eng, batch_groups, "llrs", 0.0)
+    eng.drain(now=0.0)
+    sess = serve_sessions(eng, streams, 0.0)
+    # the flipped position as ChaosInjector.corrupt draws it: dispatch 0 is
+    # the cell of the flushed 1000-stage requests (the first queue key),
+    # its frames in submission order
+    row, n = got[1], got[1][0].n_out
+    pos = np.random.default_rng(1_000_003 * (flip.at + 1) + 17).choice(
+        len(row) * n, size=flip.flips, replace=False)
+    hit = sorted({int(p) // n for p in pos})
+    detected = [i for i, t in enumerate(row) if t.error == "sdc_detected"]
+    n_detected = sum(t.error == "sdc_detected" for r in got for t in r)
+    s = eng.stats()
+    print(f"serve scrub: bit flipped in request {hit} of the first cell; "
+          f"sdc_detected {detected} ({n_detected} in all); scrub {s['scrub']}; "
+          f"quarantined {s['quarantined']}; mesh after {eng.mesh}", flush=True)
+    if (detected != hit or n_detected != len(hit) or s["quarantined"] != [1]
+            or eng.mesh is None or eng.mesh.ids != (0,)
+            or s["scrub"]["false_alarms"] or s["scrub"]["confirmed"] != len(hit)):
+        fail("serve scrub: not exactly the corrupted ticket detected and its "
+             "device quarantined")
+    for row, want in zip(got, tickets):
+        for t, w in zip(row, want):
+            if t.error is None and not np.array_equal(t.bits, w.bits):
+                fail(f"serve scrub: clean ticket {t.id} differs from the clean run's")
+    for sid, (bits, n) in sess.items():
+        if not np.array_equal(bits, sessions[sid][0]):
+            fail(f"serve scrub: session {sid} differs from the clean run's")
+    print("serve scrub: every other ticket and every session equal the clean run's",
+          flush=True)
+
+    # -- recorder-enabled runs: dispatch seconds beside K1; where a
+    # request's time goes -------------------------------------------------
+    rec = SpanRecorder()
+    eng = serve_engine(dev, recorder=rec)
+    cell = batch_groups[3:4]  # the flushed 3000-stage requests, one cell
+    with Stages(kernel_patches()) as st:
+        serve_submit(eng, cell, "llrs", 0.0)
+        eng.drain(now=0.0)
+    hist = eng.registry.histogram("engine_dispatch_seconds")
+    wait = rec.find("engine.device_wait")[0].duration
+    print(f"time serve recorder run: one batch cell of 32 x 3000 stages: "
+          f"engine_dispatch_seconds {hist.sum_() * 1e3:.3f} ms ({hist.count()} "
+          f"sample), its engine.device_wait span {wait * 1e3:.3f} ms; K1 "
+          f"{st.ms('K1'):.3f} ms (CUDA events)", flush=True)
+    del st
+    serve_breakdown(dev, groups)
+
+    # -- the integer-LLR replay: kernel calls held to their plain versions
+    eng = serve_engine(dev)
+    with Stages(kernel_patches(), keep=("K1", "K2", "K3")) as st:
+        serve_submit(eng, groups, "quant", 0.0)
+        eng.drain(now=0.0)
+        serve_sessions(eng, torch.clamp(torch.round(streams), -16, 16), 0.0)
+    kept = st.kept
+    lp = [i for i, c in enumerate(kept) if c[0] == "K3" and c[2]["semiring"] == "logprob"]
+    k2 = [i for i, c in enumerate(kept) if c[0] == "K2"]
+    exact = [i for i, c in enumerate(kept) if c[0] in ("K1", "K3") and i not in lp]
+    # K2's plain version walks its ring of D + TT steps for every tile in
+    # Python (64 walks of 2592 steps for a 2048-step chunk at D = 2560):
+    # the K2 calls are held on their first tiles (hold_k2_prefix)
+    hold_kept("serve integer-LLR replay", st, pick=exact)
+    hold_k2_prefix("serve stream route, chunk 2 (integer LLRs)", kept[k2[1]])
+    hold_k2_prefix("serve session group, round 3 (integer LLRs)", kept[k2[-2]])
+    err = max(hold_logprob_k3("serve soft route (integer LLRs)", kept[i]) for i in lp)
+    del st, kept
+    print(f"phase 12 (serve) took {time.perf_counter() - t_phase:.1f} s "
+          f"(budget {SERVE_BUDGET_S} s)", flush=True)
+    return per_route, {"K3-LOGPROB": err}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2138,6 +2685,7 @@ def main() -> None:
                               sweep_lp_err)
     del llrs, quant, bits, info
     codes_launches, codes_err = codes_phase(dev)
+    serve_launches, serve_err = serve_phase(dev)
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s")
 
     rows = [k1_row, {
@@ -2158,12 +2706,16 @@ def main() -> None:
         "library_ms": None,
     }, k3_row, *logprob_rows]
     # each kernel's launches on phase 11's paths, each its own main run,
-    # and its largest error there against its plain version
+    # and on phase 12's routes in its clean run, and its largest error
+    # there against its plain version
     for row in rows:
         kernel = row["name"].split()[0]
         row["codes_launches"] = {path: counts[kernel] for path, counts
                                  in codes_launches.items() if kernel in counts}
-        row["max_abs_err"] = max(row["max_abs_err"], codes_err.get(kernel, 0.0))
+        row["serve_launches"] = {path: counts[kernel] for path, counts
+                                 in serve_launches.items() if kernel in counts}
+        row["max_abs_err"] = max(row["max_abs_err"], codes_err.get(kernel, 0.0),
+                                 serve_err.get(kernel, 0.0))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -28,7 +28,10 @@ zero-terminated and tail-biting frames, with or without puncturing.
     (``core/soft.py``: LOGPROB transfer matrices in K3-LOGPROB, log-depth
     scans, plain within-tile alpha and beta scans; the exact circular
     BCJR for tail-biting frames), and top-L list-Viterbi (plain scans;
-    the WAVA list loop for tail-biting frames).
+    the WAVA list loop for tail-biting frames);
+  * ``decode_sharded`` — ``decode_batch``'s sequential path with the
+    frames split over the shards of a ``distributed.decoder.FrameMesh``,
+    K1 once a shard.
 
 A punctured decoder takes the serial kept-LLR stream, (F, Lp) for the
 batch, chunked and soft entry points and (Lp,) for the tiled one, and
@@ -36,8 +39,8 @@ re-inserts zero-LLR erasures (``depunctured``); the depunctured stages
 flow through the same kernels.  Its decision depth and tiled overlap are
 stretched by the puncture expansion.
 
-The reference's sharded decode and ``from_config`` belong to later
-slices of the port and raise ``NotImplementedError`` naming theirs.
+The reference's ``from_config`` belongs to a later slice of the port and
+raises ``NotImplementedError`` naming it.
 
 Entry points run on the card: ``device=None`` resolves to ``"cuda"`` and
 raises where there is none; the CPU is used only when asked for.
@@ -760,10 +763,50 @@ class ViterbiDecoder:
             device=self.device,
         )
 
-    # -- entry points of later slices -------------------------------------
+    # -- sharded ----------------------------------------------------------
 
-    def decode_sharded(self, llrs, mesh=None, initial_state=0, final_state=None):
-        _later("sharded decode", "multi-device")
+    def decode_sharded(
+        self,
+        llrs,
+        mesh=None,
+        initial_state: Optional[int] = 0,
+        final_state: Optional[int] = None,
+    ) -> torch.Tensor:
+        """``decode_batch`` on the sequential path with the frame axis
+        split over the shards of ``mesh``
+        (``distributed.decoder.sharded_decode_frames``); None is every
+        card, or one shard on this decoder's device when it is the CPU.
+        Punctured serial input is depunctured first; tail-biting frames
+        are not sharded, as in the reference.  Returns (F, n) int32 bits
+        on the first shard's device."""
+        from repro_torch.distributed.decoder import (
+            frame_mesh,
+            sharded_decode_frames,
+        )
+
+        if self.termination == "tailbiting":
+            raise NotImplementedError(
+                "sharded tail-biting decode not implemented; shard "
+                "frames manually over decode_tailbiting"
+            )
+        if mesh is None:
+            mesh = frame_mesh(
+                device=self.device if self.device.type == "cpu" else None
+            )
+        _count_dispatch("sharded")
+        return sharded_decode_frames(
+            self._harden(self.depunctured(llrs)),
+            self.spec,
+            rho=self.rho,
+            mesh=mesh,
+            initial_state=initial_state,
+            final_state=final_state,
+            precision=self.precision,
+            use_kernel=self.use_kernel,
+            pack_survivors=self.pack_survivors,
+        )
+
+    # -- entry points of later slices -------------------------------------
 
     @classmethod
     def from_config(cls, vcfg, **kw):

@@ -2,7 +2,8 @@
 survivor layout (int8 slots, or 16 slots packed per int32 word), the CUDA
 block shapes and shared-memory layouts of K1, K2 and K3, the W they can
 gather from (``gather_tables``), the one-pass eligibility rule of the
-streaming entry points, and the time-parallel eligibility rule.
+streaming entry points, the time-parallel eligibility rule, and the
+serving engine's cell rungs.
 
 The one-pass rule (``one_pass_time_tile``) keeps the reference's numbers
 on purpose: it decides whether a chunk takes the one-pass or the two-pass
@@ -65,6 +66,9 @@ __all__ = [
     "default_transfer_tile",
     "pick_transfer_tile",
     "time_parallel_plan",
+    "ENGINE_MIN_CELL",
+    "pick_cell_length",
+    "pick_cell_frames",
 ]
 
 DEFAULT_TIME_TILE = 32
@@ -533,3 +537,33 @@ def time_parallel_plan(
     if time_parallel:
         return tt
     return tt if n_frames * n_states <= underfill_rows else None
+
+
+# serving-engine cell geometry, the reference's: ragged request lengths
+# are bucketed onto a power-of-two ladder starting here, so the number
+# of distinct (F, T) cell shapes stays logarithmic in the length spread
+# while per-request padding stays under 2x in the worst case
+ENGINE_MIN_CELL = 64
+
+
+def pick_cell_length(n: int, min_cell: int = ENGINE_MIN_CELL,
+                     multiple: int = 1) -> int:
+    """Length rung of a serving cell for an n-element request: the
+    smallest power-of-two ladder rung >= n (and >= ``min_cell``), rounded
+    up to ``multiple``, which punctured codes set to their kept bits a
+    period so that every cell depunctures to whole periods."""
+    if n <= 0:
+        raise ValueError(f"request length must be positive, got {n}")
+    cell = min_cell
+    while cell < n:
+        cell *= 2
+    return cell + (-cell) % multiple
+
+
+def pick_cell_frames(n: int, max_batch: int) -> int:
+    """Frame rung of a serving cell: the smallest power of two >= ``n``,
+    capped at ``max_batch``, so a cell is at least half real frames."""
+    f = 1
+    while f < min(n, max_batch):
+        f *= 2
+    return min(f, max_batch)

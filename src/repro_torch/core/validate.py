@@ -76,6 +76,7 @@ def validate_llrs(
     sanitize: bool = False,
     clamp: float = LLR_CLAMP,
     where: str = "decoder",
+    registry=None,
 ):
     """Validate (or repair) an LLR array before it reaches the kernels.
 
@@ -83,7 +84,8 @@ def validate_llrs(
     kind (and device).  Returns ``(llrs, n_sanitized)``.  Strict mode
     raises :class:`InvalidInputError` with ``reason="non_finite"`` on any
     NaN/Inf sample; sanitize mode repairs and counts per reason (``nan``
-    vs ``clamped``).
+    vs ``clamped``), into ``registry`` when one is given (the serving
+    engine's), else into the default registry.
     """
     is_np = isinstance(llrs, np.ndarray)
     xp_isfinite = np.isfinite if is_np else torch.isfinite
@@ -119,12 +121,19 @@ def validate_llrs(
             arr = torch.nan_to_num(
                 llrs, nan=0.0, posinf=clamp, neginf=-clamp
             ).clamp(-clamp, clamp)
-        if n_nan:
-            _count("decoder_input_sanitized_total", n_nan,
-                   reason="nan", where=where)
-        if n_over:
-            _count("decoder_input_sanitized_total", n_over,
-                   reason="clamped", where=where)
+        if registry is not None:
+            fam = registry.counter("decoder_input_sanitized_total")
+            if n_nan:
+                fam.inc(n_nan, reason="nan", where=where)
+            if n_over:
+                fam.inc(n_over, reason="clamped", where=where)
+        else:
+            if n_nan:
+                _count("decoder_input_sanitized_total", n_nan,
+                       reason="nan", where=where)
+            if n_over:
+                _count("decoder_input_sanitized_total", n_over,
+                       reason="clamped", where=where)
         return arr, n_bad
     return llrs, 0
 

@@ -1,0 +1,10 @@
+"""Multi-device decode: so far the frame-sharded batch decode over a
+``FrameMesh`` and the mesh helpers the serving engine routes and fails
+over with (``distributed.decoder``)."""
+from .decoder import (  # noqa: F401
+    FrameMesh,
+    engine_dispatch_ready,
+    frame_mesh,
+    replan_mesh,
+    sharded_decode_frames,
+)

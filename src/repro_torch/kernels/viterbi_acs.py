@@ -36,8 +36,10 @@ a hash of the source, the shared header and the flags, so an edited
 source is rebuilt), and ``ctypes`` loads it.  K3's source is compiled as
 ``K3_PARTS`` translation units, one ``nvcc`` each, side by side, then
 linked into its library.  Nothing is built or loaded at import, so this
-module imports where there is no ``nvcc``.  A failed build or launch
-raises; nothing runs the plain version in its place on the card.
+module imports where there is no ``nvcc``.  A failed build or launch,
+or a card the kernels are not built for, raises :class:`KernelError`;
+nothing runs the plain version in its place on the card, and the serving
+engine lets it through every one of its fault guards.
 
 The wrappers take the plain versions (``ref.py``) only for tensors that
 lie on the CPU.
@@ -76,7 +78,7 @@ from .ref import acs_decode_fused_ref, acs_forward_ref, transfer_matrix_ref
 
 __all__ = [
     "acs_forward", "acs_decode_fused", "transfer_matrix", "build", "bind",
-    "gather_operands", "GatherOperands", "SMEM_LIMIT_BYTES",
+    "gather_operands", "GatherOperands", "KernelError", "SMEM_LIMIT_BYTES",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -102,6 +104,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SEMIRING_CODES = {"tropical": 0, "logprob": 1}  # acs_step.cuh's SemiringCode
 
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel could not be built or launched: no ``nvcc``, a failed
+    compile or link, a card other than sm_90, or an error code from the
+    launch.  Never a transient fault: retrying or degrading would only
+    hide that the kernel did not run."""
 
 
 def _find_nvcc() -> Optional[str]:
@@ -131,7 +140,7 @@ def build(name: str = "acs_forward") -> Path:
         return out
     nvcc = _find_nvcc()
     if nvcc is None:
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
             f"the CUDA kernel {name} cannot be built"
         )
@@ -151,7 +160,7 @@ def build(name: str = "acs_forward") -> Path:
         stdout, stderr = proc.communicate()
         log += stdout + stderr
         if proc.returncode != 0:
-            raise RuntimeError(
+            raise KernelError(
                 f"nvcc failed on {src.name} with exit code {proc.returncode}:\n"
                 f"{stderr}"
             )
@@ -163,7 +172,7 @@ def build(name: str = "acs_forward") -> Path:
         for o in objs:
             o.unlink()
         if res.returncode != 0:
-            raise RuntimeError(f"linking {name}'s parts failed:\n{res.stderr}")
+            raise KernelError(f"linking {name}'s parts failed:\n{res.stderr}")
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return out
@@ -207,7 +216,7 @@ def bind(path: Path, name: str) -> ctypes.CDLL:
 
 def _check_card(dev: torch.device, kernel: str) -> None:
     if not is_hopper(dev):
-        raise RuntimeError(
+        raise KernelError(
             f"{kernel} is compiled for sm_90a; "
             f"{torch.cuda.get_device_name(dev)} has compute capability "
             f"{torch.cuda.get_device_capability(dev)}"
@@ -244,7 +253,7 @@ def _one_device(who: str, *tensors) -> torch.device:
 def _raise_on(lib, name: str, err: int) -> None:
     if err != 0:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg}")
+        raise KernelError(f"{name} launch failed: {msg}")
 
 
 class GatherOperands(NamedTuple):

@@ -1,7 +1,7 @@
-"""Observability for the port: so far the metrics registry only.
+"""Observability for the port: the metrics registry and span tracing.
 
-Span tracing and the device-profile adapter of the reference's ``obs``
-come with the serving slice.
+The reference's device-profile adapter (``obs/profile.py``), ``obs/top``
+and ``obs/smoke`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,6 +15,12 @@ from repro_torch.obs.metrics import (
     default_registry,
     set_default_registry,
 )
+from repro_torch.obs.trace import (
+    JsonlSink,
+    NullRecorder,
+    Span,
+    SpanRecorder,
+)
 
 __all__ = [
     "POW2_BUCKETS",
@@ -25,4 +31,8 @@ __all__ = [
     "NullRegistry",
     "default_registry",
     "set_default_registry",
+    "Span",
+    "SpanRecorder",
+    "NullRecorder",
+    "JsonlSink",
 ]

@@ -64,6 +64,11 @@ def test_every_module_imports_without_triton_nvcc_or_jax():
     reference package gets loaded."""
     modules = list(_module_names())
     assert "repro_torch.kernels.viterbi_acs" in modules
+    # the serving slice's packages are scanned and imported too
+    assert {"repro_torch.serve.engine", "repro_torch.serve.step",
+            "repro_torch.runtime.chaos", "repro_torch.runtime.failure",
+            "repro_torch.runtime.checkpoint", "repro_torch.verify.scrub",
+            "repro_torch.distributed.decoder", "repro_torch.obs.trace"} <= set(modules)
     code = (
         "import sys\n"
         "sys.modules['triton'] = None\n"
@@ -168,9 +173,12 @@ def test_later_slices_refuse():
         tbcc.decode_stream_chunked(torch.zeros(1, 8, 3))
     with pytest.raises(ValueError, match="open"):
         tbcc.decode_stream_tiled(torch.zeros(8, 3))
-    # sharded decode and from_config belong to later slices
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        dec.decode_sharded(llrs)
+    # sharded decode is ported: one CPU shard by default, and tail-biting
+    # frames are refused as in the reference; from_config belongs to a
+    # later slice
+    assert dec.decode_sharded(llrs).shape == (2, 8)
+    with pytest.raises(NotImplementedError, match="tail-biting"):
+        tbcc.decode_sharded(torch.zeros(1, 8, 3))
     with pytest.raises(NotImplementedError, match="tooling"):
         ViterbiDecoder.from_config(None)
 
