@@ -1816,27 +1816,42 @@ def serve_want(path, length, shards):
             "session": {"K2": 1}}[path]
 
 
-def hold_k2_prefix(label, call, tiles=2):
-    """Hold a K2 call a path made on its first ``tiles`` time tiles: K2
-    and its plain version launched on them from the call's own entry
-    metrics, ring and geometry must agree bit for bit (bits, metrics,
-    exit ring), and their bits must be the first rows of the path's own
-    output (a tile's decisions depend on no later step)."""
+def hold_k2_tiles(label, call):
+    """Hold a K2 call a path made on its first, middle and last time
+    tiles.  A later tile starts from K2's own metrics and ring after the
+    steps before it (one launch on them from the call's entry state); on
+    each tile K2 and its plain version must agree bit for bit (bits,
+    metrics, exit ring), their bits must be the path's own rows of that
+    tile, and after the last tile the metrics and exit ring must be the
+    ones the path's call returned.  Returns the tiles held."""
     from repro_torch.kernels import viterbi_acs
     from repro_torch.kernels.ref import acs_decode_fused_ref
 
-    _, (blocks, lam0, hist0, w), kw, (bits, _, _) = call
-    kw = {k: v for k, v in kw.items() if k != "operands"}
-    n = min(tiles * kw["time_tile"], blocks.shape[0])
-    got = viterbi_acs.acs_decode_fused(blocks[:n].contiguous(), lam0, hist0, w, **kw)
-    want = acs_decode_fused_ref(blocks[:n].contiguous(), lam0, hist0, w, **kw)
-    if not all(torch.equal(g, p) for g, p in zip(got, want)):
-        fail(f"{label}: K2 differs from its plain version on the first {n} steps")
-    if not torch.equal(bits[:n * kw["rho"]], got[0]):
-        fail(f"{label}: the path's K2 bits differ from a launch on its first {n} steps")
-    print(f"{label}: K2 (blocks {tuple(blocks.shape)}, D={hist0.shape[0]}, "
-          f"TT={kw['time_tile']}) on its first {n} steps bit-identical to its plain "
-          f"version and to the path's own bits", flush=True)
+    _, (blocks, lam0, hist0, w), kw, (bits, lam, hist) = call
+    plain_kw = {k: v for k, v in kw.items() if k != "operands"}
+    T = blocks.shape[0]
+    tt = min(kw["time_tile"], T)
+    rows = tt * kw["rho"]
+    n = T // tt
+    held = sorted({0, n // 2, n - 1})
+    for j in held:
+        lam_j, hist_j = lam0, hist0
+        if j:
+            _, lam_j, hist_j = viterbi_acs.acs_decode_fused(
+                blocks[:j * tt].contiguous(), lam0, hist0, w, **kw)
+        tile = blocks[j * tt:(j + 1) * tt].contiguous()
+        got = viterbi_acs.acs_decode_fused(tile, lam_j, hist_j, w, **kw)
+        want = acs_decode_fused_ref(tile, lam_j, hist_j, w, **plain_kw)
+        if not all(torch.equal(g, p) for g, p in zip(got, want)):
+            fail(f"{label}: K2 differs from its plain version on tile {j} of {n}")
+        if not torch.equal(bits[j * rows:(j + 1) * rows], got[0]):
+            fail(f"{label}: the path's K2 bits differ from a launch on tile {j} of {n}")
+        if j == n - 1 and not (torch.equal(got[1], lam) and torch.equal(got[2], hist)):
+            fail(f"{label}: the path's exit metrics or ring differ from the last tile's")
+    print(f"{label}: K2 (blocks {tuple(blocks.shape)}, D={hist0.shape[0]}, TT={tt}) "
+          f"on tiles {held} of {n} bit-identical to its plain version and to the "
+          f"path's own bits, exit metrics and ring", flush=True)
+    return len(held)
 
 
 def serve_engine(dev, **kw):
@@ -2216,10 +2231,14 @@ def serve_phase(dev):
     exact = [i for i, c in enumerate(kept) if c[0] in ("K1", "K3") and i not in lp]
     # K2's plain version walks its ring of D + TT steps for every tile in
     # Python (64 walks of 2592 steps for a 2048-step chunk at D = 2560):
-    # the K2 calls are held on their first tiles (hold_k2_prefix)
+    # every K2 call is held on its first, middle and last tiles
     hold_kept("serve integer-LLR replay", st, pick=exact)
-    hold_k2_prefix("serve stream route, chunk 2 (integer LLRs)", kept[k2[1]])
-    hold_k2_prefix("serve session group, round 3 (integer LLRs)", kept[k2[-2]])
+    t_k2 = time.perf_counter()
+    n_tiles = sum(hold_k2_tiles(f"serve K2 call {n} of {len(k2)} ({kept[i][1][0].shape[1]} "
+                                f"frames; integer LLRs)", kept[i])
+                  for n, i in enumerate(k2, 1))
+    print(f"time serve K2 holds: {len(k2)} calls, {n_tiles} tiles against the plain "
+          f"version in {time.perf_counter() - t_k2:.3f} s (host clock)", flush=True)
     err = max(hold_logprob_k3("serve soft route (integer LLRs)", kept[i]) for i in lp)
     del st, kept
     print(f"phase 12 (serve) took {time.perf_counter() - t_phase:.1f} s "

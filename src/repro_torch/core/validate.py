@@ -121,19 +121,15 @@ def validate_llrs(
             arr = torch.nan_to_num(
                 llrs, nan=0.0, posinf=clamp, neginf=-clamp
             ).clamp(-clamp, clamp)
-        if registry is not None:
-            fam = registry.counter("decoder_input_sanitized_total")
-            if n_nan:
-                fam.inc(n_nan, reason="nan", where=where)
-            if n_over:
-                fam.inc(n_over, reason="clamped", where=where)
-        else:
-            if n_nan:
-                _count("decoder_input_sanitized_total", n_nan,
-                       reason="nan", where=where)
-            if n_over:
-                _count("decoder_input_sanitized_total", n_over,
-                       reason="clamped", where=where)
+        if registry is None:
+            from repro_torch.obs import default_registry
+
+            registry = default_registry()
+        fam = registry.counter("decoder_input_sanitized_total")
+        if n_nan:
+            fam.inc(n_nan, reason="nan", where=where)
+        if n_over:
+            fam.inc(n_over, reason="clamped", where=where)
         return arr, n_bad
     return llrs, 0
 

@@ -37,9 +37,12 @@ source is rebuilt), and ``ctypes`` loads it.  K3's source is compiled as
 ``K3_PARTS`` translation units, one ``nvcc`` each, side by side, then
 linked into its library.  Nothing is built or loaded at import, so this
 module imports where there is no ``nvcc``.  A failed build or launch,
-or a card the kernels are not built for, raises :class:`KernelError`;
-nothing runs the plain version in its place on the card, and the serving
-engine lets it through every one of its fault guards.
+or a card the kernels are not built for, raises :class:`KernelError`,
+and so does every other exception of a wrapper on card tensors (a
+refusal of their shapes or of W is a :class:`KernelRefusal`, a
+``KernelError`` and a ``ValueError``); nothing runs the plain version
+in its place on the card, and the serving engine lets it through every
+one of its fault guards.
 
 The wrappers take the plain versions (``ref.py``) only for tensors that
 lie on the CPU.
@@ -47,6 +50,7 @@ lie on the CPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -78,7 +82,7 @@ from .ref import acs_decode_fused_ref, acs_forward_ref, transfer_matrix_ref
 
 __all__ = [
     "acs_forward", "acs_decode_fused", "transfer_matrix", "build", "bind",
-    "gather_operands", "GatherOperands", "KernelError", "SMEM_LIMIT_BYTES",
+    "gather_operands", "GatherOperands", "KernelError", "KernelRefusal", "SMEM_LIMIT_BYTES",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -103,14 +107,46 @@ K3_PARTS = 5
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SEMIRING_CODES = {"tropical": 0, "logprob": 1}  # acs_step.cuh's SemiringCode
 
+# CUDA's limit on a grid's y extent: K3's grid is (tiles, frame blocks)
+MAX_GRID_Y = 65535
+
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
 class KernelError(RuntimeError):
     """A kernel could not be built or launched: no ``nvcc``, a failed
-    compile or link, a card other than sm_90, or an error code from the
-    launch.  Never a transient fault: retrying or degrading would only
-    hide that the kernel did not run."""
+    compile or link, a card other than sm_90, an error code from the
+    launch, or any other exception of a wrapper on card tensors.  Never a
+    transient fault: retrying or degrading would only hide that the
+    kernel did not run."""
+
+
+class KernelRefusal(KernelError, ValueError):
+    """A wrapper refused card tensors it cannot launch on: a shape, dtype,
+    W or geometry the kernel does not take, or a block past the card's
+    shared memory or grid.  A ``ValueError``, as the same refusal is on
+    the CPU, and a ``KernelError``, so that no caller serves the request
+    by another path in the kernel's place."""
+
+
+def _card_errors(launch):
+    """Make every exception out of ``launch`` (which runs only for card
+    tensors) a ``KernelError``: a ``ValueError`` becomes a
+    ``KernelRefusal`` with its message, anything else (a failed
+    allocation, a CUDA error) a ``KernelError`` that names the kernel."""
+
+    @functools.wraps(launch)
+    def checked(*args, **kwargs):
+        try:
+            return launch(*args, **kwargs)
+        except KernelError:
+            raise
+        except ValueError as e:
+            raise KernelRefusal(str(e)) from e
+        except Exception as e:  # noqa: BLE001 — retyped, never swallowed
+            raise KernelError(f"{launch.__name__} on the card: {e!r}") from e
+
+    return checked
 
 
 def _find_nvcc() -> Optional[str]:
@@ -344,6 +380,7 @@ def _count_launch(kernel, semiring: str) -> None:
         kernel.logprob_launches += 1
 
 
+@_card_errors
 def _launch_k1(blocks, lam0, w, *, n_states, n_slots, carry_dtype,
                matmul_dtype, renorm, pack_survivors, semiring, operands):
     dev = blocks.device
@@ -428,6 +465,22 @@ def acs_decode_fused(
     ``gather_operands(w, ...)`` made once by the caller).
     """
     dev = _one_device("acs_decode_fused", blocks, lam0, hist0, w)
+    kw = dict(
+        n_states=n_states, n_slots=n_slots, k=k, rho=rho, time_tile=time_tile,
+        carry_dtype=carry_dtype, matmul_dtype=matmul_dtype, renorm=renorm,
+        pack_survivors=pack_survivors,
+    )
+    if dev.type == "cpu":
+        return acs_decode_fused_ref(blocks, lam0, hist0, w, **_k2_args(blocks, hist0, **kw))
+    return _launch_k2(blocks, lam0, hist0, w, operands=operands, **kw)
+
+
+acs_decode_fused.launches = 0  # K2 launches in this process (set to 0 to count a run)
+
+
+def _k2_args(blocks, hist0, *, n_states, n_slots, time_tile, pack_survivors, **kw):
+    """K2's checks on both devices; its keyword arguments, the tile
+    ``min(time_tile, T)``."""
     S, R = n_states, n_slots
     if blocks.dim() != 3 or hist0.dim() != 3:
         raise ValueError(
@@ -450,25 +503,17 @@ def acs_decode_fused(
             f"acs_decode_fused: hist0 {tuple(hist0.shape)}/{hist0.dtype} does "
             f"not match pack_survivors={pack_survivors} (want (*, F, {W}) {ring_dt})"
         )
-    kw = dict(
-        n_states=S, n_slots=R, k=k, rho=rho, time_tile=TT,
-        carry_dtype=carry_dtype, matmul_dtype=matmul_dtype, renorm=renorm,
-        pack_survivors=pack_survivors,
-    )
-    if dev.type == "cpu":
-        return acs_decode_fused_ref(blocks, lam0, hist0, w, **kw)
-    return _launch_k2(blocks, lam0, hist0, w, operands=operands, **kw)
+    return dict(n_states=S, n_slots=R, time_tile=TT, pack_survivors=pack_survivors, **kw)
 
 
-acs_decode_fused.launches = 0  # K2 launches in this process (set to 0 to count a run)
-
-
-def _launch_k2(blocks, lam0, hist0, w, *, n_states, n_slots, k, rho,
-               time_tile, carry_dtype, matmul_dtype, renorm, pack_survivors,
-               operands):
+@_card_errors
+def _launch_k2(blocks, lam0, hist0, w, *, operands, **kw):
     dev = blocks.device
     _check_card(dev, "K2")
-    S, R, TT = n_states, n_slots, time_tile
+    kw = _k2_args(blocks, hist0, **kw)
+    S, R, TT, k, rho = (kw[a] for a in ("n_states", "n_slots", "time_tile", "k", "rho"))
+    carry_dtype, matmul_dtype = kw["carry_dtype"], kw["matmul_dtype"]
+    renorm, pack_survivors = kw["renorm"], kw["pack_survivors"]
     if R not in SLOT_BITS or R != 1 << rho:
         raise ValueError(f"acs_decode_fused: n_slots={R} must be 2**rho, rho in 1..4")
     if S != 1 << (k - 1):
@@ -568,20 +613,13 @@ def transfer_matrix(
     """
     check_semiring(semiring)
     dev = _one_device("transfer_matrix", blocks, w)
-    if blocks.dim() != 3:
-        raise ValueError(f"transfer_matrix: blocks must be (T, F, B), got {tuple(blocks.shape)}")
-    T = blocks.shape[0]
-    TT = min(transfer_tile, T)
-    if TT <= 0 or T % TT:
-        raise ValueError(f"transfer_matrix: T'={T} not divisible by transfer_tile={TT}")
-    k3_block_frames(n_states)  # raises where a row does not fit
     kw = dict(
-        n_states=n_states, n_slots=n_slots, transfer_tile=TT,
+        n_states=n_states, n_slots=n_slots, transfer_tile=transfer_tile,
         carry_dtype=carry_dtype, matmul_dtype=matmul_dtype,
         split_dot=split_dot, semiring=semiring,
     )
     if dev.type == "cpu":
-        return transfer_matrix_ref(blocks, w, **kw)
+        return transfer_matrix_ref(blocks, w, **_k3_args(blocks, **kw))
     return _launch_k3(blocks, w, operands=operands, **kw)
 
 
@@ -589,8 +627,21 @@ transfer_matrix.launches = 0  # K3 launches in this process (set to 0 to count a
 transfer_matrix.logprob_launches = 0  # of which K3-LOGPROB
 
 
-def _launch_k3(blocks, w, *, n_states, n_slots, transfer_tile, carry_dtype,
-               matmul_dtype, split_dot, semiring, operands):
+def _k3_args(blocks, *, n_states, transfer_tile, **kw):
+    """K3's checks on both devices; its keyword arguments, the tile
+    ``min(transfer_tile, T)``."""
+    if blocks.dim() != 3:
+        raise ValueError(f"transfer_matrix: blocks must be (T, F, B), got {tuple(blocks.shape)}")
+    T = blocks.shape[0]
+    TT = min(transfer_tile, T)
+    if TT <= 0 or T % TT:
+        raise ValueError(f"transfer_matrix: T'={T} not divisible by transfer_tile={TT}")
+    k3_block_frames(n_states)  # raises where a row does not fit
+    return dict(n_states=n_states, transfer_tile=TT, **kw)
+
+
+@_card_errors
+def _launch_k3(blocks, w, *, operands, **kw):
     """Checks W (``gather_operands``: its metric half must be the shift
     register's one-hot, or this raises before any launch; K3 has no dense
     fallback), then launches K3 on W's LLR half with
@@ -598,7 +649,10 @@ def _launch_k3(blocks, w, *, n_states, n_slots, transfer_tile, carry_dtype,
     memory."""
     dev = blocks.device
     _check_card(dev, "K3")
-    S, R, TT = n_states, n_slots, transfer_tile
+    kw = _k3_args(blocks, **kw)
+    S, R, TT = kw["n_states"], kw["n_slots"], kw["transfer_tile"]
+    carry_dtype, matmul_dtype = kw["carry_dtype"], kw["matmul_dtype"]
+    split_dot, semiring = kw["split_dot"], kw["semiring"]
     if R not in SLOT_BITS:
         raise ValueError(f"transfer_matrix: n_slots must be one of {list(SLOT_BITS)}")
     _check_dtypes("transfer_matrix", matmul_dtype=matmul_dtype, carry_dtype=carry_dtype)
@@ -611,8 +665,9 @@ def _launch_k3(blocks, w, *, n_states, n_slots, transfer_tile, carry_dtype,
     _operands("transfer_matrix", w, operands, B, S, R)
     theta = w[:B]
     BF = k3_block_frames(S)
-    if -(-F // BF) > 65535:
-        raise ValueError(f"transfer_matrix: {F} frames need more than 65535 blocks of {BF}")
+    if -(-F // BF) > MAX_GRID_Y:
+        raise ValueError(
+            f"transfer_matrix: {F} frames need more than {MAX_GRID_Y} blocks of {BF}")
     m = torch.empty((T // TT, F, S, S), dtype=torch.float32, device=dev)
     if F == 0:
         return m

@@ -51,10 +51,13 @@ is ragged requests of mixed codes and service classes.  The
 
 One departure from the reference's "the engine never crashes": a
 ``kernels.viterbi_acs.KernelError`` (a kernel that could not be built or
-launched) is re-raised untouched by every guard, out of ``poll`` and
-``drain``: no retry, no degraded rung, no ticket error, no false alarm.
-A failed kernel on the card is a fault of the installation, and a rung
-that ran the plain version in its place would hide it.
+launched, or any exception of a kernel wrapper on card tensors, its
+refusals included) is re-raised untouched by every guard, out of
+``poll`` and ``drain``: no retry, no degraded rung, no ticket error, no
+false alarm.  A failed kernel on the card is a fault of the
+installation, and a rung that ran the plain version in its place would
+hide it; so an engine on the card also has no plain rung
+(``PLAIN_RUNGS``): its stream cells degrade to batch (K1) only.
 
 Tensors: each cell is assembled on the host and copied to the decoder's
 device once; the device wait is the ``.cpu()`` copy of the result, and
@@ -95,6 +98,7 @@ __all__ = [
     "DEFAULT_MAX_WAIT",
     "STREAM_MIN_STEPS",
     "DEGRADATION_LADDER",
+    "PLAIN_RUNGS",
     "DecodeRequest",
     "Ticket",
     "DecodeEngine",
@@ -118,7 +122,9 @@ STREAM_MIN_STEPS = 4096
 # decoder without kernels (here the plain PyTorch versions on the
 # decoder's device); "batch" is the sequential decode every code has.
 # WAVA, batch, soft and session dispatches have no other rung: they
-# retry in place, then fail their tickets with a typed error.
+# retry in place, then fail their tickets with a typed error.  An engine
+# on the card skips the rungs in PLAIN_RUNGS (``DecodeEngine._ladder``):
+# every rung it degrades to still runs a kernel.
 DEGRADATION_LADDER = {
     "sharded": ("sharded", "batch"),
     "stream": ("stream", "stream_xla", "batch"),
@@ -127,6 +133,7 @@ DEGRADATION_LADDER = {
     "batch": ("batch",),
     "soft": ("soft",),
 }
+PLAIN_RUNGS = frozenset({"stream_xla"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -825,6 +832,14 @@ class DecodeEngine:
                     f"{self.dispatch_timeout:.3f}s"
                 )
 
+    def _ladder(self, path: str) -> tuple:
+        """``path``'s rungs in ``DEGRADATION_LADDER``; on the card without
+        ``PLAIN_RUNGS``, whose plain versions would hide a kernel."""
+        ladder = DEGRADATION_LADDER.get(path, (path,))
+        if self.device.type == "cuda":
+            ladder = tuple(p for p in ladder if p not in PLAIN_RUNGS)
+        return ladder
+
     def _dispatch_with_faults(
         self, code: str, fn, path: str, f_cell: int, l_cell: int,
         flushed: bool, arr, now: float, dsp,
@@ -835,7 +850,7 @@ class DecodeEngine:
         rungs are bit-identical, so a retried or degraded dispatch emits
         the bits the first attempt would have.  A ``KernelError`` is
         re-raised at once."""
-        ladder = DEGRADATION_LADDER.get(path, (path,))
+        ladder = self._ladder(path)
         rung, attempt, retries = 0, 0, 0
         while True:
             try:

@@ -305,24 +305,123 @@ def test_kernel_error_escapes_every_guard(where, monkeypatch):
         assert s["scrub"]["shadow_dispatches"] == 1
 
 
+def _as_on_card(monkeypatch):
+    """Route the kernel wrappers' CPU tensors through their card launchers
+    (device test and sm_90 check stubbed): every check and refusal of the
+    launch path runs, up to the build, which has no nvcc here."""
+    import torch
+
+    from repro_torch.kernels import viterbi_acs
+
+    monkeypatch.setattr(viterbi_acs, "_one_device", lambda who, *t: torch.device("cuda"))
+    monkeypatch.setattr(viterbi_acs, "_check_card", lambda dev, kernel: None)
+    monkeypatch.setattr(viterbi_acs, "_sm_count", lambda dev: 132)
+
+
 def test_other_faults_keep_the_reference_handling(monkeypatch):
-    """Every other exception is handled as in the reference: a
-    RuntimeError that is not a KernelError is retried, then degraded."""
-    from repro_torch.kernels import ops
+    """A kernel wrapper's own refusal on card tensors is a KernelError: it
+    leaves ``drain`` with no retry and no rung.  Every other exception is
+    handled as in the reference: a RuntimeError outside the kernels is
+    retried, then degraded."""
+    from repro_torch.core import timeparallel
+    from repro_torch.kernels import viterbi_acs
+    from repro_torch.kernels.viterbi_acs import KernelRefusal
     from repro_torch.serve import DecodeRequest, make_decode_engine
 
-    eng = make_decode_engine(device="cpu", max_batch=4, retry=1,
-                             underfill_rows=1024)
+    def latency_engine():
+        eng = make_decode_engine(device="cpu", max_batch=4, retry=1,
+                                 underfill_rows=1024)
+        t = eng.submit(DecodeRequest(llrs=_llrs("ccsds-k7", 512, 3), slo="latency"),
+                       now=0.0)
+        return eng, t
+
+    # K3's launcher refuses a cell past its grid
+    eng, t = latency_engine()
+    with monkeypatch.context() as m:
+        _as_on_card(m)
+        m.setattr(viterbi_acs, "MAX_GRID_Y", 0)
+        with pytest.raises(KernelRefusal, match="more than 0 blocks"):
+            eng.drain(now=0.0)
+    s = eng.stats()
+    assert not t.done and t.error is None
+    assert s["degraded"] == 0 and s["retries"] == 0 and s["faults"] == {}
+
+    eng, t = latency_engine()
     calls = []
 
     def flaky(*a, **k):
         calls.append(1)
         raise RuntimeError("not a kernel fault")
 
-    t = eng.submit(DecodeRequest(llrs=_llrs("ccsds-k7", 512, 3), slo="latency"),
-                   now=0.0)
-    monkeypatch.setattr(ops, "transfer_matrix", flaky)
+    monkeypatch.setattr(timeparallel, "_suffix_to_final", flaky)
     eng.drain(now=0.0)
     s = eng.stats()
     assert t.error is None and t.path == "batch" and len(calls) == 2
     assert s["degraded"] == 1 and s["retries"] == 1 and s["faults"] == {"error": 2}
+
+
+@pytest.mark.parametrize("case", ["k1_smem", "k1_w", "k2_smem", "k3_grid", "k2_alloc"])
+def test_card_refusals_are_kernel_errors(case, monkeypatch):
+    """Every exception of a kernel wrapper on card tensors is a
+    KernelError: a refusal a KernelRefusal (also a ValueError, with the
+    plain path's message), anything else a KernelError naming the
+    launcher; no launch is counted."""
+    import torch
+
+    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.kernels import viterbi_acs
+    from repro_torch.kernels.viterbi_acs import KernelError, KernelRefusal
+
+    _as_on_card(monkeypatch)
+    tb = build_acs_tables(CODE_K7_CCSDS, 2)
+    S, R, B = tb.n_states, tb.n_slots, tb.llr_block
+    w = torch.as_tensor(tb.fused_w)
+    blocks, lam0 = torch.zeros(32, 3, B), torch.zeros(3, S)
+    hist0 = torch.zeros(64, 3, S // 16, dtype=torch.int32)
+    if case == "k1_w":
+        w = w.clone()
+        w[B:] = w[B:].roll(1, dims=0)
+    elif case == "k3_grid":
+        monkeypatch.setattr(viterbi_acs, "MAX_GRID_Y", 0)
+    elif case == "k2_alloc":
+        def no_memory(name):
+            raise RuntimeError("CUDA error: out of memory")
+
+        monkeypatch.setattr(viterbi_acs, "_library", no_memory)
+    else:
+        monkeypatch.setattr(viterbi_acs, "SMEM_LIMIT_BYTES", 0)
+    call = {
+        "k1": lambda: viterbi_acs.acs_forward(blocks, lam0, w, n_states=S, n_slots=R),
+        "k2": lambda: viterbi_acs.acs_decode_fused(
+            blocks, lam0, hist0, w, n_states=S, n_slots=R, k=7, rho=2, time_tile=32,
+            pack_survivors=True),
+        "k3": lambda: viterbi_acs.transfer_matrix(
+            blocks, w, n_states=S, n_slots=R, transfer_tile=32),
+    }[case[:2]]
+    match = {"k1_smem": "shared memory", "k1_w": "other predecessors",
+             "k2_smem": "shared memory", "k3_grid": "more than 0 blocks",
+             "k2_alloc": "_launch_k2 on the card.*out of memory"}[case]
+    before = (viterbi_acs.acs_forward.launches, viterbi_acs.acs_decode_fused.launches,
+              viterbi_acs.transfer_matrix.launches)
+    with pytest.raises(KernelError, match=match) as info:
+        call()
+    assert isinstance(info.value, KernelRefusal) == (case != "k2_alloc")
+    assert isinstance(info.value, ValueError) == (case != "k2_alloc")
+    assert (viterbi_acs.acs_forward.launches, viterbi_acs.acs_decode_fused.launches,
+            viterbi_acs.transfer_matrix.launches) == before
+
+
+def test_card_engine_has_no_plain_rung():
+    """An engine on the card degrades a stream cell to batch (K1) only:
+    the plain "stream_xla" rung would hide K2.  On the CPU the ladder is
+    the reference's."""
+    import torch
+
+    from repro_torch.serve import make_decode_engine
+
+    eng = make_decode_engine(device="cpu")
+    assert eng._ladder("stream") == ("stream", "stream_xla", "batch")
+    assert eng._ladder("time_parallel") == ("time_parallel", "batch")
+    eng.device = torch.device("cuda")
+    assert eng._ladder("stream") == ("stream", "batch")
+    assert eng._ladder("sharded") == ("sharded", "batch")
