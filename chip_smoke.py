@@ -181,6 +181,46 @@ which ends the run with a non-zero exit when it fails:
                Prints routes, padding, walls, sojourns and the phase's
                seconds against a budget of 60 s; the kernels line gains
                each kernel's ``serve_launches`` per route.
+ 13. launcher — the serving launcher through the port's own entry
+               points, in process: ``launch.serve.main`` with
+               ``--service viterbi`` at CONFIG's serving shape (512
+               streams x 65536 stages, 4 dB, one timed batch after the
+               warm-up) in each mode: ``tiled --use-kernel`` (every
+               stream's windows in one K2 launch), ``chunked
+               --use-kernel`` (16 K2 and the flush), ``batch`` (one K1),
+               ``sharded --use-kernel`` on ``frame_mesh()`` (one K2 a
+               card); ``time_parallel`` at 16 x 2^19 (one K3, one K1);
+               ``--optimized tiled --use-kernel``; wifi-11a-r34 tiled at
+               6 dB; lte-tbcc at 6 dB, 8192 x 128 (forced batch: WAVA,
+               one K1 a circulation).  Each call of the decode function
+               must launch exactly its kernels; BER <= 1e-3 at 4 dB (the
+               reference's expectation for the launcher), <= 1e-4 on
+               wifi-11a-r34, <= TBCC_BER_LIMIT on lte-tbcc; the timed
+               batch's bits equal a direct call of the entry point the
+               mode names on the same card LLRs (``decode_stream_tiled``
+               on the first, middle and last streams; the batch entry
+               points on the whole batch); each mode's decode function
+               on integer LLRs at 16 x 8192 (512 x 8192 batch, 16 x
+               65536 time-parallel, 512 lte-tbcc blocks), on the main
+               path's kernels, has every K1 and K3 call held bit for
+               bit to its plain version and every K2 call on its first,
+               middle and last tiles.  ``sharded_decode_time_parallel``
+               on four logical shards at 16 x 2^19 (one K3 and one K1 a
+               shard) on phase 9's AWGN codeword LLRs: bits == phase 9's
+               sequential decode, BER, its kernel calls held on integer
+               LLRs.  ``--service engine --slo mixed`` (128 requests of
+               ccsds-k7, wifi-11a-r34 and lte-tbcc) with
+               ``--metrics-jsonl``, each dispatch's launches held to its
+               route, no fault or error, then ``obs.top --jsonl`` on the
+               log; again with ``--chaos`` (a device failure, a timeout, a
+               compile error), ``--checkpoint-dir`` and ``--scrub-rate
+               0.25``: faults, retries, failover, checkpoints and the
+               scrubber's cadence as scheduled, nothing confirmed or
+               quarantined, the clean run's bit errors and paths.  Then the
+               ``main`` of ``obs.smoke``, ``runtime.chaos_smoke`` and
+               ``verify.scrub_smoke`` on the card, each exiting 0.  The
+               phase's seconds against a budget of 60 s; the kernels line
+               gains each kernel's ``launcher_launches`` per run.
 
 Parity: at TROPICAL every kernel is held bit for bit to its plain version.
 At LOGPROB the slot reduction is a logsumexp, whose expf/logf (CUDA) and
@@ -220,6 +260,7 @@ D_SWEEP, TT_SWEEP = 256, 32  # K2 sweep: ring depth and time tile, in steps
 CHUNK_LEN = 4096  # streaming chunk, in stages
 N_TILED = 2**20  # decode_1m: one stream of 2^20 stages
 F_TP, N_TP = 16, 2**19  # decode_512k_f16: the time-parallel latency shape
+TP_CELL = {}  # phase 9's AWGN codeword LLRs and their sequential decode, for phase 13
 T_K3, TT_K3 = 4096, 64  # K3 sweep: radix steps and transfer tile
 SWEEP_FRAMES = (1, 4, 16, 64, 256)  # budget sweep at N_FULL stages
 F_SOFT = 64  # decode_soft("llr"): decode_64k's frame length at 1/8 of its frames
@@ -794,6 +835,8 @@ def time_parallel_phase(decoder, llrs, gen, tables, w):
         lambda: decoder.decode_batch(llrs_tp, time_parallel=False))
     print(f"AWGN: {int((bits != bits_seq).sum())} bits differ from the "
           "sequential path")
+    # phase 13 holds the time-sharded decode to this sequential decode
+    TP_CELL.update(llrs=llrs_tp, bits_seq=bits_seq, info=info)
     del bits_seq
     bits_q = decoder.decode_batch(quant, time_parallel=True)
     bits_qs = decoder.decode_batch(quant, time_parallel=False)
@@ -2246,6 +2289,351 @@ def serve_phase(dev):
     return per_route, {"K3-LOGPROB": err}
 
 
+# -- phase 13: the serving launcher -------------------------------------------
+
+LAUNCH_BER_LIMIT = 1e-3  # the reference's expectation for the launcher at 4 dB
+LAUNCH_HOLD_STREAMS, LAUNCH_HOLD_LEN = 16, 8192  # integer-LLR runs: streams x stages
+LAUNCH_HOLD_TBCC = 512  # integer-LLR run of lte-tbcc: blocks
+LAUNCH_HOLD_TP_LEN = 65536  # integer-LLR runs of the time-parallel paths: stages
+LAUNCH_SHARDS = 4  # logical shards of the time-sharded decode
+LAUNCH_ENGINE = ("--service", "engine", "--slo", "mixed", "--streams", "64",
+                 "--stream-len", "8192", "--batches", "2")
+LAUNCH_CHAOS = (("device_failure", 0), ("timeout", 2), ("compile_error", 4))
+# every 4th dispatch scrubbed (the scrubber's cadence): 2 of the engine
+# run's 8 dispatches; at 0.1 it would sample none of them
+LAUNCH_SCRUB_RATE = 0.25
+LAUNCH_SMOKE_REPS = 5  # obs.smoke's timed repetitions a mode
+LAUNCH_BUDGET_S = 60  # phase 13's time budget, printed beside its seconds
+
+
+def launcher_modes():
+    """(label, argv, {kernel: launches} of each call of the decode
+    function, the entry point its bits are held to, BER limit, (streams,
+    stages) of its integer-LLR run) of every ``--service viterbi`` run of
+    phase 13."""
+    from repro_torch.codes.tailbiting import DEFAULT_WAVA_ITERS
+
+    def shape(f, n):
+        return ["--service", "viterbi", "--streams", str(f), "--stream-len", str(n),
+                "--batches", "1"]
+
+    full, hold = shape(F_FULL, N_FULL), (LAUNCH_HOLD_STREAMS, LAUNCH_HOLD_LEN)
+    k2 = ["--use-kernel"]
+    return (
+        ("tiled", full + ["--mode", "tiled"] + k2, {"K2": 1}, "tiled",
+         LAUNCH_BER_LIMIT, hold),
+        ("chunked", full + ["--mode", "chunked"] + k2, {"K2": N_FULL // CHUNK_LEN},
+         "chunked", LAUNCH_BER_LIMIT, hold),
+        # 512 frames at the smaller depth: F x S stays over the card's
+        # time-parallel budget, so the run keeps the sequential path
+        ("batch", full + ["--mode", "batch"], {"K1": 1}, "batch", LAUNCH_BER_LIMIT,
+         (F_FULL, LAUNCH_HOLD_LEN)),
+        ("sharded", full + ["--mode", "sharded"] + k2,
+         {"K2": torch.cuda.device_count()}, "tiled", LAUNCH_BER_LIMIT, hold),
+        ("time_parallel", shape(F_TP, N_TP) + ["--mode", "time_parallel"],
+         {"K3": 1, "K1": 1}, "time_parallel", LAUNCH_BER_LIMIT,
+         (F_TP, LAUNCH_HOLD_TP_LEN)),
+        ("tiled --optimized", full + ["--optimized", "--mode", "tiled"] + k2,
+         {"K2": 1}, "tiled", LAUNCH_BER_LIMIT, hold),
+        ("wifi-11a-r34 tiled", full + ["--code", "wifi-11a-r34", "--ebn0",
+                                       str(EBN0_CODES), "--mode", "tiled"] + k2,
+         {"K2": 1}, "tiled", BER_LIMIT, hold),
+        ("lte-tbcc", shape(F_TBCC_CELL, N_TBCC_CELL) + [
+            "--code", "lte-tbcc", "--ebn0", str(EBN0_CODES)],
+         {"K1": DEFAULT_WAVA_ITERS}, "tailbiting", TBCC_BER_LIMIT,
+         (LAUNCH_HOLD_TBCC, N_TBCC_CELL)),
+    )
+
+
+def launcher_run(label, argv, want):
+    """``launch.serve.main(argv)``, the main path of one mode: counts
+    zeroed just before, read just after, and each call of the decode
+    function ``_viterbi_run_fn`` built (the warm-up and the timed batch)
+    counted on its own; fails unless every call launched ``want``.
+    Returns (the launcher's report, the launches read)."""
+    from repro_torch.launch import serve
+
+    calls, build = [], serve._viterbi_run_fn
+
+    def counted_build(vcfg, args):
+        run = build(vcfg, args)
+
+        def counted(llrs):
+            before = launch_counts()
+            out = run(llrs)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            calls.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+            return out
+        counted.mesh = getattr(run, "mesh", None)
+        return counted
+
+    serve._viterbi_run_fn = counted_build
+    zero_counts()
+    try:
+        (rep, wall), paths = dispatched(lambda: host_ms(lambda: serve.main(argv)))
+    finally:
+        serve._viterbi_run_fn = build
+    got = {k: v for k, v in launch_counts().items() if v}
+    print(f"launcher {label}: {len(calls)} calls of the decode function (the warm-up "
+          f"and the timed batch), launches a call {calls}, in all {got}; dispatch "
+          f"{paths}; main() {wall:.3f} ms (host clock, input drawn on the card "
+          f"included)", flush=True)
+    print(f"time launcher {label}: the timed batch {rep['seconds'] * 1e3:.3f} ms "
+          f"(host clock, its draw on the card included, as the report line times "
+          f"it), {rep['mbps']:.3f} Mb/s", flush=True)
+    if len(calls) < 2 or any(c != want for c in calls):
+        fail(f"launcher {label}: launched {calls}, not {want} a call")
+    return rep, got
+
+
+def launcher_direct(label, kind, args, vcfg, rep, dev):
+    """Hold the timed batch's bits to a direct call, on the same card LLRs,
+    of the entry point the mode names: ``decode_stream_tiled`` on the
+    first, middle and last streams, or the batch entry point on the whole
+    batch."""
+    from repro_torch.serve.step import make_viterbi_decoder
+
+    _, llrs, out = rep["last"]
+    dec = make_viterbi_decoder(vcfg, decision_depth=args.decision_depth,
+                               one_pass=args.use_kernel, device=dev)
+    if kind == "tiled":
+        cfg = dec.default_tiled_config(vcfg.tiled)
+        n = llrs.shape[0]
+        for i in sorted({0, n // 2, n - 1}):
+            if not torch.equal(out[i], dec.decode_stream_tiled(llrs[i], cfg)):
+                fail(f"launcher {label}: stream {i} differs from decode_stream_tiled")
+        print(f"launcher {label}: streams 0, {n // 2} and {n - 1} equal "
+              f"decode_stream_tiled on each alone", flush=True)
+        return
+    if kind == "chunked":
+        want = dec.decode_stream_chunked(llrs, chunk_len=args.chunk_len,
+                                         initial_state=None)
+    elif kind == "batch":
+        want = dec.decode_batch(llrs, initial_state=None, final_state=None)
+    elif kind == "time_parallel":
+        want = dec.decode_batch(llrs, initial_state=None, final_state=None,
+                                time_parallel=True)
+    else:
+        want = dec.decode_tailbiting(llrs)[0]
+    gate_equal(f"launcher {label}: bits == a direct {kind} call on the whole batch",
+               out, want)
+
+
+def launcher_hold(label, args, vcfg, shape, dev, want):
+    """The mode's decode function on integer LLRs at a smaller shape, on
+    the main path's kernels (``want``'s): every K1 and K3 call held bit
+    for bit to its plain version, every K2 call on its first, middle and
+    last tiles."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import ChannelStream
+    from repro_torch.launch import serve
+
+    f, n = shape
+    small = dataclasses.replace(vcfg, stream_len=n, batch_streams=f)
+    run = serve._viterbi_run_fn(small, args)
+    _, llrs = ChannelStream(spec=small.spec, n_streams=f, stream_len=n,
+                            ebn0_db=args.ebn0, code=args.code, seed=SEED + 13,
+                            device=dev).batch_at(0)
+    quant = torch.clamp(torch.round(llrs), -16, 16)
+    _, st = kept_run(lambda: run(quant), ("K1", "K2", "K3"))
+    kernels = {c[0] for c in st.kept}
+    if kernels != set(want):
+        fail(f"launcher {label} (integer LLRs, {f} x {n}) ran {sorted(kernels)}, "
+             f"not the main path's {sorted(want)}")
+    exact = [i for i, c in enumerate(st.kept) if c[0] in ("K1", "K3")]
+    k2 = [i for i, c in enumerate(st.kept) if c[0] == "K2"]
+    if exact:
+        hold_kept(f"launcher {label} (integer LLRs, {f} x {n})", st, pick=exact)
+    for j, i in enumerate(k2, 1):
+        hold_k2_tiles(f"launcher {label} K2 call {j} of {len(k2)} (integer LLRs, "
+                      f"{f} x {n})", st.kept[i])
+
+
+def launcher_time_sharded(dev):
+    """``sharded_decode_time_parallel`` on four logical shards of the card
+    at decode_512k_f16's shape, on phase 9's AWGN codeword LLRs: one K3
+    and one K1 a shard, BER, bits == phase 9's sequential decode; then
+    its kernel calls held on an integer-LLR run.  Returns the launches."""
+    from repro_torch.core import CODE_K7_CCSDS
+    from repro_torch.distributed import frame_mesh, sharded_decode_time_parallel
+
+    llrs, bits_seq, info = TP_CELL["llrs"], TP_CELL["bits_seq"], TP_CELL["info"]
+    mesh = frame_mesh(LAUNCH_SHARDS, axis="tiles", device=dev)
+    label = f"sharded_decode_time_parallel ({LAUNCH_SHARDS} shards, {F_TP} x {N_TP})"
+
+    def decode(x):
+        return sharded_decode_time_parallel(x, CODE_K7_CCSDS, mesh=mesh,
+                                            initial_state=0)
+
+    zero_counts()
+    bits, wall = host_ms(lambda: decode(llrs))
+    got = {k: v for k, v in launch_counts().items() if v}
+    print(f"{label}: launches {got}; wall {wall:.3f} ms (host clock)", flush=True)
+    if got != {"K3": LAUNCH_SHARDS, "K1": LAUNCH_SHARDS}:
+        fail(f"{label} launched {got}, not one K3 and one K1 a shard")
+    gate_ber(f"{label} AWGN", bits, info, BER_LIMIT)
+    if not torch.equal(bits, bits_seq):
+        rows, gap, mag = path_metric_ties(llrs, bits, bits_seq, CODE_K7_CCSDS)
+        fail(f"{label}: {int((bits != bits_seq).sum())} bits in {rows} frames differ "
+             f"from the sequential path (largest path-metric gap {gap!r} at "
+             f"|metric| up to {mag!r})")
+    print(f"{label}: bits == the sequential path's (phase 9's decode_batch on the "
+          f"same AWGN codeword LLRs)", flush=True)
+    walls = sorted(host_ms(lambda: decode(llrs))[1] for _ in range(3))
+    print(f"time {label}: wall {walls[1]:.3f} ms (median of "
+          f"{', '.join(f'{w:.3f}' for w in walls)}; host clock); decoded "
+          f"{mbps(F_TP * N_TP, walls[1])}", flush=True)
+    quant = torch.clamp(torch.round(llrs[:, :LAUNCH_HOLD_TP_LEN]), -16, 16)
+    _, st = kept_run(lambda: decode(quant), ("K1", "K3"))
+    hold_kept(f"{label} (integer LLRs, {F_TP} x {LAUNCH_HOLD_TP_LEN})", st)
+    return got
+
+
+def launcher_engine(label, argv):
+    """``launch.serve.main(argv)`` of the engine service, the engine it
+    builds logged by ``RouteLog``: counts zeroed just before, read just
+    after.  Returns (report, the launches read, the engine, its
+    RouteLog)."""
+    from repro_torch.launch import serve
+    from repro_torch.serve import step as step_mod
+
+    made, make = [], step_mod.make_decode_engine
+
+    def logged(**kw):
+        engine = make(**kw)
+        made.append((engine, RouteLog(engine)))
+        return engine
+
+    step_mod.make_decode_engine = logged
+    zero_counts()
+    try:
+        rep, wall = host_ms(lambda: serve.main(argv))
+    finally:
+        step_mod.make_decode_engine = make
+    got = {k: v for k, v in launch_counts().items() if v}
+    engine, log = made[0]
+    print(f"launcher {label}: {rep['requests']} requests, launches {got}, per route "
+          f"{log.per_route()}; errors {rep['errored']}, dropped {rep['dropped']}; BER "
+          f"{rep['ber']:.3e} (printed, not gated); main() {wall:.3f} ms (host clock, "
+          f"input drawn on the card included)", flush=True)
+    if rep["errored"] or rep["dropped"]:
+        fail(f"launcher {label}: {rep['errored']} requests errored, "
+             f"{rep['dropped']} dropped")
+    return rep, got, engine, log
+
+
+def launcher_gate_main(label, module, argv):
+    """A gate's ``main(argv)`` on the card: counts zeroed just before, read
+    just after; fails unless it returns 0 (its assertions end the run)."""
+    t0 = time.perf_counter()
+    zero_counts()
+    try:
+        rc = module.main(argv)
+    except AssertionError as exc:
+        fail(f"{label} failed its gate: {exc}")
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    print(f"{' '.join([label] + argv)}: exit {rc}; launches {got}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if rc != 0:
+        fail(f"{label} exited {rc}")
+    return got
+
+
+def launcher_phase(dev):
+    """Phase 13: the serving launcher on the card, through the port's own
+    entry points: ``launch.serve.main`` in each ``--mode`` and config,
+    ``sharded_decode_time_parallel`` on four shards, the engine service
+    (clean with its metrics log, then under chaos with checkpoints and
+    scrubbing) and ``obs.top`` on its log, and the three gate mains.
+    Returns {run: {kernel: launches}} of the main-path runs."""
+    import json as json_mod
+    import tempfile
+
+    from repro_torch.launch import serve
+    from repro_torch.obs import smoke as obs_smoke
+    from repro_torch.obs import top
+    from repro_torch.runtime import chaos_smoke
+    from repro_torch.runtime.chaos import ChaosSchedule, FaultEvent
+    from repro_torch.verify import scrub_smoke
+
+    t_phase = time.perf_counter()
+    launches = {}
+    print(f"phase 13 (launcher): launch.serve --service viterbi at {F_FULL} x {N_FULL} "
+          f"stages, each mode in turn", flush=True)
+    for label, argv, want, kind, limit, hold in launcher_modes():
+        t0 = time.perf_counter()
+        rep, launches[label] = launcher_run(label, argv, want)
+        args = serve._parser().parse_args(argv)
+        vcfg = serve._viterbi_config(args)
+        bits, _, out = rep["last"]
+        gate_ber(f"launcher {label} ({rep['tag']}, the timed batch)", out, bits, limit)
+        launcher_direct(label, kind, args, vcfg, rep, dev)
+        del rep, bits, out
+        launcher_hold(label, args, vcfg, hold, dev, want)
+        print(f"launcher {label} took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    launches["sharded_decode_time_parallel"] = launcher_time_sharded(dev)
+    print(f"time-sharded decode took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        jsonl = str(Path(tmp) / "engine.jsonl")
+        rep, launches["engine"], engine, log = launcher_engine(
+            "engine", list(LAUNCH_ENGINE) + ["--metrics-jsonl", jsonl])
+        serve_gate_launches("launcher engine", log)
+        serve_clean_stats("launcher engine", engine)
+        if top.main(["--jsonl", jsonl]) != 0:
+            fail("obs.top --jsonl: no metrics line in the engine's log")
+        clean_errors, clean = rep["errors"], rep["stats"]
+        del rep, engine, log
+
+        sched = Path(tmp) / "chaos.json"
+        sched.write_text(json_mod.dumps(ChaosSchedule([
+            FaultEvent(at=at, kind=kind, **({"device": 0} if kind == "device_failure"
+                                            else {}))
+            for kind, at in LAUNCH_CHAOS]).to_json()))
+        rep, launches["engine --chaos"], engine, _ = launcher_engine(
+            "engine --chaos --checkpoint-dir --scrub-rate", list(LAUNCH_ENGINE) + [
+                "--chaos", str(sched), "--checkpoint-dir", str(Path(tmp) / "ckpt"),
+                "--scrub-rate", str(LAUNCH_SCRUB_RATE)])
+        s = rep["stats"]
+        want_faults = {kind: 1 for kind, _ in LAUNCH_CHAOS}
+        print(f"launcher engine --chaos: faults {s['faults']}, retries {s['retries']}, "
+              f"degraded {s['degraded']}, failovers {s['failovers']}, checkpoints "
+              f"{s['checkpoints']}; scrub {s['scrub']}, quarantined "
+              f"{s['quarantined']}", flush=True)
+        sc, want_sampled = s["scrub"], int(s["batches"] * LAUNCH_SCRUB_RATE + 1e-9)
+        if (s["faults"] != want_faults or s["retries"] != len(LAUNCH_CHAOS)
+                or s["degraded"] or s["failovers"] != 1 or not s["checkpoints"]
+                or sc["sampled"] != want_sampled or sc["frames"] < want_sampled
+                or sc["confirmed"] or sc["syndrome_flags"] != sc["false_alarms"]
+                or s["quarantined"]):
+            fail(f"launcher engine --chaos: not as scheduled (want faults "
+                 f"{want_faults}, {len(LAUNCH_CHAOS)} retries, 1 failover, a "
+                 f"checkpoint, {want_sampled} of {s['batches']} dispatches scrubbed "
+                 f"with every flag cleared by the shadow decode)")
+        if rep["errors"] != clean_errors or s["paths"] != clean["paths"]:
+            fail(f"launcher engine --chaos: {rep['errors']} bit errors on paths "
+                 f"{s['paths']}, the clean run {clean_errors} on {clean['paths']}")
+        print(f"launcher engine --chaos: the clean run's bit errors "
+              f"({clean_errors}) and paths", flush=True)
+        del rep, engine
+        print(f"launcher engine runs took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    for label, module, argv in (
+            ("obs.smoke", obs_smoke, ["--reps", str(LAUNCH_SMOKE_REPS)]),
+            ("runtime.chaos_smoke", chaos_smoke, []),
+            ("verify.scrub_smoke", scrub_smoke, [])):
+        launches[label] = launcher_gate_main(label, module, argv)
+    print(f"phase 13 (launcher) took {time.perf_counter() - t_phase:.1f} s "
+          f"(budget {LAUNCH_BUDGET_S} s)", flush=True)
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2705,6 +3093,7 @@ def main() -> None:
     del llrs, quant, bits, info
     codes_launches, codes_err = codes_phase(dev)
     serve_launches, serve_err = serve_phase(dev)
+    launcher_launches = launcher_phase(dev)
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s")
 
     rows = [k1_row, {
@@ -2725,14 +3114,16 @@ def main() -> None:
         "library_ms": None,
     }, k3_row, *logprob_rows]
     # each kernel's launches on phase 11's paths, each its own main run,
-    # and on phase 12's routes in its clean run, and its largest error
-    # there against its plain version
+    # on phase 12's routes in its clean run and on phase 13's launcher
+    # runs, and its largest error there against its plain version
     for row in rows:
         kernel = row["name"].split()[0]
         row["codes_launches"] = {path: counts[kernel] for path, counts
                                  in codes_launches.items() if kernel in counts}
         row["serve_launches"] = {path: counts[kernel] for path, counts
                                  in serve_launches.items() if kernel in counts}
+        row["launcher_launches"] = {run: counts[kernel] for run, counts
+                                    in launcher_launches.items() if kernel in counts}
         row["max_abs_err"] = max(row["max_abs_err"], codes_err.get(kernel, 0.0),
                                  serve_err.get(kernel, 0.0))
     print(json.dumps({"kernels": rows}))

@@ -39,8 +39,8 @@ re-inserts zero-LLR erasures (``depunctured``); the depunctured stages
 flow through the same kernels.  Its decision depth and tiled overlap are
 stretched by the puncture expansion.
 
-The reference's ``from_config`` belongs to a later slice of the port and
-raises ``NotImplementedError`` naming it.
+``from_config`` builds a decoder from a ``configs/viterbi_k7.py``
+service config.
 
 Entry points run on the card: ``device=None`` resolves to ``"cuda"`` and
 raises where there is none; the CPU is used only when asked for.
@@ -196,13 +196,6 @@ def _flush_step(
     return traceback(hist, fs, tables)  # (F, D*rho)
 
 
-def _later(what: str, slice_name: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: it belongs to the {slice_name} slice "
-        "of the PyTorch/CUDA port"
-    )
-
-
 class ViterbiDecoder:
     """One front door per (code, radix, precision, device).
 
@@ -339,6 +332,55 @@ class ViterbiDecoder:
             transfer_tile=transfer_tile,
             validate_inputs=validate_inputs,
             sanitize=sanitize,
+            device=device,
+        )
+
+    @classmethod
+    def from_config(
+        cls,
+        vcfg,
+        precision: Optional[AcsPrecision] = None,
+        use_kernel: bool = True,
+        decision_depth: Optional[int] = None,
+        one_pass: Optional[bool] = None,
+        device=None,
+    ) -> "ViterbiDecoder":
+        """Build from a ``configs.viterbi_k7.ViterbiConfig`` (the one
+        config -> decoder mapping; ``serve/step.py`` delegates here).  A
+        config naming a registry standard (``vcfg.code``) inherits its
+        puncture pattern and termination, and its spec must be that
+        standard's; the kernel-geometry fields (``time_tile``,
+        ``block_frames``, ``time_parallel``, ``transfer_tile``) and
+        ``pack_survivors`` carry over.  ``use_kernel`` defaults to True
+        (the reference's default is False); ``one_pass`` (None: follow
+        ``use_kernel``, as the reference does) and ``device`` (None: the
+        card) are the port's additions."""
+        puncture, termination = None, "zero"
+        code_name = getattr(vcfg, "code", None)
+        if code_name:
+            from repro_torch.codes.registry import get_code
+
+            code = get_code(code_name)
+            if code.spec != vcfg.spec:
+                raise ValueError(
+                    f"config spec {vcfg.spec} != standard {code_name} "
+                    f"spec {code.spec}"
+                )
+            puncture, termination = code.puncture, code.termination
+        return cls(
+            spec=vcfg.spec,
+            rho=vcfg.rho,
+            precision=precision or vcfg.precision,
+            use_kernel=use_kernel,
+            pack_survivors=getattr(vcfg, "pack_survivors", False),
+            decision_depth=decision_depth or DEFAULT_DECISION_DEPTH,
+            puncture=puncture,
+            termination=termination,
+            time_tile=getattr(vcfg, "time_tile", None),
+            block_frames=getattr(vcfg, "block_frames", None),
+            time_parallel=getattr(vcfg, "time_parallel", None),
+            transfer_tile=getattr(vcfg, "transfer_tile", None),
+            one_pass=one_pass,
             device=device,
         )
 
@@ -805,12 +847,6 @@ class ViterbiDecoder:
             use_kernel=self.use_kernel,
             pack_survivors=self.pack_survivors,
         )
-
-    # -- entry points of later slices -------------------------------------
-
-    @classmethod
-    def from_config(cls, vcfg, **kw):
-        _later("from_config", "tooling")
 
     # -- soft output --------------------------------------------------------
 

@@ -18,7 +18,8 @@ The traceback is plain PyTorch, as it is plain jnp in the reference.
 (paper §III): through K2 (one pass, the traceback in the kernel) when
 the reference's one-pass rule admits the window, through the
 time-parallel decode (``core/timeparallel.py``) when its plan picks it,
-else two-pass.
+else two-pass.  ``tiled_decode_streams`` does the same for N streams in
+one window decode, their windows folded into the frame axis.
 
 Precision follows the paper's Fig. 13 axes (``AcsPrecision``): matmul
 inputs may be bf16, products and sums are f32, and the carry may be
@@ -58,6 +59,7 @@ __all__ = [
     "decode_frames",
     "TiledDecoderConfig",
     "tiled_decode_stream",
+    "tiled_decode_streams",
     "NEG",
 ]
 
@@ -402,11 +404,46 @@ def tiled_decode_stream(
     ``time_parallel_plan`` picks it for this device, and else through
     ``decode_frames``.  An explicit ``time_parallel=True`` beats an
     eligible one-pass plan; on auto the one-pass plan wins, as in the
-    reference.
+    reference.  This is ``tiled_decode_streams`` on a batch of one.
+    """
+    llrs = torch.as_tensor(llrs)
+    return tiled_decode_streams(
+        llrs[None], spec, cfg, precision, use_kernel, pack_survivors,
+        one_pass, time_tile, block_frames, time_parallel, transfer_tile,
+        device,
+    )[0]
+
+
+def tiled_decode_streams(
+    llrs,
+    spec: CodeSpec,
+    cfg: TiledDecoderConfig = TiledDecoderConfig(),
+    precision: AcsPrecision = AcsPrecision(),
+    use_kernel: bool = True,
+    pack_survivors: bool = False,
+    one_pass: bool = False,
+    time_tile: Optional[int] = None,
+    block_frames: Optional[int] = None,
+    time_parallel: Optional[bool] = None,
+    transfer_tile: Optional[int] = None,
+    device=None,
+) -> torch.Tensor:
+    """``tiled_decode_stream`` of N streams (N, n, beta) at once: every
+    stream's windows are folded into the frame axis of ONE window decode
+    (one K2 launch, or one ``decode_frames`` or ``decode_time_parallel``
+    call), never a loop over the streams.  Returns (N, n) int32 bits.
+
+    The reference maps ``tiled_decode_stream`` over the streams
+    (``jax.vmap``), so each stream picks its path from its own window
+    count; here too: the one-pass rule takes no frame count, and the
+    time-parallel plan is asked with one stream's windows.  Each stream's
+    edge pads are its own (its first window starts ``overlap`` zero
+    stages before it, its last ends ``overlap`` after), so each row of
+    the result is what ``tiled_decode_stream`` returns for that stream.
     """
     dev = resolve_device(device)
     llrs = torch.as_tensor(llrs, device=dev).to(torch.float32)
-    n, beta = llrs.shape
+    N, n, beta = llrs.shape
     f, v = cfg.frame_len, cfg.overlap
     n_windows = -(-n // f)
     padded_len = n_windows * f + 2 * v
@@ -415,7 +452,8 @@ def tiled_decode_stream(
         torch.arange(n_windows, device=dev)[:, None] * f
         + torch.arange(cfg.window, device=dev)[None, :]
     )
-    frames = padded[idx]  # (n_windows, window, beta)
+    # (N * n_windows, window, beta), stream-major
+    frames = padded[:, idx].reshape(N * n_windows, cfg.window, beta)
     tp_tile = time_parallel_plan(
         n_windows, cfg.window // cfg.rho, spec.n_states,
         time_parallel, transfer_tile, device_underfill_rows(dev),
@@ -428,7 +466,7 @@ def tiled_decode_stream(
     # on auto, an eligible one-pass plan wins
     if plan is not None and not (time_parallel is True and tp_tile):
         center = _one_pass_windows(frames, spec, cfg, precision, *plan)
-        return center.reshape(-1)[:n]
+        return center.reshape(N, n_windows * f)[:, :n]
     if tp_tile is not None:
         from .timeparallel import decode_time_parallel
 
@@ -443,4 +481,4 @@ def tiled_decode_stream(
             precision=precision, use_kernel=use_kernel,
             pack_survivors=pack_survivors, device=dev,
         )
-    return decoded[:, v:v + f].reshape(-1)[:n]
+    return decoded[:, v:v + f].reshape(N, n_windows * f)[:, :n]

@@ -1,5 +1,5 @@
-"""Multi-device decode: so far the frame-sharded batch decode over a
-``FrameMesh`` and the mesh helpers the serving engine routes and fails
+"""Multi-device decode: the frame-, stream- and time-sharded decodes over
+a ``FrameMesh`` and the mesh helpers the serving engine routes and fails
 over with (``distributed.decoder``)."""
 from .decoder import (  # noqa: F401
     FrameMesh,
@@ -7,4 +7,6 @@ from .decoder import (  # noqa: F401
     frame_mesh,
     replan_mesh,
     sharded_decode_frames,
+    sharded_decode_streams,
+    sharded_decode_time_parallel,
 )

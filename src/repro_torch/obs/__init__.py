@@ -1,9 +1,30 @@
-"""Observability for the port: the metrics registry and span tracing.
+"""Observability for the port: the metrics registry and span tracing,
+dependency-free and zero-cost when disabled.
 
-The reference's device-profile adapter (``obs/profile.py``), ``obs/top``
-and ``obs/smoke`` are not ported yet.
+  * :mod:`repro_torch.obs.metrics` — ``MetricsRegistry`` of counters,
+    gauges and fixed power-of-two-bucket histograms keyed by the serving
+    layer's (code, path, F-rung, T-rung) cell labels, with Prometheus
+    text and plain-dict snapshot exporters.
+  * :mod:`repro_torch.obs.trace` — ``SpanRecorder``/``span(...)`` nested
+    spans with a JSONL event-log sink.
+
+``Observability`` bundles one registry and one recorder (and an optional
+JSONL sink) for handing to ``DecodeEngine``; the module-level
+``default_registry()`` is a ``NullRegistry`` until one is installed, so
+library-level instrumentation (the decoder's path counters) costs
+nothing by default.
+
+CLI entry points: ``python -m repro_torch.obs.top`` (terminal snapshot)
+and ``python -m repro_torch.obs.smoke`` (the gate).
+
+The reference's device-profile adapter (``obs/profile.py``: modelled
+bytes, operations and trip-count depth per dispatch, priced with a TPU
+roofline) is not ported yet: the engine's dispatch spans carry no
+modelled attributes.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 from repro_torch.obs.metrics import (
     POW2_BUCKETS,
@@ -35,4 +56,45 @@ __all__ = [
     "SpanRecorder",
     "NullRecorder",
     "JsonlSink",
+    "Observability",
 ]
+
+
+class Observability:
+    """One registry and one recorder, wired together.
+
+    ``Observability(jsonl=path)`` opens a :class:`JsonlSink` shared by
+    the recorder (span and event lines) and :meth:`dump_metrics` (metrics
+    lines): one event log in one file.  With ``enabled=False`` the
+    recorder is the shared no-op and no sink is opened; the registry
+    stays real (it is cheap and backs ``stats()``-style accessors).
+    """
+
+    def __init__(self, enabled: bool = True, jsonl: Optional[str] = None,
+                 clock=None, registry: Optional[MetricsRegistry] = None):
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self.sink = JsonlSink(jsonl) if (jsonl and enabled) else None
+        if enabled:
+            kw = {"sink": self.sink}
+            if clock is not None:
+                kw["clock"] = clock
+            self.recorder: SpanRecorder = SpanRecorder(**kw)
+        else:
+            self.recorder = NullRecorder()
+
+    @property
+    def enabled(self) -> bool:
+        return self.recorder.enabled
+
+    def dump_metrics(self) -> None:
+        """Append one ``{"type": "metrics", ...}`` snapshot line to the
+        JSONL sink (a no-op without a sink)."""
+        if self.sink is not None:
+            self.sink.write(
+                {"type": "metrics", "data": self.registry.snapshot()}
+            )
+
+    def close(self) -> None:
+        self.dump_metrics()
+        if self.sink is not None:
+            self.sink.close()

@@ -1,9 +1,15 @@
 """Serving: the multi-tenant ``DecodeEngine`` with dynamic batch assembly
-(``serve.engine``) and its factory (``serve.step.make_decode_engine``)."""
+(``serve.engine``), and the step factories of ``serve.step``
+(``make_viterbi_decoder``, ``make_viterbi_serve_step``,
+``make_decode_engine``)."""
 from .engine import (  # noqa: F401
     DEGRADATION_LADDER,
     DecodeEngine,
     DecodeRequest,
     Ticket,
 )
-from .step import make_decode_engine  # noqa: F401
+from .step import (  # noqa: F401
+    make_decode_engine,
+    make_viterbi_decoder,
+    make_viterbi_serve_step,
+)

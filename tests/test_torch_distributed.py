@@ -1,14 +1,16 @@
-"""Frame-sharded decode: ``repro_torch.distributed.decoder`` against
+"""Sharded decode: ``repro_torch.distributed.decoder`` against
 ``repro.distributed.decoder`` and the reference's ``decode_batch``.
 
 The port's ``FrameMesh`` puts logical shards on one CPU device; each
-shard runs the single-device program on its own frames.  The reference's
-multi-device runs need ``--xla_force_host_platform_device_count`` set
-before JAX starts, so they run in one subprocess (4 host devices), which
-decodes the same numpy inputs through the reference's
-``sharded_decode_frames``, re-plans its mesh, and replays an engine trace
-under a chaos schedule that fails its devices one by one; the port's
-results must equal what it writes back.
+shard runs the single-device program on its own frames, streams or time
+span.  The reference's multi-device runs need
+``--xla_force_host_platform_device_count`` set before JAX starts, so
+they run in one subprocess (4 host devices), which decodes the same
+numpy inputs through the reference's ``sharded_decode_frames``,
+``sharded_decode_streams`` and ``sharded_decode_time_parallel``,
+re-plans its mesh, and replays an engine trace under a chaos schedule
+that fails its devices one by one; the port's results must equal what it
+writes back.
 """
 import json
 import os
@@ -30,8 +32,10 @@ import json, sys
 import numpy as np
 import jax.numpy as jnp
 from repro.core.trellis import CodeSpec
+from repro.core.viterbi import TiledDecoderConfig
 from repro.distributed.decoder import (
-    engine_dispatch_ready, frame_mesh, replan_mesh, sharded_decode_frames)
+    engine_dispatch_ready, frame_mesh, replan_mesh, sharded_decode_frames,
+    sharded_decode_streams, sharded_decode_time_parallel)
 from repro.runtime.chaos import ChaosInjector, ChaosSchedule
 from repro.serve.engine import DecodeEngine, DecodeRequest
 
@@ -46,6 +50,16 @@ for fin in (None, 0):
     bits[f"frames_{fin}"] = np.asarray(sharded_decode_frames(
         jnp.asarray(data["frames"]), spec, rho=2, mesh=mesh,
         initial_state=0, final_state=fin))
+for op in (False, True):
+    bits[f"streams_{op}"] = np.asarray(sharded_decode_streams(
+        jnp.asarray(data["streams"]), spec, TiledDecoderConfig(), mesh=mesh,
+        use_kernel=op, one_pass=op))
+tmesh = frame_mesh(axis="tiles")
+for kind in ("awgn", "int"):
+    for fin in (None, 0):
+        bits[f"tp_{kind}_{fin}"] = np.asarray(sharded_decode_time_parallel(
+            jnp.asarray(data[f"tp_{kind}"]), spec, mesh=tmesh, initial_state=0,
+            final_state=fin, transfer_tile=16))
 res["replan"] = {}
 for failed in ([], [3], [1, 3], [0, 1, 2], [0, 1, 2, 3]):
     m = replan_mesh(mesh, failed)
@@ -96,10 +110,25 @@ def _frames():
     return np.round(4 * rng.normal(0.5, 1.0, (5, 64, 2))).astype(np.float32)
 
 
+def _streams():
+    """Seven unflushed ccsds-k7 streams of 300 stages (integer LLRs): 7
+    does not divide 2 or 4 shards."""
+    return np.stack([_llrs("ccsds-k7", 300, 900 + i, flushed=False)
+                     for i in range(7)])
+
+
+def _tp_llrs():
+    """Three zero-terminated ccsds-k7 codewords of 512 stages, AWGN LLRs
+    at LLR mean 1.6 and their integer copy: 256 steps, 64 a shard."""
+    awgn = np.stack([_llrs("ccsds-k7", 512, 950 + i, mu=1.6) for i in range(3)])
+    return {"tp_awgn": awgn.astype(np.float32),
+            "tp_int": np.round(awgn).astype(np.float32)}
+
+
 @pytest.fixture(scope="module")
 def reference_run(tmp_path_factory):
     out = tmp_path_factory.mktemp("ref4")
-    arrays = {"frames": _frames()}
+    arrays = {"frames": _frames(), "streams": _streams(), **_tp_llrs()}
     for i, (n, flushed) in enumerate(REQS):
         arrays[f"req{i}"] = _llrs("ccsds-k7", n, 400 + i, flushed=flushed)
     np.savez(out / "in.npz", **arrays)
@@ -240,3 +269,74 @@ def test_decode_sharded_depunctures_and_refuses_tail_biting():
     tb = ViterbiDecoder.from_standard("lte-tbcc", device="cpu")
     with pytest.raises(NotImplementedError, match="tail-biting"):
         tb.decode_sharded(np.zeros((2, 40, 3), np.float32))
+
+
+@pytest.mark.parametrize("one_pass", [False, True])
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_sharded_streams_equal_the_four_device_reference(reference_run, shards,
+                                                         one_pass):
+    """``sharded_decode_streams`` on 1, 2 and 4 shards (7 streams: padded
+    on 2 and 4) against the reference's on 4 devices, the one-pass
+    windows (K2) and the two-pass ones (K1); each equals the one-device
+    fold."""
+    from repro_torch.core.trellis import CodeSpec
+    from repro_torch.core.viterbi import TiledDecoderConfig, tiled_decode_streams
+    from repro_torch.distributed import frame_mesh, sharded_decode_streams
+
+    _, bits, arrays = reference_run
+    spec = CodeSpec(k=7, polys=(0o171, 0o133))
+    x = torch.from_numpy(arrays["streams"])
+    got = sharded_decode_streams(x, spec, TiledDecoderConfig(),
+                                 mesh=frame_mesh(shards, device="cpu"),
+                                 one_pass=one_pass)
+    assert got.dtype == torch.int32 and got.shape == (7, 300)
+    np.testing.assert_array_equal(got.numpy(), bits[f"streams_{one_pass}"])
+    np.testing.assert_array_equal(got.numpy(), tiled_decode_streams(
+        x, spec, one_pass=one_pass, device="cpu").numpy())
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("fin", [None, 0])
+@pytest.mark.parametrize("kind", ["awgn", "int"])
+def test_time_sharded_equals_the_four_device_reference(reference_run, kind, fin,
+                                                       use_kernel):
+    """``sharded_decode_time_parallel`` on 4 shards against the
+    reference's own on 4 devices, bit for bit (the span products folded
+    in the reference's order), free and pinned end states, AWGN and
+    integer LLRs, K3/K1's plain versions and the plain scans."""
+    from repro_torch.core.trellis import CodeSpec
+    from repro_torch.distributed import frame_mesh, sharded_decode_time_parallel
+
+    _, bits, arrays = reference_run
+    spec = CodeSpec(k=7, polys=(0o171, 0o133))
+    got = sharded_decode_time_parallel(
+        torch.from_numpy(arrays[f"tp_{kind}"]), spec,
+        mesh=frame_mesh(4, axis="tiles", device="cpu"), initial_state=0,
+        final_state=fin, transfer_tile=16, use_kernel=use_kernel)
+    assert got.dtype == torch.int32 and got.shape == (3, 512)
+    np.testing.assert_array_equal(got.numpy(), bits[f"tp_{kind}_{fin}"])
+
+
+def test_time_sharded_shapes_and_refusals():
+    """One shard is the one-device time-parallel decode; a step count
+    that does not divide the shards raises, as in the reference; the
+    transfer tile is picked on each shard's span."""
+    from repro_torch.core import CODE_K7_CCSDS
+    from repro_torch.core.timeparallel import decode_time_parallel
+    from repro_torch.distributed import frame_mesh, sharded_decode_time_parallel
+
+    x = torch.from_numpy(_frames())  # 64 stages = 32 steps
+    mesh = {n: frame_mesh(n, axis="tiles", device="cpu") for n in (1, 3, 4)}
+    one = sharded_decode_time_parallel(
+        x, CODE_K7_CCSDS, mesh=mesh[1], initial_state=0, transfer_tile=8)
+    np.testing.assert_array_equal(one.numpy(), decode_time_parallel(
+        x, CODE_K7_CCSDS, initial_state=0, final_state=None, transfer_tile=8,
+        device="cpu").numpy())
+    with pytest.raises(ValueError, match="not divisible by 3 devices"):
+        sharded_decode_time_parallel(x, CODE_K7_CCSDS, mesh=mesh[3])
+    with pytest.raises(ValueError, match="divisible by rho"):
+        sharded_decode_time_parallel(x[:, :63], CODE_K7_CCSDS, mesh=mesh[1])
+    # 32 steps over 4 shards: 8 a shard, tile 3 -> the largest divisor, 2
+    four = sharded_decode_time_parallel(
+        x, CODE_K7_CCSDS, mesh=mesh[4], initial_state=0, transfer_tile=3)
+    assert four.shape == (5, 64)

@@ -69,6 +69,12 @@ def test_every_module_imports_without_triton_nvcc_or_jax():
             "repro_torch.runtime.chaos", "repro_torch.runtime.failure",
             "repro_torch.runtime.checkpoint", "repro_torch.verify.scrub",
             "repro_torch.distributed.decoder", "repro_torch.obs.trace"} <= set(modules)
+    # and the launcher slice's
+    assert {"repro_torch.configs", "repro_torch.configs.viterbi_k7",
+            "repro_torch.launch", "repro_torch.launch.serve",
+            "repro_torch.obs.top", "repro_torch.obs.smoke",
+            "repro_torch.runtime.chaos_smoke",
+            "repro_torch.verify.scrub_smoke"} <= set(modules)
     code = (
         "import sys\n"
         "sys.modules['triton'] = None\n"
@@ -174,13 +180,16 @@ def test_later_slices_refuse():
     with pytest.raises(ValueError, match="open"):
         tbcc.decode_stream_tiled(torch.zeros(8, 3))
     # sharded decode is ported: one CPU shard by default, and tail-biting
-    # frames are refused as in the reference; from_config belongs to a
-    # later slice
+    # frames are refused as in the reference; from_config is ported and
+    # builds a decoder from the service config
     assert dec.decode_sharded(llrs).shape == (2, 8)
     with pytest.raises(NotImplementedError, match="tail-biting"):
         tbcc.decode_sharded(torch.zeros(1, 8, 3))
-    with pytest.raises(NotImplementedError, match="tooling"):
-        ViterbiDecoder.from_config(None)
+    from repro_torch.configs.viterbi_k7 import CONFIG
+
+    built = ViterbiDecoder.from_config(CONFIG, device="cpu")
+    assert isinstance(built, ViterbiDecoder) and built.device.type == "cpu"
+    assert built.decode_batch(llrs).shape == (2, 8)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
