@@ -220,7 +220,27 @@ which ends the run with a non-zero exit when it fails:
                ``main`` of ``obs.smoke``, ``runtime.chaos_smoke`` and
                ``verify.scrub_smoke`` on the card, each exiting 0.  The
                phase's seconds against a budget of 60 s; the kernels line
-               gains each kernel's ``launcher_launches`` per run.
+               gains each kernel's ``launcher_launches`` per run;
+ 14. verify  — the BER farm and the tooling (``verify/farm.py``,
+               ``verify/gate.py``, ``kernels/parity.py``,
+               ``kernels/traffic.py``, ``obs/profile.py``): the farm's
+               smoke grid through ``verify.farm.main`` and its gate (exit
+               0); the ``--full`` grid (ccsds-k7, wifi-11a-r34, lte-tbcc,
+               gsm-cs1 x reference, kernel, time_parallel, engine) at
+               ``VERIFY_FULL_FRAMES`` frames of 512 stages a point, where
+               the time-parallel plan engages; each (code, path)'s
+               launches on one batch held to what ``decode_fn`` implies,
+               its bits to the reference path's, and an integer-LLR batch
+               whose kernel calls are held to their plain versions; the
+               sharded farm on two logical shards ==
+               the single-device farm, point for point; the parity main
+               (exit 0); the traffic report and K2's launch geometry at
+               its shape; an engine run with the recorder on, its bits
+               those of the run with it off, every dispatch span carrying
+               the modelled profile and its achieved fractions against
+               the H100 entry (none above 1.0).  The phase's seconds
+               against a budget of 60 s; the kernels line gains each
+               kernel's ``verify_launches`` per run.
 
 Parity: at TROPICAL every kernel is held bit for bit to its plain version.
 At LOGPROB the slot reduction is a logsumexp, whose expf/logf (CUDA) and
@@ -301,9 +321,8 @@ F_TBCC_TP, TT_TBCC_TP = 64, 8  # time-parallel WAVA: blocks, transfer tile
 # decode_64k_dvb_r78 at a fixed 7 dB (the rate-7/8 code leaves errors at 6)
 EBN0_CODES, EBN0_DVB = 6.0, 7.0
 CODES_BUDGET_S = 75  # phase 11's time budget, printed beside its seconds
-# H100 SXM published peaks (NVIDIA data sheet) at the 700 W limit
-PEAK_F32_FLOPS = 67e12  # non-tensor float32
-PEAK_HBM_BYTES = 3.35e12
+# the H100's published f32 and HBM peaks come from the port's roofline
+# entry (``repro_torch.roofline.H100``), read where a bound is computed
 # special functions (expf, logf): 16 results a clock per SM for compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput), 132 SMs, 1.98 GHz boost clock
@@ -418,9 +437,11 @@ def acs_bound(w, n_llr, n_states, n_slots, frame_steps, entries, renorm,
     if semiring == "logprob":
         per_step += entries * S * 2 * R
         sfu = frame_steps * entries * S * (R - 1)
-    t_ops = max((frame_steps * per_step + extra_ops) / PEAK_F32_FLOPS,
+    from repro_torch.roofline import H100
+
+    t_ops = max((frame_steps * per_step + extra_ops) / H100.peak_flops,
                 sfu / PEAK_SFU_OPS) * 1e3
-    t_bytes = bytes_moved / PEAK_HBM_BYTES * 1e3
+    t_bytes = bytes_moved / H100.hbm_bw * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -2634,6 +2655,325 @@ def launcher_phase(dev):
     return launches
 
 
+# -- phase 14: verification and tooling ---------------------------------------
+
+VERIFY_BUDGET_S = 60  # phase 14's time budget, printed beside its seconds
+# the farm's --full grid (verify/farm.py): its codes and paths; on the card
+# at frames of 512 stages (256 radix steps), where the time-parallel plan
+# engages (4 tiles of 64 steps; at the farm's default of 256 stages it
+# refuses 2 tiles and that path decodes sequentially), in batches of 64
+VERIFY_CODES = ("ccsds-k7", "wifi-11a-r34", "lte-tbcc", "gsm-cs1")
+VERIFY_PATHS = ("reference", "kernel", "time_parallel", "engine", "sharded")
+VERIFY_BUDGET_STAGES, VERIFY_BATCH = 512, 64
+VERIFY_FULL_FRAMES = 1024  # frames a point of the --full grid (about 35 s)
+VERIFY_SHARDS = 2  # logical shards of the sharded farm
+VERIFY_SHARD_GRID = dict(codes=["ccsds-k7", "lte-tbcc"], ebn0_dbs=[2.0, 3.0],
+                         paths=("reference", "time_parallel"), frames_per_point=256,
+                         frame_budget=VERIFY_BUDGET_STAGES, batch_frames=VERIFY_BATCH,
+                         seed=1)
+VERIFY_EBN0 = 2.0  # the launch and hold batches: deep enough in the waterfall for errors
+
+
+def verify_main(label, module, argv):
+    """``module.main(argv)`` on the card, its standard output kept and its
+    summary lines printed: counts zeroed just before, read just after;
+    fails unless it returns 0.  Returns the launches read."""
+    import contextlib
+    import io
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(out):
+        try:
+            rc = module.main(argv)
+        except AssertionError as exc:
+            fail(f"{label} failed its gate: {exc}")
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    lines = out.getvalue().splitlines()
+    keep = [ln for ln in lines if not ln.startswith(("gate PASS", "ccsds", "wifi",
+                                                     "lte", "gsm"))]
+    for line in keep:
+        print(f"  {line}")
+    verdicts = [ln for ln in lines if ln.startswith("gate ")]
+    if verdicts:
+        exact = sum(": exact:" in ln for ln in verdicts)
+        print(f"  gate verdicts: {exact} on identical counts, {len(verdicts) - exact} "
+              f"by interval overlap or failed", flush=True)
+    print(f"{' '.join([label] + argv)}: exit {rc}; launches {got}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if rc != 0:
+        fail(f"{label} exited {rc}:\n" + "\n".join(lines[-40:]))
+    return got, lines
+
+
+def verify_want(farm, name, path, n_frames, n_stages):
+    """The launches ``farm.decode_fn(name, path)`` implies for one batch of
+    ``n_frames`` frames of ``n_stages`` transmit stages: the decoder's
+    own rules (the one-pass rule a chunk, the time-parallel plan, WAVA's
+    circulations, the engine's routing table)."""
+    from repro_torch.codes import get_code
+    from repro_torch.codes.tailbiting import DEFAULT_WAVA_ITERS
+    from repro_torch.core.kernel_geometry import pick_cell_frames
+
+    circulations = DEFAULT_WAVA_ITERS if get_code(name).termination == "tailbiting" else 0
+    if path == "engine":
+        engine = farm._engine_obj()
+        f_cell = pick_cell_frames(n_frames, engine.max_batch)
+        route = engine._pick_path(name, "throughput", f_cell, n_stages)
+        if route != "wava":
+            return route, serve_want(route, n_stages, 0)
+        # the engine's WAVA is on auto: the card's budget may take it
+        # time-parallel
+        dec = engine._decoder(name)
+        tile = dec._time_parallel_tile(f_cell, n_stages // dec.rho, None)
+        return f"wava, time-parallel tile {tile}", {
+            "K1": circulations, **({"K3": 1} if tile else {})}
+    dec = farm._decoder(name, path, farm.device)
+    steps = n_stages // dec.rho
+    if path == "time_parallel":
+        tile = dec._time_parallel_tile(n_frames, steps, True)
+        want = {"K1": circulations or 1, **({"K3": 1} if tile else {})}
+        return f"time-parallel tile {tile}", want
+    if circulations:
+        return "wava", {"K1": circulations}
+    if path == "kernel":
+        chunk = 4096  # decode_stream_chunked's default chunk, in stages
+        n_chunks = -(-n_stages // chunk)
+        tile = dec._one_pass_tile(min(chunk, n_stages) // dec.rho,
+                                  dec.decision_depth // dec.rho)
+        return f"one-pass tile {tile}", {"K2" if tile else "K1": n_chunks}
+    if path == "sharded":
+        return "sharded", {"K1": torch.cuda.device_count()}
+    return "batch", {"K1": 1}
+
+
+def verify_paths(dev):
+    """Each (code, path) of the --full grid and the sharded path: one
+    AWGN batch's launches held to what ``decode_fn`` implies, then an
+    integer-LLR batch whose every kernel call is held to its plain
+    version on the same tensors.  Returns
+    {path: {kernel: launches}} summed over the codes."""
+    from repro_torch.codes import get_code
+    from repro_torch.codes.simulate import batch_keys, sim_frame_batch
+    from repro_torch.verify.farm import BerFarm, _message_bits
+
+    farm = BerFarm(VERIFY_CODES, [VERIFY_EBN0], paths=VERIFY_PATHS,
+                   batch_frames=VERIFY_BATCH, frame_budget=VERIFY_BUDGET_STAGES)
+    per_path = {}
+
+    for name in VERIFY_CODES:
+        code = get_code(name)
+        n_msg = _message_bits(code, VERIFY_BUDGET_STAGES)
+        seed = batch_keys(SEED, name, VERIFY_EBN0, 1)[0]
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        bits, llrs = sim_frame_batch(gen, code, VERIFY_BATCH, n_msg, VERIFY_EBN0)
+        quant = torch.clamp(torch.round(llrs), -16, 16)
+        ref_bits = None
+        for path in VERIFY_PATHS:
+            label = f"farm {name}/{path}"
+            if path == "sharded" and code.termination == "tailbiting":
+                try:
+                    farm.decode_fn(name, path)
+                except ValueError:
+                    print(f"{label}: refused (tail-biting frames are not sharded, "
+                          f"as in the reference)", flush=True)
+                    continue
+                fail(f"{label}: a tail-biting code was not refused")
+            fn = farm.decode_fn(name, path)
+            rule, want = verify_want(farm, name, path, VERIFY_BATCH, VERIFY_BUDGET_STAGES)
+            zero_counts()
+            out = fn(llrs)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in launch_counts().items() if v}
+            errors = int((out[:, :n_msg].to(dev) != bits).sum())
+            print(f"{label}: {VERIFY_BATCH} x {VERIFY_BUDGET_STAGES} stages at "
+                  f"{VERIFY_EBN0:g} dB, launches {got} ({rule}: want {want}); "
+                  f"{errors} bit errors", flush=True)
+            if got != want:
+                fail(f"{label} launched {got}, not {want}")
+            acc = per_path.setdefault(path, {})
+            for k, v in got.items():
+                acc[k] = acc.get(k, 0) + v
+            # every path decodes the reference path's bits on the same batch
+            # (exact ML on AWGN LLRs; WAVA's time-parallel circulations may
+            # differ, which the gate prices)
+            if ref_bits is None:
+                ref_bits = out
+            elif not (code.termination == "tailbiting" and "K3" in got):
+                gate_equal(f"{label}: bits == the reference path's", out.to(dev),
+                           ref_bits.to(dev))
+            _, stages = kept_run(lambda: fn(quant), keep=("K1", "K2", "K3"))
+            if not stages.kept:
+                fail(f"{label}: the integer-LLR run called no kernel")
+            hold_kept(f"{label} (integer LLRs)", stages)
+    return per_path
+
+
+def verify_sharded(dev):
+    """The sharded farm: the mesh paths' seeds split over two logical
+    shards of the card; every point's counts equal the single-device
+    farm's.  Returns the sharded run's launches."""
+    from repro_torch.distributed.decoder import frame_mesh
+    from repro_torch.verify.farm import BerFarm
+
+    single = BerFarm(**VERIFY_SHARD_GRID).run()
+    zero_counts()
+    t0 = time.perf_counter()
+    sharded = BerFarm(mesh=frame_mesh(VERIFY_SHARDS, device=dev), **VERIFY_SHARD_GRID).run()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    for a, b in zip(single, sharded, strict=True):
+        print(f"farm sharded {b.code}/{b.path}@{b.ebn0_db:g}: {b.n_frames} frames on "
+              f"{VERIFY_SHARDS} shards, {b.bit_errors} bit and {b.frame_errors} frame "
+              f"errors; one device {a.bit_errors} and {a.frame_errors}", flush=True)
+        if a != b:
+            fail(f"farm sharded {b.code}/{b.path}@{b.ebn0_db:g}: counts differ from "
+                 f"the single-device farm's")
+    print(f"farm sharded: {len(sharded)} points on {VERIFY_SHARDS} logical shards == one "
+          f"device's, launches {got}; {time.perf_counter() - t0:.1f} s", flush=True)
+    return got
+
+
+def verify_traffic(dev):
+    """The traffic report at the acceptance shape, with the one-pass
+    ratio, and its premise held to the launcher: K2's geometry on this
+    card puts the rings in shared memory there."""
+    from repro_torch.core import CODE_K7_CCSDS, build_acs_tables
+    from repro_torch.core.kernel_geometry import pick_time_tile
+    from repro_torch.kernels import viterbi_acs
+    from repro_torch.kernels.traffic import streaming_traffic_report
+
+    rep = streaming_traffic_report()
+    shape = rep["shape"]
+    tables = build_acs_tables(CODE_K7_CCSDS, 2)
+    S, R, B = tables.n_states, tables.n_slots, tables.llr_block
+    w = torch.as_tensor(tables.fused_w, device=dev)
+    n_cols = viterbi_acs.gather_operands(w, B, S, R).cols.shape[1]
+    T, D = shape["n_stages"] // 2, shape["decision_depth"] // 2
+    geo = viterbi_acs.k2_launch_geometry(S, R, B, n_cols, D, pick_time_tile(D, T), True,
+                                         shape["n_frames"])
+    print(f"traffic (kernels.traffic, static model) at T={shape['n_stages']} stages, "
+          f"F={shape['n_frames']}, depth {shape['decision_depth']}: two-pass "
+          f"{rep['two_pass']['total_bytes']} B, packed two-pass "
+          f"{rep['two_pass_packed']['total_bytes']} B, one-pass "
+          f"{rep['one_pass']['total_bytes']} B; ratio {rep['ratio']} "
+          f"(packed {rep['ratio_vs_packed']}); K2 on this card: {geo}", flush=True)
+    if rep["ratio"] < 5.0 or not rep["k2_ring_in_smem"]:
+        fail("traffic: the one-pass ratio is under 5 or K2's rings leave shared memory")
+    if not geo["rings_in_smem"]:
+        fail("traffic: K2's launch puts the rings in device memory at the acceptance "
+             "shape, against the model's premise")
+
+
+def verify_profile(dev):
+    """An engine run with the recorder on, against the same run with it
+    off: the same bits, and every dispatch span carries the modelled
+    profile (``obs.profile``) and its achieved fractions against the
+    H100 entry, none above 1.0.  Returns the recorder-on run's
+    launches."""
+    from repro_torch.obs import NullRecorder, SpanRecorder
+    from repro_torch.roofline import H100
+    from repro_torch.serve import DecodeRequest, make_decode_engine
+
+    reqs = []
+    for name, n_frames, n_msg, slo in (
+            ("ccsds-k7", 64, 2042, "throughput"), ("ccsds-k7", 8, 4090, "latency"),
+            ("wifi-11a-r34", 32, 2042, "throughput"), ("lte-tbcc", 64, 128, "throughput")):
+        _, llrs, _ = codes_cell(name, n_frames, n_msg, 4.0, dev)
+        arr = llrs.cpu().numpy()
+        flushed = name != "lte-tbcc"
+        reqs += [DecodeRequest(llrs=arr[i], code=name, slo=slo, flushed=flushed)
+                 for i in range(n_frames)]
+    _, chunks, _ = codes_cell("ccsds-k7", 1, 3 * 4096, 4.0, dev)
+    chunks = chunks[0, :3 * 4096].cpu().numpy()
+
+    def run(recorder):
+        engine = make_decode_engine(device=dev, max_batch=64, recorder=recorder)
+        tickets = [engine.submit(r, now=0.0) for r in reqs]
+        sid = engine.open_session("ccsds-k7", now=0.0)
+        for i in range(3):
+            tickets.append(engine.submit_chunk(sid, chunks[i * 4096:(i + 1) * 4096],
+                                               now=0.0))
+            engine.drain(now=0.1 * (i + 1))
+        engine.drain(now=1.0)
+        return tickets
+
+    off = run(NullRecorder())
+    rec = SpanRecorder()
+    zero_counts()
+    on = run(rec)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    for a, b in zip(on, off, strict=True):
+        if a.error or b.error or not np.array_equal(a.bits, b.bits):
+            fail(f"profile: ticket {a.id} differs with the recorder on ({a.error}, {b.error})")
+    spans = rec.find("engine.dispatch")
+    worst = 0.0
+    print(f"profile: {len(on)} tickets, bits identical with the recorder off; "
+          f"{len(spans)} dispatch spans priced on {H100.name} (launches {got})", flush=True)
+    for s in spans:
+        a = s.attrs
+        if "hbm_bytes_modeled" not in a or "achieved_hbm_frac" not in a:
+            fail(f"profile: a dispatch span lacks the profile attributes: {a}")
+        fracs = (a["achieved_hbm_frac"], a["achieved_flops_frac"])
+        worst = max(worst, *fracs)
+        print(f"  {a['code']}/{a['path']} f={a['f']} t={a['t']}: modelled "
+              f"{a['hbm_bytes_modeled']} B, {a['flops_modeled']:.6e} operations, depth "
+              f"{a['depth_modeled']}, {a['bottleneck']}-bound (t_memory {a['t_memory_us']} "
+              f"us, t_compute {a['t_compute_us']} us); wall {a['wall_s'] * 1e3:.3f} ms: "
+              f"achieved_hbm_frac {fracs[0]:.6e}, achieved_flops_frac {fracs[1]:.6e}",
+              flush=True)
+    if not {"batch", "time_parallel", "session", "wava"} <= {s.attrs["path"] for s in spans}:
+        fail("profile: the engine run missed a route")
+    if worst > 1.0:
+        fail(f"profile: an achieved fraction reads {worst} > 1.0")
+    return got
+
+
+def verify_phase(dev):
+    """Phase 14: verification and tooling on the card: the farm's smoke
+    grid and its gate (``verify.farm.main``), the --full grid, each
+    path's launches and integer-LLR kernel holds, the sharded farm, the
+    parity main, the traffic report and the engine's profiled spans.
+    Returns {run: {kernel: launches}} of the main-path runs."""
+    from repro_torch.kernels import parity
+    from repro_torch.verify import farm
+
+    t_phase = time.perf_counter()
+    launches = {}
+    print("phase 14 (verify): the BER farm, its gate and the tooling on the card",
+          flush=True)
+    launches["farm smoke"], _ = verify_main("verify.farm", farm, [])
+    for kernel in ("K1", "K2"):
+        if not launches["farm smoke"].get(kernel):
+            fail(f"the farm's smoke grid launched no {kernel}")
+    full = ["--full", "--frames", str(VERIFY_FULL_FRAMES), "--frame-budget",
+            str(VERIFY_BUDGET_STAGES), "--batch-frames", str(VERIFY_BATCH)]
+    launches["farm --full"], lines = verify_main("verify.farm", farm, full)
+    for kernel in ("K1", "K2", "K3"):
+        if not launches["farm --full"].get(kernel):
+            fail(f"the farm's --full grid launched no {kernel}")
+    rows = [ln for ln in lines if "@ebn0=" in ln and not ln.startswith("gate")]
+    print(f"farm --full: {len(rows)} points of {VERIFY_FULL_FRAMES} frames x "
+          f"{VERIFY_BUDGET_STAGES} stages; the 2 dB rows:", flush=True)
+    for ln in rows:
+        if "@ebn0=2 " in ln:
+            print(f"  {ln}")
+    t0 = time.perf_counter()
+    for path, counts in verify_paths(dev).items():
+        launches[f"farm path {path}"] = counts
+    print(f"farm paths took {time.perf_counter() - t0:.1f} s", flush=True)
+    launches[f"farm on {VERIFY_SHARDS} shards"] = verify_sharded(dev)
+    launches["kernels.parity"], _ = verify_main("kernels.parity", parity, [])
+    verify_traffic(dev)
+    launches["profile engine"] = verify_profile(dev)
+    print(f"phase 14 (verify) took {time.perf_counter() - t_phase:.1f} s "
+          f"(budget {VERIFY_BUDGET_S} s)", flush=True)
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3094,6 +3434,7 @@ def main() -> None:
     codes_launches, codes_err = codes_phase(dev)
     serve_launches, serve_err = serve_phase(dev)
     launcher_launches = launcher_phase(dev)
+    verify_launches = verify_phase(dev)
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s")
 
     rows = [k1_row, {
@@ -3124,6 +3465,8 @@ def main() -> None:
                                  in serve_launches.items() if kernel in counts}
         row["launcher_launches"] = {run: counts[kernel] for run, counts
                                     in launcher_launches.items() if kernel in counts}
+        row["verify_launches"] = {run: counts[kernel] for run, counts
+                                  in verify_launches.items() if kernel in counts}
         row["max_abs_err"] = max(row["max_abs_err"], codes_err.get(kernel, 0.0),
                                  serve_err.get(kernel, 0.0))
     print(json.dumps({"kernels": rows}))

@@ -60,6 +60,16 @@ class Semiring:
     def __post_init__(self):
         check_semiring(self.name)
 
+    @property
+    def zero(self) -> float:
+        """Additive identity (absorbing for prod): the off-trellis score."""
+        return NEG
+
+    @property
+    def one(self) -> float:
+        """Multiplicative identity: a zero log-score."""
+        return 0.0
+
     def sum(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """Semiring sum-reduce along ``dim``: max, or the max-normalised
         logsumexp ``m + log(sum(exp(x - m)))``."""
@@ -67,6 +77,10 @@ class Semiring:
         if self.name == "tropical":
             return m
         return m + torch.log(torch.exp(x - m.unsqueeze(dim)).sum(dim=dim))
+
+    def prod(self, a, b):
+        """Semiring product: log-domain score accumulation."""
+        return a + b
 
     def matmul(
         self,

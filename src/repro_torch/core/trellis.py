@@ -27,6 +27,12 @@ __all__ = [
     "AcsTables",
     "ReverseTables",
     "build_transitions",
+    "branch_output",
+    "butterfly_states",
+    "dragonfly_state",
+    "dragonfly_theta",
+    "dragonfly_output_table",
+    "dragonfly_groups",
     "build_acs_tables",
     "build_reverse_tables",
     "superbranch_output_bits",
@@ -67,6 +73,11 @@ class CodeSpec:
     def n_states(self) -> int:
         return 1 << (self.k - 1)
 
+    @property
+    def msb_lsb_one(self) -> bool:
+        """Corollary 2.1 precondition: MSB and LSB of every polynomial are 1."""
+        return all((g >> (self.k - 1)) & 1 and g & 1 for g in self.polys)
+
 
 # The paper's experimental code (§IX-A): (2,1,7), polys 171/133 octal.
 CODE_K7_CCSDS = CodeSpec(k=7, polys=(0o171, 0o133))
@@ -80,6 +91,18 @@ def _parity(x: np.ndarray) -> np.ndarray:
         out ^= x & 1
         x >>= np.uint64(1)
     return out.astype(np.int64)
+
+
+def branch_output(spec: CodeSpec, state: int, bit: int) -> int:
+    """beta-bit branch output alpha_out for branch (state --bit-->), Eq. 1.
+
+    Bit b of the result is the output of polynomial b (b=0 first).
+    """
+    reg = (bit << (spec.k - 1)) | state
+    out = 0
+    for b, g in enumerate(spec.polys):
+        out |= int(bin(reg & g).count("1") & 1) << b
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,6 +151,104 @@ def superbranch_output_bits(
         out.extend(int(b) for b in tr.out_bits[s, u])
         s = int(tr.next_state[s, u])
     return out
+
+
+# ---------------------------------------------------------------------------
+# The paper's index relations: butterflies (Theorem 1) and radix-2^rho
+# dragonflies (Theorems 3-5, §VIII-D), in the paper's layout.  The decoder
+# does not use them; they state the structure the fused tables encode.
+# ---------------------------------------------------------------------------
+
+def butterfly_states(spec: CodeSpec, f: int):
+    """Theorem 1 / Eq. 6: global states of butterfly f.
+
+    Returns ((i0, i1), (j0, j1)).
+    """
+    half = 1 << (spec.k - 2)
+    if not 0 <= f < half:
+        raise ValueError(f"butterfly index {f} out of range [0, {half})")
+    return (2 * f, 2 * f + 1), (f, f + half)
+
+
+def _bits(x: int, hi: int, lo: int) -> int:
+    """Paper Eq. 23:  x_{hi:lo} = (x >> lo) & (2^(hi-lo) - 1)."""
+    return (x >> lo) & ((1 << (hi - lo)) - 1)
+
+
+def dragonfly_state(spec: CodeSpec, rho: int, f: int, y: int, x: int) -> int:
+    """Theorem 4: global state of dragonfly f at local stage x, local state y.
+
+    s = [pre-bubble << (k-1-x)] + [bubble << (rho-x)] + [post-bubble]
+    with pre-bubble = y_{rho:rho-x}, bubble = f, post-bubble = y_{rho-x-1:0}.
+    """
+    k = spec.k
+    if not (0 <= x <= rho and 0 <= y < (1 << rho)):
+        raise ValueError("local indices out of range")
+    if not 0 <= f < (1 << (k - 1 - rho)):
+        raise ValueError("dragonfly index out of range")
+    pre = _bits(y, rho, rho - x)
+    post = _bits(y, rho - x, 0)
+    return (pre << (k - 1 - x)) + (f << (rho - x)) + post
+
+
+def dragonfly_theta(spec: CodeSpec, rho: int, f: int) -> np.ndarray:
+    """Theta-hat_f (Eq. 36): (2^rho * 2^rho, rho*beta) matrix of +-1 entries.
+
+    Rows are grouped in partial matrices P_j (j = local right state), each
+    listing the super-branches from every local left state i into j, the
+    bipartite representation of Corollary 6.1, for any rho.
+    """
+    S2 = 1 << rho
+    rows = []
+    for j_loc in range(S2):
+        j_glob = dragonfly_state(spec, rho, f, j_loc, rho)
+        v = j_glob >> (spec.k - 1 - rho)  # the rho input bits (u_i = bit i-1)
+        in_bits = [(v >> b) & 1 for b in range(rho)]
+        for i_loc in range(S2):
+            i_glob = dragonfly_state(spec, rho, f, i_loc, 0)
+            bits = superbranch_output_bits(spec, i_glob, in_bits)
+            rows.append([(-1.0) ** b for b in bits])
+    return np.asarray(rows, dtype=np.float64)  # (2^rho * 2^rho, rho*beta)
+
+
+def dragonfly_output_table(spec: CodeSpec, rho: int, f: int) -> np.ndarray:
+    """M[j, i] = decimal super-branch output from local-left i to local-right
+    j of dragonfly f, one column of the paper's Fig. 10 (reshaped)."""
+    th = dragonfly_theta(spec, rho, f)  # rows: j-major, i within (Eq. 36)
+    S2 = 1 << rho
+    dec = np.array(
+        [int("".join("1" if v < 0 else "0" for v in row), 2) for row in th]
+    )
+    return dec.reshape(S2, S2)  # [j, i]
+
+
+def dragonfly_groups(spec: CodeSpec, rho: int = 2):
+    """§VIII-D dragonfly groups.
+
+    Two dragonflies f, f' belong to the same group iff a SINGLE permutation
+    pi of the local left states maps one output table onto the other for
+    every right state simultaneously:  M_f'[j, i] = M_f[j, pi(i)], which
+    lets one Theta serve the whole group after permuting the path-metric
+    vectors.
+
+    Returns (groups, tables): groups maps a canonical signature to the sorted
+    dragonfly indices sharing it; tables[f] is the (2^rho, 2^rho) output
+    table of dragonfly f.
+    """
+    import itertools
+
+    n_df = spec.n_states >> rho
+    S2 = 1 << rho
+    perms = list(itertools.permutations(range(S2)))
+    groups: dict = {}
+    tables = []
+    for f in range(n_df):
+        M = dragonfly_output_table(spec, rho, f)
+        tables.append(M)
+        # canonical form: lexicographically smallest column permutation
+        sig = min(tuple(M[:, list(p)].reshape(-1)) for p in perms)
+        groups.setdefault(sig, []).append(f)
+    return groups, tables
 
 
 @dataclasses.dataclass(frozen=True, eq=False)  # arrays: compare by identity

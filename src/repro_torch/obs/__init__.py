@@ -14,13 +14,13 @@ JSONL sink) for handing to ``DecodeEngine``; the module-level
 library-level instrumentation (the decoder's path counters) costs
 nothing by default.
 
+  * :mod:`repro_torch.obs.profile` — ``dispatch_profile``: modelled
+    device-memory bytes, operations and trip-count depth per engine
+    dispatch, priced on the H100 roofline (``roofline.H100``); the
+    engine attaches it to its dispatch spans when tracing is on.
+
 CLI entry points: ``python -m repro_torch.obs.top`` (terminal snapshot)
 and ``python -m repro_torch.obs.smoke`` (the gate).
-
-The reference's device-profile adapter (``obs/profile.py``: modelled
-bytes, operations and trip-count depth per dispatch, priced with a TPU
-roofline) is not ported yet: the engine's dispatch spans carry no
-modelled attributes.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ from repro_torch.obs.metrics import (
     default_registry,
     set_default_registry,
 )
+from repro_torch.obs.profile import DispatchProfile, dispatch_profile
 from repro_torch.obs.trace import (
     JsonlSink,
     NullRecorder,
@@ -56,6 +57,8 @@ __all__ = [
     "SpanRecorder",
     "NullRecorder",
     "JsonlSink",
+    "DispatchProfile",
+    "dispatch_profile",
     "Observability",
 ]
 

@@ -24,10 +24,9 @@ sink, and asserts:
      modes replay the identical request trace through the same engine,
      so the difference is the instrumentation.  The reference times all
      disabled runs, then all instrumented ones; here they alternate.
-
-The reference also asserts that each dispatch span carries the modelled
-device-profile attributes (``obs/profile.py``); that module is not
-ported, so the port's spans carry none and the gate does not ask.
+  5. **profile attributes** — every ``engine.dispatch`` span carries
+     the modelled device-profile attributes (``obs/profile.py``,
+     ``hbm_bytes_modeled`` and the rest), as the reference asserts.
 
 Exits non-zero on any violation.
 """
@@ -180,6 +179,9 @@ def _check_spans(rec: SpanRecorder) -> int:
         waits = [c.name for c in rec.children(disp)]
         assert "engine.device_wait" in waits, (
             f"device_wait not nested under dispatch (children: {waits})"
+        )
+        assert "hbm_bytes_modeled" in disp.attrs, (
+            "dispatch span missing device-profile attributes"
         )
     return len(batches)
 

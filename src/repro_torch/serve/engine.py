@@ -62,9 +62,10 @@ hide it; so an engine on the card also has no plain rung
 Tensors: each cell is assembled on the host and copied to the decoder's
 device once; the device wait is the ``.cpu()`` copy of the result, and
 the ``engine.device_wait`` span and ``engine_dispatch_seconds`` close
-after it.  The reference's ``dispatch_profile`` attributes (modelled
-roofline numbers, ``obs/profile.py``) are not ported: the spans and the
-histogram are recorded without them.
+after it.  With the recorder on, each dispatch span carries
+``obs.profile.dispatch_profile``'s modelled bytes, operations, depth
+and roofline terms, priced on the H100, and after the wait the achieved
+fractions of that wall, as in the reference.
 """
 from __future__ import annotations
 
@@ -88,6 +89,7 @@ from repro_torch.core.kernel_geometry import (
 from repro_torch.core.validate import InvalidInputError, validate_llrs
 from repro_torch.kernels.viterbi_acs import KernelError
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.profile import dispatch_profile
 from repro_torch.obs.trace import NullRecorder, SpanRecorder
 from repro_torch.runtime.chaos import DeviceFailure, DispatchTimeout
 from repro_torch.runtime.failure import QuarantineRecord, RetryPolicy
@@ -736,6 +738,10 @@ class DecodeEngine:
                 "engine.dispatch", code=code_name, path=path,
                 f=f_cell, t=l_cell,
             ) as dsp:
+                prof = None
+                if rec.enabled:
+                    prof = dispatch_profile(dec, path, f_cell, n_stages)
+                    dsp.set(**prof.span_attrs())
                 try:
                     path, out, retries = self._dispatch_with_faults(
                         code_name, fn, path, f_cell, l_cell,
@@ -756,10 +762,11 @@ class DecodeEngine:
                     bits, sdc_device = self.chaos.corrupt(bits)
                 else:
                     sdc_device = None
-                if rec.enabled:
+                if prof is not None:
+                    wall = rec.clock() - dsp.t0
+                    dsp.set(**prof.achieved(wall))
                     self._m_dispatch.observe(
-                        rec.clock() - dsp.t0, code=code_name, path=path,
-                        f=f_cell, t=l_cell,
+                        wall, code=code_name, path=path, f=f_cell, t=l_cell
                     )
             corrupt_ids: set = set()
             # soft output is real-valued: no rung decodes the same values,
@@ -1178,6 +1185,10 @@ class DecodeEngine:
                 "engine.dispatch", code=code_name, path="session",
                 f=f_cell, t=c,
             ) as dsp:
+                prof = None
+                if rec.enabled:
+                    prof = dispatch_profile(dec, "session", f_cell, c)
+                    dsp.set(**prof.span_attrs())
                 attempt = retries = 0
                 while True:
                     try:
@@ -1219,10 +1230,11 @@ class DecodeEngine:
                     # leaks onto a later dispatch; sessions are not
                     # scrubbed
                     outs[0], _ = self.chaos.corrupt(outs[0])
-                if rec.enabled:
+                if prof is not None:
+                    wall = rec.clock() - dsp.t0
+                    dsp.set(**prof.achieved(wall))
                     self._m_dispatch.observe(
-                        rec.clock() - dsp.t0, code=code_name,
-                        path="session", f=f_cell, t=c,
+                        wall, code=code_name, path="session", f=f_cell, t=c
                     )
             done: List[Ticket] = []
             with rec.span("engine.emit", n=k):

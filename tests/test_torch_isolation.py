@@ -75,6 +75,10 @@ def test_every_module_imports_without_triton_nvcc_or_jax():
             "repro_torch.obs.top", "repro_torch.obs.smoke",
             "repro_torch.runtime.chaos_smoke",
             "repro_torch.verify.scrub_smoke"} <= set(modules)
+    # and the verification and tooling slice's
+    assert {"repro_torch.roofline", "repro_torch.kernels.traffic",
+            "repro_torch.kernels.parity", "repro_torch.obs.profile",
+            "repro_torch.verify.farm", "repro_torch.verify.gate"} <= set(modules)
     code = (
         "import sys\n"
         "sys.modules['triton'] = None\n"

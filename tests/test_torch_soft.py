@@ -125,6 +125,30 @@ def test_semiring_names():
             bad()
 
 
+@pytest.mark.parametrize("name", ["tropical", "logprob"])
+def test_semiring_zero_one_prod_equal_reference(name):
+    """``zero``, ``one`` and ``prod`` against the reference's, on the cases
+    of its ``test_zero_one_elements``: zero vanishes under sum, one is
+    neutral under prod."""
+    import jax.numpy as jnp
+    from repro.core.semiring import get_semiring as ref_get
+
+    from repro_torch.core.semiring import get_semiring
+
+    sr, ref = get_semiring(name), ref_get(name)
+    assert sr.zero == float(ref.zero) and sr.one == ref.one == 0.0
+    x = np.asarray([1.5, -2.0], np.float32)
+    got = sr.sum(torch.tensor([sr.zero, 3.0]))
+    want = np.asarray(ref.sum(jnp.asarray([ref.zero, 3.0])))
+    assert float(got) == pytest.approx(3.0, abs=1e-5)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(sr.prod(torch.from_numpy(x), sr.one).numpy(), x)
+    y = np.asarray([0.25, 4.0], np.float32)
+    np.testing.assert_array_equal(
+        sr.prod(torch.from_numpy(x), torch.from_numpy(y)).numpy(),
+        np.asarray(ref.prod(jnp.asarray(x), jnp.asarray(y))))
+
+
 @pytest.mark.parametrize("mm", ["f32", "bf16"])
 def test_logprob_matmul_and_identity_match_reference(mm, monkeypatch):
     """The LOGPROB compose at atol 1e-4 over reachable entries, equal on

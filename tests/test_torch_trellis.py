@@ -162,3 +162,89 @@ def test_scalar_oracle_equals_reference():
             viterbi_decode_ref(llrs, CODE_K7_CCSDS, s0, sf),
             ref_decode(llrs, _ref_spec(CODE_K7_CCSDS), s0, sf),
         )
+
+
+# -- the paper-layout helpers, on the reference's test_trellis.py codes -------
+
+PAPER_CODES = [(7, (0o171, 0o133)), (3, (0o7, 0o5)), (5, (0o27, 0o31)),
+               (7, (0o171, 0o133, 0o165)), (9, (0o561, 0o753))]
+
+
+@pytest.mark.parametrize("k,polys", PAPER_CODES,
+                         ids=[f"k{k}b{len(p)}" for k, p in PAPER_CODES])
+def test_butterflies_and_branch_outputs_equal_reference(k, polys):
+    """``msb_lsb_one``, ``branch_output`` at every (state, bit) and
+    ``butterfly_states`` at every butterfly, and both refuse the same
+    out-of-range butterfly."""
+    from repro.core import trellis as ref
+
+    from repro_torch.core import trellis
+
+    spec, rspec = _port_spec(k, polys), _ref_spec(_port_spec(k, polys))
+    assert spec.msb_lsb_one == rspec.msb_lsb_one
+    for s in range(spec.n_states):
+        for u in (0, 1):
+            assert trellis.branch_output(spec, s, u) == ref.branch_output(rspec, s, u)
+    half = spec.n_states // 2
+    for f in range(half):
+        assert trellis.butterfly_states(spec, f) == ref.butterfly_states(rspec, f)
+    for bad in (-1, half):
+        with pytest.raises(ValueError, match="out of range"):
+            trellis.butterfly_states(spec, bad)
+        with pytest.raises(ValueError, match="out of range"):
+            ref.butterfly_states(rspec, bad)
+
+
+DRAGONFLY_CASES = [(k, p, rho) for k, p in PAPER_CODES for rho in (1, 2, 3)
+                   if rho <= k - 2]
+
+
+@pytest.mark.parametrize("k,polys,rho", DRAGONFLY_CASES,
+                         ids=[f"k{k}b{len(p)}-rho{r}" for k, p, r in DRAGONFLY_CASES])
+def test_dragonflies_equal_reference(k, polys, rho):
+    """``dragonfly_state`` at every (f, y, x), ``dragonfly_theta`` and
+    ``dragonfly_output_table`` of every dragonfly, and ``dragonfly_groups``
+    (at rho <= 2, where the permutation search stays small)."""
+    from repro.core import trellis as ref
+
+    from repro_torch.core import trellis
+
+    spec = _port_spec(k, polys)
+    rspec = _ref_spec(spec)
+    n_df = spec.n_states >> rho
+    for f in range(n_df):
+        for y in range(1 << rho):
+            for x in range(rho + 1):
+                assert trellis.dragonfly_state(spec, rho, f, y, x) == (
+                    ref.dragonfly_state(rspec, rho, f, y, x))
+        np.testing.assert_array_equal(trellis.dragonfly_theta(spec, rho, f),
+                                      ref.dragonfly_theta(rspec, rho, f))
+        np.testing.assert_array_equal(trellis.dragonfly_output_table(spec, rho, f),
+                                      ref.dragonfly_output_table(rspec, rho, f))
+    with pytest.raises(ValueError, match="dragonfly index"):
+        trellis.dragonfly_state(spec, rho, n_df, 0, 0)
+    with pytest.raises(ValueError, match="local indices"):
+        trellis.dragonfly_state(spec, rho, 0, 1 << rho, 0)
+    if rho <= 2:
+        groups, tables = trellis.dragonfly_groups(spec, rho)
+        rgroups, rtables = ref.dragonfly_groups(rspec, rho)
+        assert groups == rgroups
+        for a, b in zip(tables, rtables, strict=True):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_fig10_theta0_and_k7_groups():
+    """The reference's Fig. 10 cases: dragonfly 0's output table of the
+    (2,1,7) code and its dragonfly groups at rho = 2, as the reference
+    computes them."""
+    from repro.core import trellis as ref
+
+    from repro_torch.core import trellis
+
+    spec = trellis.CODE_K7_CCSDS
+    np.testing.assert_array_equal(
+        trellis.dragonfly_output_table(spec, 2, 0),
+        ref.dragonfly_output_table(ref.CODE_K7_CCSDS, 2, 0))
+    groups, _ = trellis.dragonfly_groups(spec, rho=2)
+    assert sorted(map(sorted, groups.values())) == sorted(
+        map(sorted, ref.dragonfly_groups(ref.CODE_K7_CCSDS, rho=2)[0].values()))
