@@ -240,7 +240,31 @@ which ends the run with a non-zero exit when it fails:
                the modelled profile and its achieved fractions against
                the H100 entry (none above 1.0).  The phase's seconds
                against a budget of 60 s; the kernels line gains each
-               kernel's ``verify_launches`` per run.
+               kernel's ``verify_launches`` per run;
+ 15. lm      — the LM testbed's serving path (``models/lm.py``,
+               ``serve/step.py``'s LM steps, ``launch/serve.py --service
+               lm``), which launches none of the kernels above: TF32
+               must be off; for each of the ten smoke configs at f32
+               activations (parameters from one seeded CPU generator), a
+               prefill of 2 x 32 positions and 4 decode steps on the card
+               held to the same calls on the CPU (logits and caches, rtol
+               = atol = 1e-4), and a teacher-forced decode held to
+               ``forward(mode="train")`` at 1e-3; at full width and bf16,
+               smollm-135m (prefill 8 x 4096 through the chunked
+               attention, 64 greedy steps), mamba2-370m (4 x 2048, 16),
+               hymba-1.5b (2 x 2048, past its window, 16) and
+               mixtral-8x7b cut to 2 layers (2 x 512, 8) through
+               ``make_prefill_step``/``make_decode_step``: prefill ms
+               (CUDA events, median of 3 after a warm-up), decode
+               tokens/s, peak memory, the card's name and power limit;
+               non-finite logits or out-of-vocab tokens fail; then
+               ``launch.serve --service lm --arch smollm-135m --tokens 8
+               --streams 4`` on the card; last, smollm-135m's prefill and
+               two decode steps under ``torch.profiler`` (kernels a call,
+               device time, busy share against the unprofiled times).
+               A ``{"lm": ...}`` JSON line
+               before the kernels line; the phase's seconds against a
+               budget of 60 s.
 
 Parity: at TROPICAL every kernel is held bit for bit to its plain version.
 At LOGPROB the slot reduction is a logsumexp, whose expf/logf (CUDA) and
@@ -2974,6 +2998,294 @@ def verify_phase(dev):
     return launches
 
 
+# -- phase 15: the LM testbed's serving path ----------------------------------
+
+LM_BUDGET_S = 60  # phase 15's time budget, printed beside its seconds
+LM_TOL = 1e-4  # rtol = atol: the card against the port's CPU run, f32 activations
+LM_FORWARD_TOL = 1e-3  # teacher-forced decode against forward (the reference's test)
+LM_SMOKE_B, LM_SMOKE_S, LM_SMOKE_DEC = 2, 32, 4  # batch, prompt positions, decode steps
+# the full-width runs: (arch, its one cut, batch, prompt tokens, greedy
+# decode steps).  smollm-135m's is the slice's path; the others run the
+# SSM, hybrid (past its 1,024-token window) and MoE families.  mixtral-8x7b
+# at its 32 layers holds 47e9 f32 parameters, more than one 80 GB card: 2
+# layers at full width (about 12 GB) is the one cut
+LM_FULL = (
+    ("smollm-135m", {}, 8, 4096, 64),
+    ("mamba2-370m", {}, 4, 2048, 16),
+    ("hymba-1.5b", {}, 2, 2048, 16),
+    ("mixtral-8x7b", {"n_layers": 2}, 2, 512, 8),
+)
+LM_TIMED = 3  # timed prefills after the warm-up, median reported
+LM_PROFILE_STEPS = 2  # smollm-135m decode steps under torch.profiler
+LM_PROFILE_TOP = 6  # kernels by device time printed a profiled call
+LM_SERVE = ("--service", "lm", "--arch", "smollm-135m", "--tokens", "8",
+            "--streams", "4")
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def lm_err(got, want):
+    """Largest |got - want| and whether every entry is within
+    LM_TOL + LM_TOL * |want| (rtol = atol = LM_TOL)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    err = (got - want).abs()
+    return float(err.max()), bool((err <= LM_TOL + LM_TOL * want.abs()).all())
+
+
+def lm_smoke(arch, dev):
+    """One smoke config at f32 activations, parameters from one seeded CPU
+    generator: prefill of LM_SMOKE_B x LM_SMOKE_S positions and
+    LM_SMOKE_DEC teacher-forced decode steps on the card against the same
+    calls on the CPU (logits and every cache entry at LM_TOL); then on
+    the card a prefill of the first LM_SMOKE_S - LM_SMOKE_DEC positions
+    and LM_SMOKE_DEC decode steps against ``forward(mode="train")`` over
+    LM_SMOKE_S positions, at LM_FORWARD_TOL."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_smoke_config(arch), activation_dtype="float32")
+    gen = torch.Generator().manual_seed(SEED)
+    params = lm.init_params(cfg, gen, "cpu")
+    B, S, n = LM_SMOKE_B, LM_SMOKE_S, LM_SMOKE_DEC
+    s_tok = S - cfg.prefix_len
+    tokens = torch.randint(0, cfg.vocab_size, (B, s_tok + n), generator=gen,
+                           dtype=torch.int32)
+    prefix = None
+    if cfg.prefix_len:
+        prefix = 0.02 * torch.randn((B, cfg.prefix_len, cfg.d_model), generator=gen)
+
+    def run(device, p, n_prompt):
+        px = None if prefix is None else prefix.to(device)
+        cache = lm.init_cache(cfg, B, S + n, device)
+        logits, cache = lm.prefill(p, cfg, tokens[:, :n_prompt].to(device), cache, px)
+        out = [logits]
+        for i in range(n):
+            t = tokens[:, n_prompt + i:n_prompt + i + 1].to(device)
+            logits, cache = lm.decode_step(p, cfg, t, cache)
+            out.append(logits)
+        return torch.stack(out), cache
+
+    card_p = _tree_to(params, dev)
+    want, want_cache = run(torch.device("cpu"), params, s_tok)
+    got, got_cache = run(dev, card_p, s_tok)
+    err, ok = lm_err(got, want)
+    for key in want_cache:
+        e, o = lm_err(got_cache[key], want_cache[key])
+        err, ok = max(err, e), ok and o
+    if not ok:
+        fail(f"phase 15: {arch} smoke on the card differs from the CPU run by {err:.3e} "
+             f"(rtol = atol = {LM_TOL})")
+    full, _ = lm.forward(card_p, cfg, tokens[:, :s_tok].to(dev),
+                         None if prefix is None else prefix.to(dev))
+    steps, _ = run(dev, card_p, s_tok - n)
+    fwd_err = float((steps.transpose(0, 1) - full[:, -n - 1:]).abs().max())
+    if not torch.allclose(steps.transpose(0, 1), full[:, -n - 1:],
+                          rtol=LM_FORWARD_TOL, atol=LM_FORWARD_TOL):
+        fail(f"phase 15: {arch} smoke: teacher-forced decode differs from forward "
+             f"by {fwd_err:.3e}")
+    return {"shape": f"B={B} x {S} positions + {n} decode steps, f32",
+            "max_abs_err": err, "forward_err": fwd_err, "check": "pass"}
+
+
+def lm_profile(label, fn, reps, wall_ms):
+    """Run ``fn`` ``reps`` times under ``torch.profiler`` and print, per
+    call, the CUDA kernels launched and their summed device time; the
+    device's busy share is that time over ``wall_ms``, the call's time
+    measured without the profiler (one stream: the kernels do not
+    overlap).  Returns that dict, with None where the profiler recorded
+    no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:LM_PROFILE_TOP]
+    out = {"kernels": len(kernels) / reps, "wall_ms": wall_ms,
+           "profiled_wall_ms": profiled_ms,
+           "device_ms": device_ms if kernels else None,
+           "busy": device_ms / wall_ms if kernels else None,
+           "top": [[name[:80], ms] for name, ms in top]}
+    if kernels:
+        print(f"lm profile {label}: {out['kernels']:.1f} kernels a call, "
+              f"{device_ms:.3f} ms of device time against {wall_ms:.3f} ms wall "
+              f"unprofiled (busy {100 * out['busy']:.1f}%; {profiled_ms:.3f} ms "
+              f"under the profiler), {reps} calls", flush=True)
+        for name, ms in top:
+            print(f"  {ms:.3f} ms ({100 * ms / device_ms:.1f}%) {name[:100]}")
+    else:
+        print(f"lm profile {label}: the profiler recorded no device time "
+              f"(not measured)", flush=True)
+    return out
+
+
+def lm_full(arch, cut, B, S, steps, dev):
+    """One full-width config at its default bf16 activations, parameters
+    drawn on the card: prefill B x S through ``make_prefill_step`` (a
+    warm-up, then LM_TIMED timed by CUDA events; the median), then
+    ``steps`` greedy steps through ``make_decode_step`` on the host
+    clock.  Fails on a non-finite logit or a token outside the logits'
+    vocabulary (``padded_vocab``; smollm-135m's vocabulary is unpadded, so
+    there that is its own; at random weights another arch may pick a
+    padding id)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = lm.init_params(cfg, gen, dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S - cfg.prefix_len),
+                                     generator=gen, device=dev, dtype=torch.int32)}
+    cache0 = lm.init_cache(cfg, B, S + steps, dev)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    times = []
+    for rep in range(1 + LM_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = prefill(params, cache0, batch)
+        stop.record()
+        stop.synchronize()
+        if rep:
+            times.append(start.elapsed_time(stop))
+    prefill_ms = float(np.median(times))
+    finite = torch.isfinite(logits).all()
+    nxt = logits.argmax(-1)[:, None].to(torch.int32)
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = decode(params, cache, nxt)
+        finite &= torch.isfinite(logits).all()
+        nxt = logits.argmax(-1)[:, None].to(torch.int32)
+        out.append(nxt)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    toks = torch.cat(out, dim=1)
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(finite):
+        fail(f"phase 15: {arch} produced a non-finite logit")
+    lo, hi = int(toks.min()), int(toks.max())
+    if lo < 0 or hi >= cfg.padded_vocab:
+        fail(f"phase 15: {arch} decoded a token outside [0, {cfg.padded_vocab})")
+    if int(cache["pos"]) != S + steps:
+        fail(f"phase 15: {arch}'s cache ends at position {int(cache['pos'])}, "
+             f"not {S + steps}")
+    tok_s = B * steps / decode_s
+    cut_text = f", cut {cut}" if cut else ""
+    print(f"lm {arch}: full width{cut_text}, {cfg.activation_dtype}, "
+          f"{cfg.n_params() / 1e6:.1f}M parameters: prefill {B} x {S} in "
+          f"{prefill_ms:.3f} ms (median of {LM_TIMED}: "
+          f"{', '.join(f'{t:.3f}' for t in times)}), {steps} decode steps in "
+          f"{decode_s * 1e3:.3f} ms = {tok_s:.1f} tok/s "
+          f"({decode_s * 1e3 / steps:.3f} ms a step); peak memory {peak} bytes; "
+          f"tokens in [{lo}, {hi}], finite", flush=True)
+    return {"shape": f"B={B} x {S} prefill + {steps} decode steps, "
+                     f"{cfg.activation_dtype}{cut_text}",
+            "n_layers": cfg.n_layers, "prefill_ms": prefill_ms,
+            "prefill_ms_each": times, "decode_ms": decode_s * 1e3,
+            "decode_tok_s": tok_s, "peak_bytes": peak,
+            "check": "finite, tokens in vocab"}
+
+
+def lm_trace(dev, timed):
+    """torch.profiler over the slice's path, after every timed run (the
+    profiler slows what runs after it): smollm-135m at full width, one
+    prefill and LM_PROFILE_STEPS decode steps, their busy shares taken
+    against ``timed``, the unprofiled times of ``lm_full``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    arch, cut, B, S, steps = LM_FULL[0]
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = lm.init_params(cfg, gen, dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S - cfg.prefix_len),
+                                     generator=gen, device=dev, dtype=torch.int32)}
+    cache0 = lm.init_cache(cfg, B, S + LM_PROFILE_STEPS, dev)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    logits, cache = prefill(params, cache0, batch)
+    state = {"cache": cache, "nxt": logits.argmax(-1)[:, None].to(torch.int32)}
+
+    def step():
+        logits, state["cache"] = decode(params, state["cache"], state["nxt"])
+        state["nxt"] = logits.argmax(-1)[:, None].to(torch.int32)
+
+    return {
+        "prefill": lm_profile(f"{arch} prefill {B} x {S}",
+                              lambda: prefill(params, cache0, batch), 1,
+                              timed["prefill_ms"]),
+        "decode_step": lm_profile(f"{arch} decode step", step, LM_PROFILE_STEPS,
+                                  timed["decode_ms"] / steps),
+    }
+
+
+def lm_phase(dev):
+    """Phase 15: the LM testbed's serving path on the card.  Returns the
+    ``{"lm": ...}`` report."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch import serve
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("phase 15: TF32 is on")
+    t_phase = time.perf_counter()
+    print("phase 15 (lm): the LM testbed's prefill and decode on the card", flush=True)
+    report = {"smoke": {}, "full": {}}
+    for arch in ARCH_IDS:
+        report["smoke"][arch] = lm_smoke(arch, dev)
+    errs = [r["max_abs_err"] for r in report["smoke"].values()]
+    fwd = [r["forward_err"] for r in report["smoke"].values()]
+    print(f"lm smoke: {len(ARCH_IDS)} configs, card == CPU within {LM_TOL} (largest "
+          f"|diff| {max(errs):.3e}), teacher-forced decode == forward within "
+          f"{LM_FORWARD_TOL} (largest {max(fwd):.3e}); "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    print(f"lm card: {smi}", flush=True)
+    for arch, cut, B, S, steps in LM_FULL:
+        if cut:
+            print(f"lm {arch}: the one cut of its config: {cut} (the full "
+                  "depth does not fit one 80 GB card in f32)", flush=True)
+        report["full"][arch] = lm_full(arch, cut, B, S, steps, dev)
+    torch.cuda.empty_cache()
+    rep = serve.main(list(LM_SERVE))
+    if tuple(rep["tokens"].shape) != (4, 8) or not bool(torch.isfinite(rep["logits"]).all()):
+        fail("phase 15: launch.serve --service lm returned a wrong report")
+    report["serve"] = {"argv": " ".join(LM_SERVE), "tok_s": rep["tok_s"],
+                       "seconds": rep["seconds"], "check": "exit 0, report line"}
+    report["profile"] = lm_trace(dev, report["full"][LM_FULL[0][0]])
+    report["card"] = smi
+    report["seconds"] = time.perf_counter() - t_phase
+    report["budget_s"] = LM_BUDGET_S
+    print(f"phase 15 (lm) took {report['seconds']:.1f} s (budget {LM_BUDGET_S} s)",
+          flush=True)
+    return report
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3435,6 +3747,7 @@ def main() -> None:
     serve_launches, serve_err = serve_phase(dev)
     launcher_launches = launcher_phase(dev)
     verify_launches = verify_phase(dev)
+    lm_report = lm_phase(dev)
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s")
 
     rows = [k1_row, {
@@ -3469,6 +3782,7 @@ def main() -> None:
                                   in verify_launches.items() if kernel in counts}
         row["max_abs_err"] = max(row["max_abs_err"], codes_err.get(kernel, 0.0),
                                  serve_err.get(kernel, 0.0))
+    print(json.dumps({"lm": lm_report}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1,2 +1,3 @@
-"""Launchers: ``launch.serve`` (the Viterbi and engine services).  The
-reference's LM launchers (train, dryrun, mesh) wait for the LM testbed."""
+"""Launchers: ``launch.serve`` (the Viterbi, engine and LM services).  The
+reference's training launchers (train, dryrun, mesh) wait for the
+training and sharding slices of the port."""

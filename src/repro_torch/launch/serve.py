@@ -25,8 +25,13 @@ Two services:
     (``--slo latency|throughput|mixed``), with queue-depth and
     backpressure stats and a graceful drain at the end.
 
-``--service lm`` belongs to the LM-testbed slice of the port and raises
-``NotImplementedError``.
+  * ``--service lm`` — the LM testbed: the ``--arch`` smoke config,
+    ``--streams`` prompts of 64 positions (a ``prefix_embeds`` stub for
+    the frontend archs) prefilled through ``make_prefill_step``, then
+    ``--tokens`` greedy steps through ``make_decode_step``, whose
+    argument order ``(params, cache, tokens)`` this launcher keeps (the
+    reference's ``serve_lm`` passes tokens and cache the other way
+    round and crashes).
 
 ``--use-kernel`` keeps the reference's spelling and its path choice: with
 it the streaming modes (tiled, chunked, sharded) take the one-pass path
@@ -363,11 +368,57 @@ def serve_engine(args) -> dict:
                 seconds=dt, stats=s, requests=len(reqs))
 
 
-def serve_lm(args):
-    raise NotImplementedError(
-        "--service lm is not ported yet: the LM serve path belongs to the "
-        "LM-testbed slice of the PyTorch/CUDA port"
+LM_PROMPT_LEN = 64  # positions of each prompt, prefix included
+
+
+def serve_lm(args) -> dict:
+    """Prefill ``--streams`` prompts of the ``--arch`` smoke config, then
+    decode ``--tokens`` greedy steps; print the reference's report line
+    with the device in place of "(CPU, reduced config)".  Parameters,
+    prompts and prefix embeddings come from one CPU generator seeded 0.
+    Returns the report: the config, the greedy tokens (B, tokens), the
+    last logits, seconds and tokens/s."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.backend import resolve_device
+    from repro_torch.models import lm
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    dev = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch)
+    gen = torch.Generator().manual_seed(0)
+    model = lm.LanguageModel.init(cfg, gen, dev)
+    params = model.params
+    B, S = args.streams, LM_PROMPT_LEN
+    S_tok = S - cfg.prefix_len
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S_tok), generator=gen,
+                                     dtype=torch.int32).to(dev)}
+    if cfg.prefix_len:
+        batch["prefix_embeds"] = (0.02 * torch.randn(
+            (B, cfg.prefix_len, cfg.d_model), generator=gen)).to(
+            device=dev, dtype=torch.bfloat16)
+    cache = model.init_cache(B, max_len=S + args.tokens)
+    prefill = make_prefill_step(cfg)
+    decode = make_decode_step(cfg)
+    logits, cache = prefill(params, cache, batch)
+    nxt = logits.argmax(-1)[:, None].to(torch.int32)
+    out = []
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(args.tokens):
+        logits, cache = decode(params, cache, nxt)
+        nxt = logits.argmax(-1)[:, None].to(torch.int32)
+        out.append(nxt)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    where = (f"{dev.type}: {torch.cuda.get_device_name(dev)}"
+             if dev.type == "cuda" else dev.type)
+    print(
+        f"[lm:{cfg.name}] {args.tokens} tokens x {B} streams in {dt:.2f}s "
+        f"= {args.tokens*B/dt:.1f} tok/s ({where}, reduced config)"
     )
+    tokens = torch.cat(out, dim=1) if out else nxt[:, :0]
+    return dict(cfg=cfg, tokens=tokens, logits=logits, seconds=dt,
+                tok_s=args.tokens * B / dt)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -447,7 +498,7 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None):
     """Parse ``argv`` (None: ``sys.argv``) and run the service; returns
-    its report (``serve_viterbi``, ``serve_engine``)."""
+    its report (``serve_viterbi``, ``serve_engine``, ``serve_lm``)."""
     args = _parser().parse_args(argv)
     if args.service == "viterbi":
         return serve_viterbi(args)

@@ -1,21 +1,49 @@
-"""Serving entry points of the reference's ``serve/step.py``: the paper's
-Viterbi stream-decode service (``make_viterbi_decoder``,
-``make_viterbi_serve_step``) and the multi-tenant ``DecodeEngine``
-factory (``make_decode_engine``).
+"""Serving entry points of the reference's ``serve/step.py``: the LM
+testbed's prefill and decode steps (``make_prefill_step``,
+``make_decode_step``), the paper's Viterbi stream-decode service
+(``make_viterbi_decoder``, ``make_viterbi_serve_step``) and the
+multi-tenant ``DecodeEngine`` factory (``make_decode_engine``).
 
-Every factory defaults to ``use_kernel=True`` and to the card
+Every Viterbi factory defaults to ``use_kernel=True`` and to the card
 (``device=None``); the reference's default is ``use_kernel=False``.  The
-reference's LM step factories (prefill, decode) wait for the LM testbed.
+LM steps run where their parameters and cache lie.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = [
+    "make_prefill_step",
+    "make_decode_step",
     "make_viterbi_serve_step",
     "make_viterbi_decoder",
     "make_decode_engine",
 ]
+
+
+def make_prefill_step(cfg):
+    """prefill_step(params, cache, batch) -> (last logits (B, V) f32,
+    cache): ``batch`` holds "tokens" (B, S) and, for a frontend arch,
+    "prefix_embeds" (B, prefix_len, d_model)."""
+    from repro_torch.models import lm
+
+    def prefill_step(params, cache, batch):
+        return lm.prefill(
+            params, cfg, batch["tokens"], cache, batch.get("prefix_embeds")
+        )
+
+    return prefill_step
+
+
+def make_decode_step(cfg):
+    """decode_step(params, cache, tokens (B, 1)) -> (logits (B, V) f32,
+    a new cache)."""
+    from repro_torch.models import lm
+
+    def decode_step(params, cache, tokens):
+        return lm.decode_step(params, cfg, tokens, cache)
+
+    return decode_step
 
 
 def make_viterbi_decoder(vcfg, precision=None, use_kernel: bool = True,

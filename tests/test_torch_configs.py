@@ -111,19 +111,24 @@ def test_cells_kernel_configs_and_input_specs():
 
 
 def test_registry_serves_viterbi_only():
+    """The registry serves ``viterbi-k7`` and the ten LM arch ids (the
+    name predates the LM slice), and raises ``KeyError`` on another id."""
+    from repro import configs as ref
     from repro_torch import configs
-    from repro_torch.configs import viterbi_k7
+    from repro_torch.configs import smollm_135m, viterbi_k7
 
-    assert configs.ALL_IDS == ["viterbi-k7"]
+    assert configs.ALL_IDS == ref.ALL_IDS and configs.ALL_IDS[-1] == "viterbi-k7"
+    assert configs.ARCH_IDS == ref.ARCH_IDS and len(configs.ARCH_IDS) == 10
     assert configs.get_config("viterbi-k7") is viterbi_k7.CONFIG
     assert configs.get_smoke_config("viterbi-k7") == viterbi_k7.smoke_config()
-    for arch in ("smollm-135m", "mixtral-8x7b"):
-        with pytest.raises(NotImplementedError, match="LM-testbed"):
-            configs.get_config(arch)
-        with pytest.raises(NotImplementedError, match="LM-testbed"):
-            configs.get_smoke_config(arch)
+    assert configs.get_config("smollm-135m") is smollm_135m.CONFIG
+    for arch in configs.ARCH_IDS:
+        assert configs.get_config(arch).name == arch
+        assert configs.get_smoke_config(arch).name == f"{arch}-smoke"
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
+    with pytest.raises(KeyError):
+        configs.get_smoke_config("no-such-arch")
 
 
 def _batch_llrs(code, seed):

@@ -79,6 +79,11 @@ def test_every_module_imports_without_triton_nvcc_or_jax():
     assert {"repro_torch.roofline", "repro_torch.kernels.traffic",
             "repro_torch.kernels.parity", "repro_torch.obs.profile",
             "repro_torch.verify.farm", "repro_torch.verify.gate"} <= set(modules)
+    # and the LM testbed's serving slice's
+    assert {"repro_torch.configs.base", "repro_torch.configs.smollm_135m",
+            "repro_torch.configs.mamba2_370m", "repro_torch.models",
+            "repro_torch.models.layers", "repro_torch.models.ssd",
+            "repro_torch.models.moe", "repro_torch.models.lm"} <= set(modules)
     code = (
         "import sys\n"
         "sys.modules['triton'] = None\n"
@@ -118,19 +123,29 @@ def test_default_device_is_the_card_without_fallback():
 
 
 @pytest.mark.parametrize("builder", ["tropical_identity", "semiring_identity",
-                                     "logprob_identity", "init_metric"])
+                                     "logprob_identity", "init_metric",
+                                     "lm_init_params", "lm_init_cache",
+                                     "lm_language_model", "lm_rope_freqs"])
 def test_exported_tensor_builders_default_to_the_card(builder):
     """The exported helpers that build a tensor follow the entry points:
     ``device=None`` is the card, and only an explicit ``"cpu"`` is not."""
+    from repro_torch.configs import get_smoke_config
     from repro_torch.core.semiring import LOGPROB, TROPICAL
     from repro_torch.core.timeparallel import tropical_identity
     from repro_torch.core.viterbi import init_metric
+    from repro_torch.models import layers, lm
 
+    cfg = get_smoke_config("smollm-135m")
     build = {
         "tropical_identity": lambda device=None: tropical_identity(4, device),
         "semiring_identity": lambda device=None: TROPICAL.identity(4, device),
         "logprob_identity": lambda device=None: LOGPROB.identity(4, device),
         "init_metric": lambda device=None: init_metric(2, 4, 0, device),
+        "lm_init_params": lambda device=None: lm.init_params(cfg, device=device)["embed"],
+        "lm_init_cache": lambda device=None: lm.init_cache(cfg, 2, 8, device)["k"],
+        "lm_language_model": lambda device=None: lm.LanguageModel.init(
+            cfg, device=device).weights["lm_head"],
+        "lm_rope_freqs": lambda device=None: layers.rope_freqs(8, 4, device=device)[0],
     }[builder]
     if torch.cuda.is_available():
         assert build().device.type == "cuda"

@@ -256,7 +256,14 @@ def test_main_engine_chaos_checkpoint_scrub(capsys, tmp_path):
 
 
 def test_service_lm_raises():
+    """``--service lm`` runs on the CPU when asked (the name predates the
+    LM slice); without ``--device`` it means the card, and raises on a
+    host without one instead of falling back."""
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match="LM-testbed"):
-        serve.main(["--service", "lm", "--device", "cpu"])
+    rep = serve.main(["--service", "lm", "--tokens", "2", "--streams", "2",
+                      "--device", "cpu"])
+    assert tuple(rep["tokens"].shape) == (2, 2)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--service", "lm", "--tokens", "2", "--streams", "2"])
