@@ -107,8 +107,11 @@ which ends the run with a non-zero exit when it fails:
                Times: K3-LOGPROB, the
                two LOGPROB compose scans, the alpha and beta scans and
                ``_llrs_from_joints`` (CUDA events), the decode_soft wall
-               (median of 3), Mb/s, peak memory, K1-LOGPROB and both plain
-               versions.  Then ``decode_soft(output="list", n_list=4)`` at
+               (median of 3), Mb/s, peak memory, K1-LOGPROB, both plain
+               versions and K1-LOGPROB's yardstick (``library_forward``'s
+               LOGPROB form: torch.matmul, torch.logsumexp over the slots
+               and torch.argmax a step).  Then
+               ``decode_soft(output="list", n_list=4)`` at
                64 x 4096 stages (times of ``list_forward`` and
                ``list_traceback``; at n_list=1 the bits equal
                ``decode_batch(time_parallel=False)``'s exactly, on the AWGN
@@ -264,7 +267,39 @@ which ends the run with a non-zero exit when it fails:
                device time, busy share against the unprofiled times).
                A ``{"lm": ...}`` JSON line
                before the kernels line; the phase's seconds against a
-               budget of 60 s.
+               budget of 60 s;
+ 16. train   — the LM testbed's training (``train/step.py``,
+               ``optim/adamw.py``, ``optim/compress.py``,
+               ``data/pipeline.py``'s ``TokenStream``, the checkpoint tree
+               half, ``train/loop.py``, ``launch/train.py``), which
+               launches none of the kernels above (the counts are zeroed
+               before it and must be 0 after): TF32 must be off; for each
+               of the ten smoke configs at f32 activations, the loss,
+               every gradient and one AdamW step on 4 x 32 positions on
+               the card held to the same calls on the CPU (loss rtol 1e-5;
+               gradients and first moments within 1e-4 of each leaf's
+               largest; new parameters within 1e-3 x lr where the
+               gradient is at least 1e-3 of its leaf's largest, 2 x lr
+               elsewhere), and on smollm-135m remat on against off and two
+               microbatches against one at the same tolerances; at full
+               width smollm-135m at train_4k's sequence of 4,096 with its
+               global batch of 256 cut to 8, two microbatches, bf16
+               activations, f32 parameters and optimiser: a warm-up step
+               and 3 steps timed by CUDA events (median step ms, tokens/s,
+               each loss finite, peak memory, the bf16 bound), then one
+               step under ``torch.profiler`` (kernels, device busy share,
+               the six longest kernels); mamba2-370m at 4 x 2,048, 2 steps
+               (the SSD backward); the EF-int8 data-parallel step on 4
+               logical shards of the card, the reference test's 60
+               least-squares steps, held to the CPU run (losses,
+               parameters, each shard's residual; rtol 1e-4, atol 1e-5)
+               with its last loss under 0.05 x the first; the loop on the
+               card, 6 steps straight against 3 and a resume through
+               ``CheckpointManager`` (rtol 2e-4, atol 2e-5);
+               ``launch.train --arch smollm-135m --smoke --steps 20``,
+               its last logged loss under its first.  A ``{"train": ...}``
+               JSON line before the kernels line; the phase's seconds
+               against a budget of 60 s.
 
 Parity: at TROPICAL every kernel is held bit for bit to its plain version.
 At LOGPROB the slot reduction is a logsumexp, whose expf/logf (CUDA) and
@@ -351,6 +386,8 @@ CODES_BUDGET_S = 75  # phase 11's time budget, printed beside its seconds
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput), 132 SMs, 1.98 GHz boost clock
 PEAK_SFU_OPS = 16 * 132 * 1.98e9
+# dense bf16 on the tensor cores, NVIDIA's H100 SXM data sheet (no sparsity)
+PEAK_BF16_FLOPS = 989e12
 
 
 def fail(msg: str) -> None:
@@ -513,15 +550,21 @@ def path_metric_ties(llrs, bits_a, bits_b, spec):
             torch.maximum(ma.abs(), mb.abs()).max().item())
 
 
-def library_forward(blocks, lam0, w, n_states, n_slots):
-    """Yardstick only: the K1 step as stock PyTorch calls (torch.matmul,
-    then torch.max for the slot max and argmax), one step at a time."""
+def library_forward(blocks, lam0, w, n_states, n_slots, semiring="tropical"):
+    """Yardstick only: the K1 step as stock PyTorch calls, one step at a
+    time: torch.matmul, then torch.max for the slot max and argmax
+    (tropical), or torch.logsumexp over the slots and torch.argmax for
+    the first argmax (logprob); the renorm subtracts the frame's max."""
     T, F, _ = blocks.shape
     phi = torch.empty((T, F, n_states), dtype=torch.int8, device=blocks.device)
     lam = lam0
     for t in range(T):
         pot = torch.matmul(torch.cat([blocks[t], lam], dim=1), w)
-        new, idx = pot.view(F, n_states, n_slots).max(dim=-1)
+        slots = pot.view(F, n_states, n_slots)
+        if semiring == "logprob":
+            new, idx = torch.logsumexp(slots, dim=-1), slots.argmax(dim=-1)
+        else:
+            new, idx = slots.max(dim=-1)
         phi[t] = idx
         lam = new - new.amax(dim=-1, keepdim=True)
     return lam, phi
@@ -1242,8 +1285,12 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w, sweep_err
           f"{gap!r} (limit {PHI_TIE})")
     if not gap <= PHI_TIE:
         fail(f"K1-LOGPROB survivors differ at a potential gap of {gap}")
+    k1l_lib_ms = cuda_ms(
+        lambda: library_forward(blocks, lam0, w, S, R, semiring="logprob"),
+        warmup=lambda: library_forward(blocks[:16], lam0, w, S, R, semiring="logprob"))
     print(f"time K1-LOGPROB acs_forward: {k1l_ms:.3f} ms (F={F_SOFT} x T={T} steps)")
     print(f"time K1-LOGPROB plain version (acs_forward_ref): {k1l_plain_ms:.3f} ms")
+    print(f"time torch.matmul + torch.logsumexp yardstick: {k1l_lib_ms:.3f} ms")
     k1l_bound, k1l_bound_by = acs_bound(
         w, B, S, R, F_SOFT * T, 1, True,
         blocks.numel() * 4 + lam0.numel() * 4 + w.numel() * 4
@@ -1344,7 +1391,7 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w, sweep_err
         "plain_ms": k1l_plain_ms,
         "bound_ms": k1l_bound,
         "bound_by": k1l_bound_by,
-        "library_ms": None,
+        "library_ms": k1l_lib_ms,
     }, {
         "name": "K3-LOGPROB transfer_matrix",
         "route": "cuda",
@@ -3092,17 +3139,35 @@ def lm_smoke(arch, dev):
             "max_abs_err": err, "forward_err": fwd_err, "check": "pass"}
 
 
+def kernel_kind(name: str) -> str:
+    """A CUDA kernel's kind from its name: a matmul (cuBLAS's gemm, gemv
+    and Hopper ``nvjet`` kernels, or CUTLASS), a reduction, a copy or
+    cast, another elementwise pass, or other."""
+    low = name.lower()
+    if any(k in low for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")):
+        return "matmul"
+    if "reduce" in low:
+        return "reduction"
+    if "copy" in low:
+        return "copy/cast"
+    if "elementwise" in low:
+        return "elementwise"
+    return "other"
+
+
 def lm_profile(label, fn, reps, wall_ms):
     """Run ``fn`` ``reps`` times under ``torch.profiler`` and print, per
-    call, the CUDA kernels launched and their summed device time; the
-    device's busy share is that time over ``wall_ms``, the call's time
-    measured without the profiler (one stream: the kernels do not
-    overlap).  Returns that dict, with None where the profiler recorded
-    no device time."""
+    call, the CUDA kernels launched and their summed device time, by kind
+    and the longest by name; the device's busy share is that time over
+    ``wall_ms``, the call's time measured without the profiler (one
+    stream: the kernels do not overlap).  Only the CUDA activity is
+    recorded: no host operator event is read, and a train step launches
+    tens of thousands of kernels.  Returns that dict, with None where the
+    profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -3115,18 +3180,23 @@ def lm_profile(label, fn, reps, wall_ms):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:LM_PROFILE_TOP]
+    kinds = {}
+    for name, ms in by_name.items():
+        kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0.0) + ms
     out = {"kernels": len(kernels) / reps, "wall_ms": wall_ms,
            "profiled_wall_ms": profiled_ms,
            "device_ms": device_ms if kernels else None,
            "busy": device_ms / wall_ms if kernels else None,
-           "top": [[name[:80], ms] for name, ms in top]}
+           "top": [[name[:160], ms] for name, ms in top], "by_kind_ms": kinds}
     if kernels:
         print(f"lm profile {label}: {out['kernels']:.1f} kernels a call, "
               f"{device_ms:.3f} ms of device time against {wall_ms:.3f} ms wall "
               f"unprofiled (busy {100 * out['busy']:.1f}%; {profiled_ms:.3f} ms "
-              f"under the profiler), {reps} calls", flush=True)
+              f"under the profiler), {reps} calls; by kind: "
+              + ", ".join(f"{k} {100 * v / device_ms:.1f}%" for k, v in
+                          sorted(kinds.items(), key=lambda kv: -kv[1])), flush=True)
         for name, ms in top:
-            print(f"  {ms:.3f} ms ({100 * ms / device_ms:.1f}%) {name[:100]}")
+            print(f"  {ms:.3f} ms ({100 * ms / device_ms:.1f}%) {name[:160]}")
     else:
         print(f"lm profile {label}: the profiler recorded no device time "
               f"(not measured)", flush=True)
@@ -3283,6 +3353,361 @@ def lm_phase(dev):
     report["budget_s"] = LM_BUDGET_S
     print(f"phase 15 (lm) took {report['seconds']:.1f} s (budget {LM_BUDGET_S} s)",
           flush=True)
+    return report
+
+
+# -- phase 16: the LM testbed's training -------------------------------------
+
+TRAIN_BUDGET_S = 60  # phase 16's time budget, printed beside its seconds
+TRAIN_LOSS_RTOL = 1e-5  # the card's loss against the port's CPU run, f32
+TRAIN_GRAD_TOL = 1e-4  # each gradient and moment leaf, of its largest magnitude
+TRAIN_OPT = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10)  # smoke steps
+TRAIN_SMOKE_B, TRAIN_SMOKE_S = 2, 32  # smoke batch and positions
+# the slice's path: smollm-135m at train_4k's sequence length of 4,096 and
+# its global batch of 256 cut to 8 (the one cut), two microbatches, bf16
+# activations, f32 parameters and optimiser state
+TRAIN_FULL = ("smollm-135m", 256, 8, 4096, 2)  # arch, cell batch, batch, seq, microbatches
+TRAIN_TIMED = 3  # timed steps after the warm-up, median reported
+TRAIN_SSM = ("mamba2-370m", 4, 2048, 2)  # the SSD backward: arch, batch, seq, steps
+TRAIN_DP_SHARDS, TRAIN_DP_STEPS = 4, 60  # the reference test's compressed DP run
+TRAIN_RESUME = dict(steps=6, batch=2, seq_len=32, ckpt_interval=3, log_interval=100)
+TRAIN_LAUNCH = ("--arch", "smollm-135m", "--smoke", "--steps", "20")
+
+
+def train_leaf_errs(got, want):
+    """Largest |got - want| over the leaves of two trees, as a fraction of
+    each leaf's largest |want|; and the largest absolute difference."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    rel = absolute = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        err = float((g - w).abs().max()) if g.numel() else 0.0
+        rel = max(rel, err / max(float(w.abs().max()), 1e-30))
+        absolute = max(absolute, err)
+    return rel, absolute
+
+
+def train_params_hold(got, want, grads, lr):
+    """The contract's hold on new parameters: within 1e-3 x lr (+ 1e-6 x
+    |p|) where the gradient is at least 1e-3 of its leaf's largest, within
+    2 x lr elsewhere.  Returns (holds, largest difference over lr)."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    ok, worst = True, 0.0
+    for g, w, gr in zip(tree_leaves(got), tree_leaves(want), tree_leaves(grads)):
+        g, w, gr = (t.detach().float().cpu() for t in (g, w, gr))
+        err = (g - w).abs()
+        slack = 1e-6 * w.abs()
+        big = gr.abs() >= 1e-3 * gr.abs().max()
+        ok &= bool((err <= 1e-3 * lr + slack)[big].all())
+        ok &= bool((err <= 2 * lr + slack).all())
+        worst = max(worst, float(err.max()) / lr)
+    return ok, worst
+
+
+def train_batch(cfg, B, S, gen, dev):
+    """Tokens, next-token labels (the last masked) and a frontend arch's
+    prefix embeddings, drawn from ``gen`` on the CPU and moved to ``dev``."""
+    tokens = torch.randint(0, cfg.vocab_size, (B, S - cfg.prefix_len), generator=gen,
+                           dtype=torch.int32)
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -1
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.prefix_len:
+        batch["prefix_embeds"] = 0.02 * torch.randn((B, cfg.prefix_len, cfg.d_model),
+                                                    generator=gen)
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def train_smoke(arch, dev):
+    """One smoke config at f32 activations: loss, gradients and one AdamW
+    step on the card against the same calls on the CPU.  On smollm-135m
+    also remat on against off and two microbatches against one, on the
+    card."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.train import step
+
+    cfg = dataclasses.replace(get_smoke_config(arch), activation_dtype="float32")
+    gen = torch.Generator().manual_seed(SEED)
+    params = step.lm.init_params(cfg, gen, "cpu")
+    batch = train_batch(cfg, TRAIN_SMOKE_B * 2, TRAIN_SMOKE_S, gen, "cpu")
+    opt = AdamWConfig(**TRAIN_OPT)
+
+    def run(p, b, c=cfg):
+        """The loss, the gradients and the AdamW step on them: what
+        ``make_train_step`` does at one microbatch."""
+        loss, _, grads = step._grad_fn(c)(p, b)
+        new, state, stats = adamw_update(grads, adamw_init(p), p, opt)
+        return loss, grads, new, state, {**stats, "loss": loss}
+
+    card_p = _tree_to(params, dev)
+    card_b = {k: v.to(dev) for k, v in batch.items()}
+    w_loss, w_grads, w_new, w_state, w_m = run(params, batch)
+    g_loss, g_grads, g_new, g_state, g_m = run(card_p, card_b)
+    lr = float(w_m["lr"])
+    loss_err = abs(float(g_loss) - float(w_loss)) / abs(float(w_loss))
+    grad_err, _ = train_leaf_errs(g_grads, w_grads)
+    m_err, _ = train_leaf_errs(g_state.m, w_state.m)
+    held, p_err = train_params_hold(g_new, w_new, w_grads, lr)
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_TOL
+            and m_err <= TRAIN_GRAD_TOL and held):
+        fail(f"phase 16: {arch} smoke step on the card differs from the CPU run: loss "
+             f"{loss_err:.3e}, grads {grad_err:.3e}, m {m_err:.3e}, params {p_err:.3e} lr")
+    out = {"shape": f"B={TRAIN_SMOKE_B * 2} x {TRAIN_SMOKE_S}, f32", "loss_rel_err": loss_err,
+           "grad_err": grad_err, "m_err": m_err, "param_err_lr": p_err, "check": "pass"}
+    if arch == "smollm-135m":
+        _, r_grads, *_ = run(card_p, card_b, c=dataclasses.replace(cfg, remat=False))
+        remat_err, _ = train_leaf_errs(g_grads, r_grads)
+        mb_new, mb_state, mb_m = step.make_train_step(cfg, opt, microbatches=2)(
+            card_p, adamw_init(card_p), card_b)
+        mb_err, _ = train_leaf_errs(mb_state.m, g_state.m)
+        mb_held, mb_p = train_params_hold(mb_new, g_new, g_grads, lr)
+        mb_loss = abs(float(mb_m["loss"]) - float(g_m["loss"])) / abs(float(g_m["loss"]))
+        if remat_err > TRAIN_GRAD_TOL or mb_err > TRAIN_GRAD_TOL or not mb_held or \
+                mb_loss > TRAIN_LOSS_RTOL:
+            fail(f"phase 16: smollm-135m on the card: remat on/off grads {remat_err:.3e}, "
+                 f"2 microbatches against 1: loss {mb_loss:.3e}, m {mb_err:.3e}, "
+                 f"params {mb_p:.3e} lr")
+        out.update(remat_grad_err=remat_err, microbatch_loss_err=mb_loss,
+                   microbatch_m_err=mb_err, microbatch_param_err_lr=mb_p)
+    return out
+
+
+def train_bound_ms(cfg, B, S):
+    """The step's least time at the bf16 peak: the matmuls (every weight
+    but the embedding's gather, 2 operations a weight a token forward, 4
+    backward, 2 more for the remat forward) and the attention over every
+    chunk pair (Q K^T and P V, 4 B S^2 H hd forward, four times over)."""
+    n_mm = cfg.n_params() - cfg.padded_vocab * cfg.d_model  # no embedding gather
+    mm = (6 + 2 * cfg.remat) * n_mm * B * S
+    attn = 4 * B * S * S * cfg.n_heads * cfg.head_dim_ * cfg.n_layers
+    passes = 4 if cfg.remat else 3
+    return (mm + attn * passes) / PEAK_BF16_FLOPS * 1e3, mm + attn * passes
+
+
+def train_full_step(arch, B, S, microbatches, timed, dev, profile=False):
+    """A full-width config at its bf16 activations, parameters drawn on the
+    card: one warm-up step, then ``timed`` steps timed by CUDA events (the
+    median); each step's loss read after it.  With ``profile``, one more
+    step under ``torch.profiler``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step
+
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params, opt_state = step.init_train_state(cfg, gen, dev)
+    stream = TokenStream(vocab_size=cfg.vocab_size, batch=B, seq_len=S, seed=SEED,
+                         device=dev)
+    train_step = step.make_train_step(cfg, AdamWConfig(), microbatches=microbatches)
+    times, losses = [], []
+    for i in range(1 + timed):
+        batch = stream.batch_at(i)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt_state, metrics = train_step(params, opt_state, batch)
+        stop.record()
+        stop.synchronize()
+        losses.append(float(metrics["loss"]))
+        if i:
+            times.append(start.elapsed_time(stop))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        fail(f"phase 16: {arch} gave a non-finite loss: {losses}")
+    step_ms = float(np.median(times)) if times else None
+    out = {"shape": f"B={B} x {S}, {microbatches} microbatches, {cfg.activation_dtype} "
+                    f"activations, f32 params and optimiser", "n_params": cfg.n_params(),
+           "losses": losses, "step_ms": step_ms, "step_ms_each": times,
+           "tokens_s": B * S / step_ms * 1e3 if step_ms else None, "peak_bytes": peak}
+    if profile:
+        batch = stream.batch_at(1 + timed)
+        holder = {"p": params, "o": opt_state}
+
+        def one():
+            holder["p"], holder["o"], _ = train_step(holder["p"], holder["o"], batch)
+
+        out["profile"] = lm_profile(f"train {arch} step {B} x {S}", one, 1, step_ms)
+    return out
+
+
+def train_dp(dev):
+    """The reference test's EF-int8 data-parallel least squares on
+    TRAIN_DP_SHARDS logical shards of the card and of the CPU: losses,
+    parameters and every shard's residual after each step held (rtol
+    1e-4, atol 1e-5), and the last loss under 0.05 x the first."""
+    from repro_torch.distributed.decoder import frame_mesh
+    from repro_torch.optim import compress
+
+    def run(device):
+        mesh = frame_mesh(TRAIN_DP_SHARDS, device=device)
+        rng = np.random.default_rng(0)
+        W = torch.as_tensor(rng.normal(0, 1, (16, 1)), dtype=torch.float32, device=device)
+
+        def loss_fn(params, batch):
+            x, y = batch
+            return torch.mean((x @ params["w"] - y) ** 2)
+
+        params = {"w": torch.zeros((16, 1), device=device)}
+        err = compress.init_residuals(params, mesh)
+        dp_step = compress.make_dp_train_step_compressed(loss_fn, mesh, lr=0.1)
+        losses, ws, errs = [], [], []
+        for _ in range(TRAIN_DP_STEPS):
+            x = torch.as_tensor(rng.normal(0, 1, (32, 16)), dtype=torch.float32,
+                                device=device)
+            params, err, loss = dp_step(params, err, (x, x @ W))
+            losses.append(loss)
+            ws.append(params["w"])
+            errs.append(torch.stack([e["w"] for e in err]))
+        return (torch.stack(losses).cpu(), torch.stack(ws).cpu(), torch.stack(errs).cpu())
+
+    t0 = time.perf_counter()
+    got = run(dev)
+    card_s = time.perf_counter() - t0
+    want = run(torch.device("cpu"))
+    held = all(torch.allclose(g, w, rtol=1e-4, atol=1e-5) for g, w in zip(got, want))
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    first, last = float(got[0][0]), float(got[0][-1])
+    shards_differ = float((got[2][0, 0] - got[2][0, 1]).abs().max())
+    print(f"train dp: {TRAIN_DP_SHARDS} logical shards of the card, {TRAIN_DP_STEPS} "
+          f"steps in {card_s:.2f} s: loss {first:.4f} -> {last:.3e}; card == CPU "
+          f"(losses, params, residuals: largest |diff| {max(errs):.3e}); shard 0 "
+          f"and 1 residuals differ by {shards_differ:.3e} after step 1", flush=True)
+    if not held or not last < 0.05 * first:
+        fail(f"phase 16: the compressed DP step: card against CPU {errs}, "
+             f"loss {first} -> {last}")
+    return {"shards": TRAIN_DP_SHARDS, "steps": TRAIN_DP_STEPS, "first_loss": first,
+            "last_loss": last, "max_abs_err": max(errs), "seconds": card_s,
+            "check": "card == CPU, last < 0.05 x first"}
+
+
+def train_resume(dev):
+    """The loop on the card, smollm-135m's smoke config: TRAIN_RESUME's
+    steps straight against a run stopped at half and resumed through
+    ``CheckpointManager`` (the reference test's rtol 2e-4, atol 2e-5)."""
+    import tempfile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.loop import TrainLoopConfig, train
+
+    cfg = get_smoke_config("smollm-135m")
+    quiet = lambda *a: None  # noqa: E731
+    with tempfile.TemporaryDirectory() as tmp:
+        full = dict(TRAIN_RESUME)
+        p1, _, _ = train(cfg, TrainLoopConfig(ckpt_dir=f"{tmp}/a", **full),
+                         log_fn=quiet, device=dev)
+        train(cfg, TrainLoopConfig(ckpt_dir=f"{tmp}/b", **dict(full, steps=full["steps"] // 2)),
+              log_fn=quiet, device=dev)
+        logs = []
+        p2, o2, _ = train(cfg, TrainLoopConfig(ckpt_dir=f"{tmp}/b", **full),
+                          log_fn=logs.append, device=dev)
+    errs = [float((a.float() - b.float()).abs().max()) for a, b in
+            zip(tree_leaves(p1), tree_leaves(p2))]
+    held = all(torch.allclose(a.float(), b.float(), rtol=2e-4, atol=2e-5)
+               for a, b in zip(tree_leaves(p1), tree_leaves(p2)))
+    resumed = [line for line in logs if "resumed" in line]
+    print(f"train resume: {full['steps']} steps straight == {full['steps'] // 2} + "
+          f"resume ({resumed[0] if resumed else 'NOT RESUMED'}), largest |diff| "
+          f"{max(errs):.3e}", flush=True)
+    if not held or not resumed or int(o2.step) != full["steps"]:
+        fail(f"phase 16: the resumed run differs from the straight one ({max(errs)})")
+    return {"steps": full["steps"], "max_abs_err": max(errs), "log": resumed[0],
+            "check": "rtol 2e-4, atol 2e-5"}
+
+
+def train_phase(dev):
+    """Phase 16: the LM testbed's training on the card.  Returns the
+    ``{"train": ...}`` report."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch import train as launch_train
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("phase 16: TF32 is on")
+    t_phase = time.perf_counter()
+    print("phase 16 (train): the LM testbed's train step, loop and launcher on the card",
+          flush=True)
+    zero_counts()
+    report = {"smoke": {}, "part_seconds": {}}
+    t_part = [t_phase]
+
+    def part(name):
+        now = time.perf_counter()
+        report["part_seconds"][name] = now - t_part[0]
+        t_part[0] = now
+
+    for arch in ARCH_IDS:
+        report["smoke"][arch] = train_smoke(arch, dev)
+    sm = report["smoke"]
+    print(f"train smoke: {len(ARCH_IDS)} configs at f32, one step each, card == CPU "
+          f"(largest loss {max(r['loss_rel_err'] for r in sm.values()):.3e} rel, grads "
+          f"{max(r['grad_err'] for r in sm.values()):.3e} of each leaf's largest, new "
+          f"params {max(r['param_err_lr'] for r in sm.values()):.3e} lr); smollm remat "
+          f"on/off {sm['smollm-135m']['remat_grad_err']:.3e}, 2 microbatches against 1 "
+          f"{sm['smollm-135m']['microbatch_m_err']:.3e}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    part("smoke")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    print(f"train card: {smi}", flush=True)
+
+    arch, cell_b, B, S, mb = TRAIN_FULL
+    print(f"train {arch}: the one cut of train_4k: its global batch of {cell_b} to "
+          f"{B} (sequence {S} kept)", flush=True)
+    full = train_full_step(arch, B, S, mb, TRAIN_TIMED, dev, profile=True)
+    bound_ms, ops = train_bound_ms(get_config(arch), B, S)
+    full.update(bound_ms=bound_ms, bound_ops=ops)
+    print(f"train {arch}: full width, {full['shape']}, {full['n_params']} parameters: "
+          f"step {full['step_ms']:.3f} ms (median of {TRAIN_TIMED}: "
+          f"{', '.join(f'{t:.3f}' for t in full['step_ms_each'])}), "
+          f"{full['tokens_s']:.1f} tokens/s; losses "
+          f"{', '.join(f'{x:.4f}' for x in full['losses'])}; peak memory "
+          f"{full['peak_bytes']} bytes; bf16 bound {bound_ms:.3f} ms ({ops:.3e} "
+          f"operations), the step at {bound_ms / full['step_ms']:.2%} of it", flush=True)
+    report["full"] = {arch: full}
+    part(f"{arch} (init, {1 + TRAIN_TIMED} steps, 1 profiled)")
+    arch2, B2, S2, steps2 = TRAIN_SSM
+    ssm = train_full_step(arch2, B2, S2, 1, steps2 - 1, dev)
+    print(f"train {arch2}: full width, {ssm['shape']}, {ssm['n_params']} parameters: "
+          f"{steps2} steps, losses {', '.join(f'{x:.4f}' for x in ssm['losses'])}, "
+          f"timed step {ssm['step_ms']:.3f} ms, {ssm['tokens_s']:.1f} tokens/s; peak "
+          f"memory {ssm['peak_bytes']} bytes", flush=True)
+    report["full"][arch2] = ssm
+    part(arch2)
+    torch.cuda.empty_cache()
+    report["dp"] = train_dp(dev)
+    part("dp (card and CPU)")
+    report["resume"] = train_resume(dev)
+    part("resume")
+    t0 = time.perf_counter()
+    hist = launch_train.main(list(TRAIN_LAUNCH))
+    launch_s = time.perf_counter() - t0
+    if not hist or not hist[-1][1] < hist[0][1]:
+        fail(f"phase 16: launch.train's last logged loss is not under its first: {hist}")
+    print(f"train launch: launch.train {' '.join(TRAIN_LAUNCH)}: exit 0 in "
+          f"{launch_s:.1f} s, loss {hist[0][1]:.4f} -> {hist[-1][1]:.4f}", flush=True)
+    report["launch"] = {"argv": " ".join(TRAIN_LAUNCH), "history": hist,
+                        "seconds": launch_s, "check": "exit 0, last loss < first"}
+    part("launch")
+    launched = launch_counts()
+    if any(launched.values()):
+        fail(f"phase 16 launched kernels of the decoder: {launched}")
+    report["kernel_launches"] = launched
+    report["card"] = smi
+    report["seconds"] = time.perf_counter() - t_phase
+    report["budget_s"] = TRAIN_BUDGET_S
+    print(f"phase 16 (train) took {report['seconds']:.1f} s (budget {TRAIN_BUDGET_S} s): "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in report["part_seconds"].items())
+          + f"; K1-K3 launches in it: {launched}", flush=True)
     return report
 
 
@@ -3748,6 +4173,7 @@ def main() -> None:
     launcher_launches = launcher_phase(dev)
     verify_launches = verify_phase(dev)
     lm_report = lm_phase(dev)
+    train_report = train_phase(dev)
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s")
 
     rows = [k1_row, {
@@ -3783,6 +4209,7 @@ def main() -> None:
         row["max_abs_err"] = max(row["max_abs_err"], codes_err.get(kernel, 0.0),
                                  serve_err.get(kernel, 0.0))
     print(json.dumps({"lm": lm_report}))
+    print(json.dumps({"train": train_report}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

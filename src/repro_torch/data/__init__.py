@@ -1,3 +1,4 @@
-"""Data pipelines: ``ChannelStream``, the paper's transmitter and channel
-(Fig. 12) as a deterministic, shardable batch source."""
-from .pipeline import ChannelStream  # noqa: F401
+"""Data pipelines: ``TokenStream``, synthetic LM batches, and
+``ChannelStream``, the paper's transmitter and channel (Fig. 12), both
+deterministic, shardable batch sources."""
+from .pipeline import ChannelStream, TokenStream  # noqa: F401

@@ -1,9 +1,11 @@
 """Data pipelines.
 
-``ChannelStream`` is the paper's pipeline (Fig. 12): random bits ->
-convolutional encoder -> BPSK + AWGN -> LLR frames, for the Viterbi
-decoder service and BER measurements.  (The reference's ``TokenStream``,
-synthetic LM batches, belongs to the LM testbed and is not ported yet.)
+Two sources, both deterministic and host-shardable:
+  * ``TokenStream`` — synthetic LM token batches (training the testbed's
+    architectures without an external corpus);
+  * ``ChannelStream`` — the paper's pipeline (Fig. 12): random bits ->
+    convolutional encoder -> BPSK + AWGN -> LLR frames, for the Viterbi
+    decoder service and BER measurements.
 
 Determinism: batch ``i`` of host ``h`` is a pure function of
 (seed, h, i), so restarts resume exactly and any host can regenerate any
@@ -12,7 +14,7 @@ shard.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 
@@ -21,7 +23,59 @@ from repro_torch.core.backend import resolve_device
 from repro_torch.core.encoder import conv_encode_torch
 from repro_torch.core.trellis import CODE_K7_CCSDS, CodeSpec
 
-__all__ = ["ChannelStream"]
+__all__ = ["TokenStream", "ChannelStream"]
+
+
+@dataclasses.dataclass
+class TokenStream:
+    """Synthetic LM batches with a Zipfian unigram + bigram structure, so
+    that the loss falls measurably over a short training run.
+
+    Batch ``step`` draws from a ``torch.Generator`` on ``device`` (None:
+    the card) seeded with the reference's integer ``(seed * 1_000_003 +
+    host_id) * 1_000_003 + step``: tokens ``int(V * u**3)`` for uniform
+    ``u`` (a Zipf-ish marginal), every even position then set to
+    ``(previous token // 2) % V``, labels the tokens rolled left by one
+    with the last set to -1, and for a frontend arch (``prefix_len``)
+    bf16 ``prefix_embeds`` of 0.02 x standard normals.  The draws are not
+    ``jax.random``'s: the structure is the reference's, the numbers are
+    not, and the tests feed both packages the same numpy batches."""
+
+    vocab_size: int
+    batch: int
+    seq_len: int
+    seed: int = 0
+    host_id: int = 0
+    n_hosts: int = 1
+    prefix_len: int = 0
+    d_model: int = 0
+    device: Optional[object] = None
+
+    def __iter__(self) -> Iterator[dict]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+    def batch_at(self, step: int) -> dict:
+        dev = resolve_device(self.device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(
+            ((self.seed * 1_000_003 + self.host_id) * 1_000_003 + step) % 2**64)
+        u = torch.rand((self.batch, self.seq_len), generator=gen, device=dev)
+        toks = (self.vocab_size * u**3).to(torch.int32)
+        # inject determinism: every token at an even position copies prev // 2
+        prev = torch.roll(toks, 1, dims=1)
+        even = (torch.arange(self.seq_len, device=dev) % 2 == 0)[None, :]
+        toks = torch.where(even, torch.remainder(prev // 2, self.vocab_size), toks)
+        labels = torch.roll(toks, -1, dims=1)
+        labels[:, -1] = -1
+        out = {"tokens": toks, "labels": labels}
+        if self.prefix_len:
+            out["prefix_embeds"] = (0.02 * torch.randn(
+                (self.batch, self.prefix_len, self.d_model), generator=gen,
+                device=dev)).to(torch.bfloat16)
+        return out
 
 
 @dataclasses.dataclass

@@ -1,3 +1,3 @@
-"""Launchers: ``launch.serve`` (the Viterbi, engine and LM services).  The
-reference's training launchers (train, dryrun, mesh) wait for the
-training and sharding slices of the port."""
+"""Launchers: ``launch.serve`` (the Viterbi, engine and LM services) and
+``launch.train`` (the LM testbed's training).  The reference's sharding
+launchers (dryrun, mesh) wait for the sharding slice of the port."""

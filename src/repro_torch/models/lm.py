@@ -3,7 +3,9 @@ port of the reference's ``models/lm.py``.
 
   * Stacked-per-layer parameters, the reference's pytree as a nested dict
     of tensors with a leading layer axis L; the reference's ``lax.scan``
-    over layers is a Python loop over those stacks here.
+    over layers is a Python loop over those stacks here, each layer under
+    ``torch.utils.checkpoint`` in train mode when ``cfg.remat`` is set
+    and gradients are being taken (the reference's ``jax.checkpoint``).
   * Three modes share one layer body: "train" (full sequence, no cache),
     "prefill" (full sequence, emits the cache), "decode" (one token).
     KV caches are ring buffers (slot = pos mod capacity): sliding-window
@@ -33,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig, torch_dtype
@@ -512,21 +515,38 @@ def _rope_tables(cfg: ArchConfig, positions: torch.Tensor):
     return torch.cos(ang), torch.sin(ang)
 
 
-def _layer_slice(tree: dict, l: int) -> dict:
-    return {k: (_layer_slice(v, l) if isinstance(v, dict) else v[l])
-            for k, v in tree.items()}
+def _layer_slices(tree) -> list:
+    """The stacked layer tree as one tree of views a layer, one ``unbind``
+    per leaf: its backward stacks the layers' gradients once, where
+    indexing each layer would scatter each into a zero tensor of the
+    whole stack."""
+    if not isinstance(tree, dict):
+        return list(torch.unbind(tree, 0))
+    per_key = {k: _layer_slices(v) for k, v in tree.items()}
+    return [dict(zip(per_key, layer)) for layer in zip(*per_key.values())]
 
 
 def _stack(params, cfg, x, rope, mode, cache, pos):
     """Loop over the stacked layers (the reference's ``lax.scan``); cache
-    tensors have leading dim L.  Returns (x, new cache, aux)."""
+    tensors have leading dim L.  Returns (x, new cache, aux).
+
+    In train mode with ``cfg.remat`` each layer runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
+    scan body, src/repro/models/lm.py:564-565): only the layer's inputs
+    are kept for the backward, which recomputes the layer.  It changes
+    no value."""
     layer_keys = [k for k in cache if k != "pos"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     outs = {k: [] for k in layer_keys}
-    for l in range(cfg.n_layers):
-        lp = _layer_slice(params["layers"], l)
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    for l, lp in enumerate(_layer_slices(params["layers"])):
         cache_l = {k: cache[k][l] for k in layer_keys}
-        x, new_l, a = _layer_body(lp, x, cfg, rope, mode, cache_l, pos)
+        if remat:
+            x, new_l, a = torch.utils.checkpoint.checkpoint(
+                _layer_body, lp, x, cfg, rope, mode, cache_l, pos,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, new_l, a = _layer_body(lp, x, cfg, rope, mode, cache_l, pos)
         # train mode with seq_parallel: the reference shards the residual
         # stream's sequence axis between layers (constrain,
         # src/repro/models/lm.py:548-561): sharding slice
@@ -633,7 +653,13 @@ def _flatten(tree: dict, prefix: str = ""):
 class LanguageModel(nn.Module):
     """The parameters of one ``ArchConfig`` as an ``nn.Module`` (one
     parameter per leaf of the reference's tree, named by its path joined
-    with ``__``), with the functional entry points as methods."""
+    with ``__``), with the functional entry points as methods.
+
+    The weights are frozen (``requires_grad=False``) for serving.  To
+    train through the module form, ``model.requires_grad_(True)`` makes
+    every weight a leaf of the autograd graph: ``model(tokens)`` then
+    takes gradients into each weight's ``.grad``.  The training slice's
+    own step (``train.step``) works on the functional tree instead."""
 
     def __init__(self, cfg: ArchConfig, params: dict):
         super().__init__()

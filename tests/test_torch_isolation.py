@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -84,6 +85,11 @@ def test_every_module_imports_without_triton_nvcc_or_jax():
             "repro_torch.configs.mamba2_370m", "repro_torch.models",
             "repro_torch.models.layers", "repro_torch.models.ssd",
             "repro_torch.models.moe", "repro_torch.models.lm"} <= set(modules)
+    # and the LM testbed's training slice's
+    assert {"repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.optim.compress", "repro_torch.train",
+            "repro_torch.train.step", "repro_torch.train.loop",
+            "repro_torch.launch.train", "repro_torch.data.pipeline"} <= set(modules)
     code = (
         "import sys\n"
         "sys.modules['triton'] = None\n"
@@ -125,7 +131,9 @@ def test_default_device_is_the_card_without_fallback():
 @pytest.mark.parametrize("builder", ["tropical_identity", "semiring_identity",
                                      "logprob_identity", "init_metric",
                                      "lm_init_params", "lm_init_cache",
-                                     "lm_language_model", "lm_rope_freqs"])
+                                     "lm_language_model", "lm_rope_freqs",
+                                     "train_state", "opt_state_from_numpy",
+                                     "token_stream", "train_loop"])
 def test_exported_tensor_builders_default_to_the_card(builder):
     """The exported helpers that build a tensor follow the entry points:
     ``device=None`` is the card, and only an explicit ``"cpu"`` is not."""
@@ -133,9 +141,13 @@ def test_exported_tensor_builders_default_to_the_card(builder):
     from repro_torch.core.semiring import LOGPROB, TROPICAL
     from repro_torch.core.timeparallel import tropical_identity
     from repro_torch.core.viterbi import init_metric
+    from repro_torch.data import TokenStream
     from repro_torch.models import layers, lm
+    from repro_torch.train.loop import TrainLoopConfig, train
+    from repro_torch.train.step import init_train_state, opt_state_from_numpy
 
     cfg = get_smoke_config("smollm-135m")
+    zeros = {"w": np.zeros(2, np.float32)}
     build = {
         "tropical_identity": lambda device=None: tropical_identity(4, device),
         "semiring_identity": lambda device=None: TROPICAL.identity(4, device),
@@ -146,6 +158,14 @@ def test_exported_tensor_builders_default_to_the_card(builder):
         "lm_language_model": lambda device=None: lm.LanguageModel.init(
             cfg, device=device).weights["lm_head"],
         "lm_rope_freqs": lambda device=None: layers.rope_freqs(8, 4, device=device)[0],
+        "train_state": lambda device=None: init_train_state(
+            cfg, device=device)[1].m["embed"],
+        "opt_state_from_numpy": lambda device=None: opt_state_from_numpy(
+            (np.int32(0), zeros, zeros), device).step,
+        "token_stream": lambda device=None: TokenStream(
+            vocab_size=8, batch=1, seq_len=4, device=device).batch_at(0)["tokens"],
+        "train_loop": lambda device=None: train(
+            cfg, TrainLoopConfig(steps=0), device=device)[0]["lm_head"],
     }[builder]
     if torch.cuda.is_available():
         assert build().device.type == "cuda"
@@ -153,6 +173,19 @@ def test_exported_tensor_builders_default_to_the_card(builder):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
     assert build("cpu").device.type == "cpu"
+
+
+def test_launch_train_defaults_to_the_card():
+    """``launch.train`` runs on the card unless ``--device cpu``."""
+    from repro_torch.launch import train
+
+    argv = ["--smoke", "--steps", "0"]
+    if torch.cuda.is_available():
+        assert train.main(argv) == []
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(argv)
+    assert train.main(argv + ["--device", "cpu"]) == []
 
 
 def test_later_slices_refuse():
