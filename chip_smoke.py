@@ -300,6 +300,38 @@ which ends the run with a non-zero exit when it fails:
                its last logged loss under its first.  A ``{"train": ...}``
                JSON line before the kernels line; the phase's seconds
                against a budget of 60 s.
+ 17. shard   — the LM testbed's sharding (``launch/mesh.py``,
+               ``distributed/sharding.py``, ``distributed/spmd.py``,
+               ``distributed/pipeline.py``, ``restore(shardings=)``) on
+               logical meshes of the card and the dry run
+               (``launch/dryrun.py``, ``hlocount.py``, ``roofline.py``'s
+               readers), which launch none of the kernels above (counts
+               zeroed before, 0 after); TF32 must be off.  The dry run,
+               ``--all --mesh both`` on ``meta`` in worker processes,
+               starts first and is waited for last (exit 0; the
+               ok/skipped/failed line, smollm-135m's train_4k row on
+               ``roofline.H100``).  Meanwhile: (a) the ten smoke configs
+               at f32, the sharded train step on a (2, 2) data/model mesh
+               of the card == the unsharded step on the card bit for bit
+               (2 microbatches; 1 on MoE) and the CPU's sharded step
+               within phase 16's bounds; (b) smollm-135m at full width, 8
+               x 4,096, bf16, (2, 2): a warm-up and a timed sharded step
+               (CUDA events) held to the unsharded step with 2
+               microbatches, with step ms, peak bytes, shard 0's state
+               bytes and the collective records' wire bytes; (e) its
+               state saved and restored onto (4, 1) and (1, 1) bit for
+               bit, one step after each restore == one step from the
+               saved state laid out there; (c) smollm-135m's sharded
+               prefill of 8 x 4,096 and 16 greedy decode steps with the
+               context-parallel cache (its sequence over "model"), fed
+               the unsharded path's tokens: greedy tokens equal wherever
+               the top two logits are more than 1e-3 apart, logits
+               within 0.1; (d) the pipeline of smollm-135m's 30 layers
+               in 5 stages of 6 on a ("pipe",) mesh, 8 x 4,096, 4
+               microbatches: == the sequential stack a microbatch at a
+               time, ms and ``bubble_fraction(5, 4)``.  A
+               ``{"shard": ...}`` JSON line before the kernels line; the
+               phase's seconds against a budget of 60 s.
 
 Parity: at TROPICAL every kernel is held bit for bit to its plain version.
 At LOGPROB the slot reduction is a logsumexp, whose expf/logf (CUDA) and
@@ -3711,6 +3743,420 @@ def train_phase(dev):
     return report
 
 
+# -- phase 17: the LM testbed's sharding and dry run ----------------------------
+
+SHARD_BUDGET_S = 60  # phase 17's time budget, printed beside its seconds
+SHARD_MESH = (2, 2)  # (data, model) logical shards of the card
+SHARD_SMOKE_B, SHARD_SMOKE_S = 4, 32  # the reference test's batch
+SHARD_FULL = ("smollm-135m", 8, 4096)  # arch, batch, sequence at full width
+SHARD_DECODE = 16  # greedy decode steps after the sharded prefill
+SHARD_PIPE = (5, 4)  # pipeline stages (6 of smollm's 30 layers each), microbatches
+SHARD_RESTORE = ((4, 1), (1, 1))  # meshes the (2, 2) train state restores onto
+SHARD_RESTORE_B, SHARD_RESTORE_S = 4, 256  # the step after a restore
+SHARD_BF16_ATOL = 0.1  # bf16 logits, the LM parity contract's loose bound
+SHARD_TIE = 1e-3  # a greedy token may differ only where its top-2 logits are this close
+SHARD_DRYRUN = ("--all", "--mesh", "both")
+SHARD_DRYRUN_TIMEOUT_S = 600
+
+
+def shard_train_holds(label, got, want, lr, bitwise):
+    """A sharded step's (params, opt, metrics) against another step's: bit
+    for bit where ``bitwise``, else phase 16's bounds (loss rtol 1e-5,
+    first moments 1e-4 of each leaf's largest, new parameters as
+    ``train_params_hold`` with the first moments for the gradients).
+    Equality is read where the first tree lies; the bounds, only when
+    the two differ, on the host."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.optim.adamw import tree_leaves
+
+    def whole(tree):
+        return shd.gather_tree(tree) if any(
+            isinstance(x, shd.ShardedTensor) for x in shd._leaves(tree)) else tree
+
+    g_p, g_m, w_p, w_m = whole(got[0]), whole(got[1].m), whole(want[0]), whole(want[1].m)
+    g_loss, w_loss = float(got[2]["loss"]), float(want[2]["loss"])
+    same = g_loss == w_loss and all(
+        torch.equal(a, b.to(a.device)) for a, b in zip(
+            tree_leaves(g_p) + tree_leaves(g_m), tree_leaves(w_p) + tree_leaves(w_m)))
+    if same:
+        return {"bitwise": True, "loss_rel_err": 0.0, "m_err": 0.0, "param_err_lr": 0.0}
+    m_err, _ = train_leaf_errs(g_m, w_m)
+    held, p_err = train_params_hold(g_p, w_p, w_m, lr)
+    loss_err = abs(g_loss - w_loss) / abs(w_loss)
+    if bitwise:
+        fail(f"phase 17: {label}: not bit for bit (loss {loss_err:.3e}, m {m_err:.3e}, "
+             f"params {p_err:.3e} lr)")
+    if not (loss_err <= TRAIN_LOSS_RTOL and m_err <= TRAIN_GRAD_TOL and held):
+        fail(f"phase 17: {label}: loss {loss_err:.3e}, m {m_err:.3e}, params {p_err:.3e} lr")
+    return {"bitwise": False, "loss_rel_err": loss_err, "m_err": m_err,
+            "param_err_lr": p_err}
+
+
+def shard_smoke(arch, dev):
+    """(a) One smoke config at f32: the sharded train step on a (2, 2) mesh
+    of the card == the unsharded step on the card (2 microbatches; 1 on
+    MoE) bit for bit, and == the sharded step on the CPU at phase 16's
+    bounds."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import spmd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train import step
+
+    cfg = dataclasses.replace(get_smoke_config(arch), activation_dtype="float32")
+    gen = torch.Generator().manual_seed(SEED)
+    params = step.lm.init_params(cfg, gen, "cpu")
+    batch = train_batch(cfg, SHARD_SMOKE_B, SHARD_SMOKE_S, gen, "cpu")
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)  # every label counts
+    opt = AdamWConfig(**TRAIN_OPT)
+    out = {}
+    runs = {}
+    for where in ("cpu", dev):
+        mesh = make_test_mesh(SHARD_MESH, device=where)
+        p = _tree_to(params, where)
+        b = {k: v.to(where) for k, v in batch.items()}
+        sharded = spmd.make_sharded_train_step(cfg, mesh, opt)(
+            *spmd.shard_train_state(p, adamw_init(p), cfg, mesh), b)
+        runs[str(where)] = sharded
+        if where == dev:
+            plain = step.make_train_step(cfg, opt, microbatches=1 if cfg.n_experts else 2)(
+                p, adamw_init(p), b)
+            out["card_vs_unsharded"] = shard_train_holds(
+                f"{arch} sharded on the card against unsharded", sharded, plain,
+                float(plain[2]["lr"]), bitwise=True)
+    out["card_vs_cpu"] = shard_train_holds(
+        f"{arch} sharded on the card against the CPU", runs[str(dev)], runs["cpu"],
+        float(runs["cpu"][2]["lr"]), bitwise=False)
+    return out
+
+
+def shard_full_train(dev):
+    """(b) smollm-135m at full width, 8 x 4,096, bf16, on the (2, 2) mesh: a
+    warm-up and a timed sharded step held to the unsharded step with 2
+    microbatches from the same state.  Returns the report and the state
+    after the timed step (for (e))."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import spmd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.roofline import collective_wire_bytes
+    from repro_torch.train import step
+
+    arch, B, S = SHARD_FULL
+    cfg = get_config(arch)
+    mesh = make_test_mesh(SHARD_MESH)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params, opt_state = step.init_train_state(cfg, gen, dev)
+    sp, so = spmd.shard_train_state(params, opt_state, cfg, mesh)
+    stream = TokenStream(vocab_size=cfg.vocab_size, batch=B, seq_len=S, seed=SEED,
+                         device=dev)
+    opt = AdamWConfig()
+    sharded = spmd.make_sharded_train_step(cfg, mesh, opt)
+    sp, so, warm = sharded(sp, so, stream.batch_at(0))
+    # the unsharded step from the same state: the pieces put together
+    p1 = shd.gather_tree(sp)
+    o1 = type(so)(shd.gather(so.step), shd.gather_tree(so.m), shd.gather_tree(so.v))
+    batch = stream.batch_at(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with shd.collective_log() as log:
+        start.record()
+        got = sharded(sp, so, batch)
+        stop.record()
+        stop.synchronize()
+    step_ms = start.elapsed_time(stop)
+    peak = torch.cuda.max_memory_allocated()
+    want = step.make_train_step(cfg, opt, microbatches=2)(p1, o1, batch)
+    del p1, o1
+    hold = shard_train_holds(f"{arch} {B} x {S} sharded against 2 microbatches", got,
+                             want, float(want[2]["lr"]), bitwise=False)
+    del want
+    losses = [float(warm["loss"]), float(got[2]["loss"])]
+    if not all(np.isfinite(losses)):
+        fail(f"phase 17: {arch} gave a non-finite loss: {losses}")
+    kinds = {}
+    for r in log:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    out = {"shape": f"B={B} x {S}, bf16 activations, mesh {SHARD_MESH} (data, model)",
+           "step_ms": step_ms, "tokens_s": B * S / step_ms * 1e3, "losses": losses,
+           "peak_bytes": peak, "state_bytes_shard0": spmd.shard_bytes(got[0])
+           + spmd.shard_bytes(got[1]), "collectives": kinds,
+           "wire_bytes": collective_wire_bytes(log), **hold}
+    return out, (cfg, got[0], got[1])
+
+
+def shard_full_serve(dev):
+    """(c) smollm-135m at full width: sharded prefill of 8 x 4,096 and
+    SHARD_DECODE greedy decode steps with the context-parallel cache (3
+    kv heads do not divide "model" = 2: the sequence is cut), against
+    the unsharded path fed the same tokens.  Tokens equal wherever the
+    unsharded logits' top two are more than SHARD_TIE apart; logits
+    within SHARD_BF16_ATOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import spmd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import lm
+
+    arch, B, S = SHARD_FULL
+    cfg = get_config(arch)
+    mesh = make_test_mesh(SHARD_MESH)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    params = lm.init_params(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev,
+                           dtype=torch.int32)
+    cache = lm.init_cache(cfg, B, S + SHARD_DECODE, dev)
+    sp = spmd.shard_params(params, cfg, mesh)
+    sc = spmd.shard_cache(cache, cfg, mesh)
+    seq_spec = sc["k"].spec[2]
+    prefill, decode = spmd.make_sharded_prefill_step(cfg, mesh), spmd.make_sharded_decode_step(
+        cfg, mesh)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    got_l, got_c = prefill(sp, sc, {"tokens": tokens})
+    stop.record()
+    stop.synchronize()
+    prefill_ms = start.elapsed_time(stop)
+    want_l, want_c = lm.prefill(params, cfg, tokens, cache)
+    err, ties, same = 0.0, 0, True
+    t0 = time.perf_counter()
+    for i in range(SHARD_DECODE + 1):
+        err = max(err, float((got_l - want_l).abs().max()))
+        top2 = want_l.topk(2, dim=-1).values
+        near = (top2[:, 0] - top2[:, 1]) <= SHARD_TIE
+        differ = got_l.argmax(-1) != want_l.argmax(-1)
+        ties += int(near.sum())
+        same &= not bool(differ.any())
+        if bool((differ & ~near).any()):
+            fail(f"phase 17: sharded {arch} decode step {i}: a greedy token differs from "
+                 "the unsharded path away from a near tie")
+        if i == SHARD_DECODE:
+            break
+        nxt = want_l.argmax(-1)[:, None].to(torch.int32)  # both fed the same tokens
+        got_l, got_c = decode(sp, got_c, nxt)
+        want_l, want_c = lm.decode_step(params, cfg, nxt, want_c)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if err > SHARD_BF16_ATOL:
+        fail(f"phase 17: sharded {arch} logits differ from the unsharded path by {err:.3e}")
+    return {"shape": f"prefill B={B} x {S} + {SHARD_DECODE} decode steps, bf16",
+            "cache_seq_spec": str(seq_spec), "prefill_ms": prefill_ms,
+            "decode_s_both_paths": decode_s, "logit_max_abs_err": err,
+            "tokens_equal": same, "near_ties": ties}
+
+
+def shard_pipeline(dev):
+    """(d) smollm-135m's 30 layers in SHARD_PIPE[0] stages on a ("pipe",)
+    mesh of the card, 8 x 4,096 bf16, SHARD_PIPE[1] microbatches, the
+    layers' train-mode forward: equal bit for bit to the sequential stack
+    run a microbatch at a time; the whole batch's stack within
+    SHARD_BF16_ATOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import bubble_fraction, pipeline_apply
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import lm
+
+    arch, B, S = SHARD_FULL
+    n_stages, n_mb = SHARD_PIPE
+    cfg = get_config(arch)
+    per = cfg.n_layers // n_stages
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    params = lm.init_params(cfg, gen, dev)
+
+    def split(node):
+        return {k: split(v) for k, v in node.items()} if isinstance(node, dict) else \
+            node.reshape((n_stages, per) + tuple(node.shape[1:]))
+
+    stages = split(params["layers"])
+    rope = lm._rope_tables(cfg, torch.arange(S, device=dev))
+    x = 0.02 * torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+
+    def stage_fn(stage_params, h):
+        return lm._stack({"layers": stage_params}, cfg, h, rope, "train", {}, 0)[0]
+
+    mesh = make_test_mesh((n_stages,), ("pipe",))
+    apply = pipeline_apply(stage_fn, mesh, n_mb)
+    with torch.no_grad():
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = apply(stages, x)
+        stop.record()
+        stop.synchronize()
+        pipe_ms = start.elapsed_time(stop)
+        per_mb = torch.cat([lm._stack(params, cfg, mb, rope, "train", {}, 0)[0]
+                            for mb in x.split(B // n_mb)])
+        whole = lm._stack(params, cfg, x, rope, "train", {}, 0)[0]
+    if not torch.equal(got, per_mb):
+        fail("phase 17: the pipeline differs from the sequential stack a microbatch at a time")
+    err = float((got.float() - whole.float()).abs().max())
+    if err > SHARD_BF16_ATOL:
+        fail(f"phase 17: the pipeline differs from the whole batch's stack by {err:.3e}")
+    return {"shape": f"B={B} x {S}, {n_stages} stages of {per} layers, {n_mb} microbatches",
+            "ms": pipe_ms, "bubble_fraction": bubble_fraction(n_stages, n_mb),
+            "max_abs_err_whole_batch": err, "check": "== sequential per microbatch"}
+
+
+def shard_restore(state, dev):
+    """(e) The (2, 2) train state of (b) saved, restored onto each of
+    SHARD_RESTORE bit for bit, and one step there from the restored state
+    == one step from the saved state laid out there directly."""
+    import tempfile
+
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import spmd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim.adamw import AdamWConfig, OptState, tree_leaves
+    from repro_torch.runtime import checkpoint
+
+    cfg, sp, so = state
+    batch = TokenStream(vocab_size=cfg.vocab_size, batch=SHARD_RESTORE_B,
+                        seq_len=SHARD_RESTORE_S, seed=SEED + 3, device=dev).batch_at(0)
+    plain_p = shd.gather_tree(sp)
+    plain_o = OptState(shd.gather(so.step), shd.gather_tree(so.m), shd.gather_tree(so.v))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        checkpoint.save(tmp, 1, {"params": sp, "opt": so})
+        out["save_s"] = time.perf_counter() - t0
+        for shape in SHARD_RESTORE:
+            mesh = make_test_mesh(shape)
+            p_sh, o_sh = shd.train_state_shardings(cfg, mesh, plain_p, None)
+            t0 = time.perf_counter()
+            got = checkpoint.restore(tmp, 1, {"params": sp, "opt": so},
+                                     shardings={"params": p_sh, "opt": o_sh})
+            restore_s = time.perf_counter() - t0
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(shd.gather_tree(got["params"])) + tree_leaves(
+                    shd.gather_tree(got["opt"].m)) + tree_leaves(shd.gather_tree(got["opt"].v)),
+                tree_leaves(plain_p) + tree_leaves(plain_o.m) + tree_leaves(plain_o.v)))
+            if not same or int(shd.gather(got["opt"].step)) != int(plain_o.step):
+                fail(f"phase 17: the train state restored onto {shape} differs from the saved one")
+            step = spmd.make_sharded_train_step(cfg, mesh, AdamWConfig())
+            after = step(got["params"], got["opt"], batch)
+            direct = step(*spmd.shard_train_state(plain_p, plain_o, cfg, mesh), batch)
+            shard_train_holds(f"one step after the restore onto {shape}", after, direct,
+                              float(direct[2]["lr"]), bitwise=True)
+            out[str(shape)] = {"restore_s": restore_s, "check": "bit for bit"}
+    return out
+
+
+def shard_phase(dev):
+    """Phase 17: the LM testbed's sharding on logical meshes of the card and
+    the dry run on ``meta`` (started first, in worker processes, and
+    waited for last).  Returns the ``{"shard": ...}`` report."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import ARCH_IDS
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("phase 17: TF32 is on")
+    t_phase = time.perf_counter()
+    print("phase 17 (shard): the LM testbed's sharding on logical meshes of the card and "
+          "the dry run", flush=True)
+    zero_counts()
+    report = {"part_seconds": {}}
+    t_part = [t_phase]
+
+    def part(name):
+        now = time.perf_counter()
+        report["part_seconds"][name] = now - t_part[0]
+        t_part[0] = now
+
+    out_dir = tempfile.TemporaryDirectory()
+    jobs = max(1, min(6, (os.cpu_count() or 2) - 2))
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", *SHARD_DRYRUN,
+            "--jobs", str(jobs), "--out", out_dir.name]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    dry = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True, env=env)
+    try:
+        report["smoke"] = {arch: shard_smoke(arch, dev) for arch in ARCH_IDS}
+        sm = report["smoke"]
+        print(f"shard smoke: {len(ARCH_IDS)} configs at f32 on a {SHARD_MESH} mesh of the "
+              f"card: sharded == unsharded bit for bit; against the CPU's sharded step "
+              f"loss {max(r['card_vs_cpu']['loss_rel_err'] for r in sm.values()):.3e} rel, "
+              f"m {max(r['card_vs_cpu']['m_err'] for r in sm.values()):.3e}, params "
+              f"{max(r['card_vs_cpu']['param_err_lr'] for r in sm.values()):.3e} lr", flush=True)
+        part("smoke")
+        full, state = shard_full_train(dev)
+        print(f"shard train {SHARD_FULL[0]}: {full['shape']}: step {full['step_ms']:.3f} ms, "
+              f"{full['tokens_s']:.1f} tokens/s, losses "
+              f"{', '.join(f'{x:.4f}' for x in full['losses'])}; peak memory "
+              f"{full['peak_bytes']} bytes; shard 0's state {full['state_bytes_shard0']} bytes; "
+              f"collectives {full['collectives']}, wire bytes {full['wire_bytes']:.0f}; "
+              f"against 2 microbatches unsharded: bit for bit {full['bitwise']}, loss "
+              f"{full['loss_rel_err']:.3e}, m {full['m_err']:.3e}", flush=True)
+        report["train"] = full
+        part("train")
+        report["restore"] = shard_restore(state, dev)
+        del state
+        print(f"shard restore: saved from {SHARD_MESH}, restored onto "
+              f"{', '.join(map(str, SHARD_RESTORE))} bit for bit; one step after each == one "
+              f"step before ({report['restore']})", flush=True)
+        part("restore")
+        torch.cuda.empty_cache()
+        report["serve"] = shard_full_serve(dev)
+        sv = report["serve"]
+        print(f"shard serve {SHARD_FULL[0]}: {sv['shape']}, cache sequence over "
+              f"{sv['cache_seq_spec']}: prefill {sv['prefill_ms']:.3f} ms; tokens equal "
+              f"{sv['tokens_equal']} ({sv['near_ties']} near ties), logits within "
+              f"{sv['logit_max_abs_err']:.3e}", flush=True)
+        part("serve")
+        torch.cuda.empty_cache()
+        report["pipeline"] = shard_pipeline(dev)
+        pp = report["pipeline"]
+        print(f"shard pipeline: {pp['shape']}: {pp['ms']:.3f} ms, bubble fraction "
+              f"{pp['bubble_fraction']:.4f}; {pp['check']}, whole batch within "
+              f"{pp['max_abs_err_whole_batch']:.3e}", flush=True)
+        part("pipeline")
+        t0 = time.perf_counter()
+        text, _ = dry.communicate(timeout=SHARD_DRYRUN_TIMEOUT_S)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    summary = [ln for ln in text.splitlines() if ln.startswith("== dry-run:")]
+    if dry.returncode != 0 or not summary:
+        print(text[-4000:], flush=True)
+        fail(f"phase 17: launch.dryrun {' '.join(SHARD_DRYRUN)} exited {dry.returncode}")
+    rec_path = Path(out_dir.name) / "1pod-16x16" / "smollm-135m__train_4k.json"
+    row = json.loads(rec_path.read_text())
+    out_dir.cleanup()
+    report["dryrun"] = {
+        "argv": " ".join(SHARD_DRYRUN) + f" --jobs {jobs}", "summary": summary[0],
+        "wait_s": time.perf_counter() - t0, "seconds_since_phase_start":
+        time.perf_counter() - t_phase,
+        "smollm_train_4k": {k: row[k] for k in (
+            "flops_per_device", "hbm_bytes_per_device", "wire_bytes_per_device",
+            "t_compute", "t_memory", "t_collective", "bottleneck", "mfu_bound",
+            "memory_stats", "collective_counts")}}
+    r = report["dryrun"]["smollm_train_4k"]
+    print(f"shard dryrun: launch.dryrun {report['dryrun']['argv']} on meta: "
+          f"{summary[0].strip('= ')}; waited {report['dryrun']['wait_s']:.1f} s at the end; "
+          f"smollm-135m train_4k on 1pod-16x16 (roofline.H100): compute {r['t_compute']:.6f} s, "
+          f"memory {r['t_memory']:.6f} s, collective {r['t_collective']:.6f} s, bottleneck "
+          f"{r['bottleneck']}, shard state {r['memory_stats']['argument_bytes']} bytes",
+          flush=True)
+    part("dryrun (the wait)")
+    launched = launch_counts()
+    if any(launched.values()):
+        fail(f"phase 17 launched kernels of the decoder: {launched}")
+    report["kernel_launches"] = launched
+    report["seconds"] = time.perf_counter() - t_phase
+    report["budget_s"] = SHARD_BUDGET_S
+    print(f"phase 17 (shard) took {report['seconds']:.1f} s (budget {SHARD_BUDGET_S} s): "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in report["part_seconds"].items())
+          + f"; K1-K3 launches in it: {launched}", flush=True)
+    return report
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4174,6 +4620,7 @@ def main() -> None:
     verify_launches = verify_phase(dev)
     lm_report = lm_phase(dev)
     train_report = train_phase(dev)
+    shard_report = shard_phase(dev)
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s")
 
     rows = [k1_row, {
@@ -4210,6 +4657,7 @@ def main() -> None:
                                  serve_err.get(kernel, 0.0))
     print(json.dumps({"lm": lm_report}))
     print(json.dumps({"train": train_report}))
+    print(json.dumps({"shard": shard_report}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

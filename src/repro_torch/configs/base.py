@@ -7,8 +7,10 @@ family.  The fields, defaults, derived properties and parameter counts
 are the reference's number for number.  The TPU-only performance flags
 (``decode_ring_write``, ``decode_deferred_write``, ``zero3_gather_at_use``,
 ``remat``, ``seq_parallel``, ``causal_skip``) stay as data: the first two
-and ``causal_skip`` choose between code paths that the port keeps; the
-others belong to the sharding and training slices.
+and ``causal_skip`` choose between code paths that the port keeps,
+``remat`` recomputes each layer in the train step, and the sharding
+flags set the constraints that ``models/lm.py`` resolves against the
+ambient mesh.
 
 ``input_specs`` returns ``(shape, torch.dtype)`` tuples, as
 ``configs/viterbi_k7.py::input_specs`` does; the reference returns
@@ -96,10 +98,11 @@ class ArchConfig:
     decode_deferred_write: bool = True  # the layer loop never writes the
     # cache: the current token is a separate softmax term and the stacked
     # cache is written once after the loop
-    zero3_gather_at_use: bool = False  # a sharding constraint of the
-    # reference (a refuted TPU experiment); data only here
-    remat: bool = True  # training slice
-    seq_parallel: bool = True  # sharding slice
+    zero3_gather_at_use: bool = False  # pin each weight to its TP-only
+    # sharding at its use (models/lm.py::_use; a refuted TPU experiment)
+    remat: bool = True  # recompute each layer in the backward
+    seq_parallel: bool = True  # the inter-layer residual's sequence axis
+    # over "model" (a constraint in models/lm.py::_stack)
     attn_chunk: int = 512  # chunked attention block (long sequences)
     dense_attn_max: int = 2048  # use dense attention at/below this seq len
     causal_skip: bool = False  # visit only the causal chunk pairs

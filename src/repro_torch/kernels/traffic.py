@@ -17,9 +17,14 @@ Accounting model, the reference's static one number for number:
     once).
 
 The reference can also lower its XLA stages and count their bytes in the
-HLO (``xla="hlo"``, its default on a TPU).  That lowering has no torch
-form: here ``"static"`` and ``"auto"`` both mean the model above, and
-``"hlo"`` raises.
+HLO (``xla="hlo"``, its default on a TPU).  Here ``xla="hlo"`` runs the
+port's plain stages (the concatenation, the argmax and the traceback,
+the bit repack) on ``meta`` tensors of the same shapes under
+``hlocount.analyze`` and takes its bytes: the eager operation stream,
+where every op materialises, so it counts more than the boundary model
+(the traceback's per-step gathers and state writes).  ``"static"`` and
+``"auto"`` are the model above; ``auto`` stays static on every device,
+so the parity gate's ratio does not depend on the counter.
 
 On the H100 the model's premise holds for K2 at the acceptance shape
 (T = 512 stages, F = 1024 frames, K = 7, rho = 2, decision depth 128
@@ -52,7 +57,7 @@ from repro_torch.core.kernel_geometry import (
     ring_words,
 )
 from repro_torch.core.trellis import CODE_K7_CCSDS, CodeSpec, build_acs_tables
-from repro_torch.core.viterbi import AcsPrecision
+from repro_torch.core.viterbi import AcsPrecision, traceback
 
 __all__ = [
     "StreamTraffic",
@@ -68,16 +73,20 @@ def _nbytes(shape, dtype: torch.dtype) -> int:
 
 
 def _resolve_xla_mode(xla: str) -> str:
-    """``"auto"`` and ``"static"`` are the static boundary model;
-    ``"hlo"``, the reference's measured lowering, has no torch form."""
-    if xla == "hlo":
-        raise ValueError(
-            "xla='hlo' counts the bytes of an XLA lowering (hlocount), "
-            "which the port does not have; use 'static' or 'auto'"
-        )
-    if xla not in ("auto", "static"):
+    """``"auto"`` and ``"static"`` are the static boundary model; ``"hlo"``
+    counts the plain stages' operation stream (module docstring)."""
+    if xla not in ("auto", "hlo", "static"):
         raise ValueError(f"xla mode must be auto|hlo|static, got {xla!r}")
-    return "static"
+    return "hlo" if xla == "hlo" else "static"
+
+
+def _hlo_bytes(fn, *shapes) -> float:
+    """``hlocount`` bytes of ``fn`` run on ``meta`` tensors of the given
+    (shape, dtype) pairs."""
+    from repro_torch import hlocount
+
+    args = [torch.empty(shape, dtype=dt, device="meta") for shape, dt in shapes]
+    return hlocount.analyze(fn, *args).bytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,7 +155,7 @@ def two_pass_stream_traffic(
     to device memory, then the chunk step concatenates it onto the ring
     and scans it all back (one chunk + flush, the
     ``decode_stream_chunked`` shape)."""
-    _resolve_xla_mode(xla)
+    mode = _resolve_xla_mode(xla)
     precision = precision or AcsPrecision()
     tables = build_acs_tables(spec, rho)
     T, F = n_stages // rho, n_frames
@@ -164,10 +173,27 @@ def two_pass_stream_traffic(
         "phi_out": _nbytes((T, F, W), phi_dt),
     }
     W_bytes = W * phi_dt.itemsize
-    xb = {
-        "chunk_post": _static_two_pass_post_bytes(T, D, F, W_bytes, rho),
-        "flush": _static_flush_bytes(D, F, W_bytes, rho),
-    }
+    if mode == "static":
+        xb = {
+            "chunk_post": _static_two_pass_post_bytes(T, D, F, W_bytes, rho),
+            "flush": _static_flush_bytes(D, F, W_bytes, rho),
+        }
+    else:
+        def post(phis, hist, lam2):
+            # the plain tail of decoder._chunk_step after the forward kernel
+            full = torch.cat([hist, phis], dim=0)
+            fs = torch.argmax(lam2, dim=-1).to(torch.int32)
+            bits = traceback(full, fs, tables)
+            return full[full.shape[0] - hist.shape[0]:], bits[:, : T * rho]
+
+        def flush(hist, lam):
+            return traceback(hist, torch.argmax(lam, dim=-1).to(torch.int32), tables)
+
+        xb = {
+            "chunk_post": _hlo_bytes(post, ((T, F, W), phi_dt), ((D, F, W), phi_dt),
+                                     ((F, S), torch.float32)),
+            "flush": _hlo_bytes(flush, ((D, F, W), phi_dt), ((F, S), torch.float32)),
+        }
     return StreamTraffic(
         label=f"two-pass/pack={pack_survivors}",
         kernel_bytes=sum(kb.values()),
@@ -191,7 +217,7 @@ def one_pass_stream_traffic(
     lives in K2's ring on the chip; device memory sees the LLR blocks,
     the decision bits, and the bounded (decision-depth) entry and exit
     rings."""
-    _resolve_xla_mode(xla)
+    mode = _resolve_xla_mode(xla)
     precision = precision or AcsPrecision()
     tables = build_acs_tables(spec, rho)
     T, F = n_stages // rho, n_frames
@@ -212,10 +238,23 @@ def one_pass_stream_traffic(
         "hist_out": _nbytes((D, F, W), ring_dt),
     }
     W_bytes = W * ring_dt.itemsize
-    xb = {
-        "chunk_post": _static_one_pass_post_bytes(T, F, rho),
-        "flush": _static_flush_bytes(D, F, W_bytes, rho),
-    }
+    if mode == "static":
+        xb = {
+            "chunk_post": _static_one_pass_post_bytes(T, F, rho),
+            "flush": _static_flush_bytes(D, F, W_bytes, rho),
+        }
+    else:
+        def post(bits):
+            # decoder._chunk_step_fused's repack to the (F, T*rho) contract
+            return bits.T.to(torch.int32)
+
+        def flush(hist, lam):
+            return traceback(hist, torch.argmax(lam, dim=-1).to(torch.int32), tables)
+
+        xb = {
+            "chunk_post": _hlo_bytes(post, ((T * rho, F), torch.int8)),
+            "flush": _hlo_bytes(flush, ((D, F, W), ring_dt), ((F, S), torch.float32)),
+        }
     return StreamTraffic(
         label=f"one-pass/pack={pack_survivors}/tile={tt}",
         kernel_bytes=sum(kb.values()),
@@ -256,9 +295,10 @@ def streaming_traffic_report(
     """Side-by-side bytes-accessed report at the acceptance shape
     (T=512 stages, F=1024, K=7, rho=2 by default): the two-pass default
     (unpacked phi), the packed two-pass, and the one-pass kernel;
-    ``ratio`` is default two-pass over one-pass.  ``xla_mode`` is always
-    ``"static"``; ``k2_ring_in_smem`` says whether the one-pass premise
-    holds for K2 at this shape."""
+    ``ratio`` is default two-pass over one-pass.  ``xla_mode`` records how
+    the plain stages were charged (``"static"``, or ``"hlo"`` when asked
+    for); ``k2_ring_in_smem`` says whether the one-pass premise holds for
+    K2 at this shape."""
     mode = _resolve_xla_mode(xla)
     two = two_pass_stream_traffic(
         n_stages, n_frames, decision_depth=decision_depth,

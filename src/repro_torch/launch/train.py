@@ -6,8 +6,9 @@
 
 ``--smoke`` trains the reduced config of the family; without it, the
 full published config.  It runs on the card unless ``--device cpu`` is
-given; there is no fallback to the CPU.  One card: the reference's
-multi-host mesh and sharding rules wait for the port's sharding slice.
+given; there is no fallback to the CPU.  One card, as the reference's
+launcher is one host's; the sharded step over a mesh of logical shards
+is ``distributed/spmd.py``'s.
 """
 from __future__ import annotations
 

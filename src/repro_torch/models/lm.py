@@ -20,10 +20,14 @@ port of the reference's ``models/lm.py``.
   * ``decode_step`` is functional as in the reference: it returns a new
     cache dict and leaves its input unchanged.
 
-The reference's sharding calls (``constrain``, ``kv_cache_constraint``,
-``_use``'s pin, ``_ffn_block``'s mesh probe) do nothing on one device;
-each site below names the reference line, and the sharding slice of the
-port brings them.
+The reference's sharding calls sit where the reference has them:
+``constrain`` on the embeddings, between layers (``seq_parallel``) and
+on the logits, ``kv_cache_constraint`` on the decode cache, ``_use``'s
+pin of a weight at its use and ``_ffn_block``'s EP/TP choice from the
+ambient mesh.  Under ``with mesh:`` they resolve against that mesh
+(``distributed/sharding.py``) and return their input: no layout is
+pinned, since the port's sharded steps (``distributed/spmd.py``) run
+each data-parallel group's rows whole.
 
 ``LanguageModel`` is the ``nn.Module`` form: it owns the parameters and
 exposes ``prefill``/``decode_step`` over the functional API.
@@ -40,6 +44,8 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig, torch_dtype
 from repro_torch.core.backend import resolve_device
+from repro_torch.distributed.sharding import constrain, kv_cache_constraint
+from repro_torch.launch.mesh import current_mesh, mesh_device
 
 from . import ssd as ssd_lib
 from .layers import (
@@ -96,8 +102,9 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     """The full parameter tree (stacked layers) on ``device`` (None: the
     card).  Weights are drawn from ``generator`` on its own device (None:
     a CPU generator seeded 0), so one seeded CPU generator gives the
-    same parameters on the CPU and on the card."""
-    dev = resolve_device(device)
+    same parameters on the CPU and on the card.  ``device="meta"`` builds
+    the shapes and dtypes only and draws nothing (the dry run)."""
+    dev = mesh_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     pdt = torch_dtype(cfg.param_dtype)
     L, D, F_ = cfg.n_layers, cfg.d_model, cfg.d_ff
@@ -105,6 +112,8 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     V = cfg.padded_vocab
 
     def init(shape, scale=None):
+        if dev.type == "meta":
+            return torch.empty(shape, dtype=pdt, device=dev)
         return dense_init(gen, shape, scale, pdt).to(dev)
 
     def full(shape, value):
@@ -211,8 +220,9 @@ def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None) -> dict:
-    """A zero decode cache on ``device`` (None: the card)."""
-    dev = resolve_device(device)
+    """A zero decode cache on ``device`` (None: the card; ``"meta"`` for
+    the dry run)."""
+    dev = mesh_device(device)
     return {
         k: torch.zeros(shape, dtype=dt, device=dev)
         for k, (shape, dt) in cache_specs(cfg, batch, max_len).items()
@@ -255,10 +265,12 @@ def cache_from_numpy(tree: dict, device=None) -> dict:
 # blocks
 # ---------------------------------------------------------------------------
 
-# The reference's ``_use`` (src/repro/models/lm.py:209-217) pins a weight to its
-# tensor-parallel sharding at the use site when ``zero3_gather_at_use`` is
-# set; on one device it is the identity, so the port reads the weight as
-# it is (sharding slice).
+def _use(w, cfg: ArchConfig, *spec):
+    """Pin a weight to its TP-only sharding at the use site when
+    ``zero3_gather_at_use`` is set (the fsdp axis dropped); ``w`` itself."""
+    if not cfg.zero3_gather_at_use:
+        return w
+    return constrain(w, *spec)
 
 
 def _attn_block(lp, x, cfg: ArchConfig, rope, mode, kv_cache, pos):
@@ -267,9 +279,9 @@ def _attn_block(lp, x, cfg: ArchConfig, rope, mode, kv_cache, pos):
     hd, Hq, KV = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
     cos, sin = rope
 
-    q = torch.einsum("btd,dh->bth", x, lp["wq"].to(x.dtype))
-    k = torch.einsum("btd,dh->bth", x, lp["wk"].to(x.dtype))
-    v = torch.einsum("btd,dh->bth", x, lp["wv"].to(x.dtype))
+    q = torch.einsum("btd,dh->bth", x, _use(lp["wq"], cfg, None, "model").to(x.dtype))
+    k = torch.einsum("btd,dh->bth", x, _use(lp["wk"], cfg, None, "model").to(x.dtype))
+    v = torch.einsum("btd,dh->bth", x, _use(lp["wv"], cfg, None, "model").to(x.dtype))
     if cfg.qkv_bias:
         q = q + lp["bq"].to(x.dtype)
         k = k + lp["bk"].to(x.dtype)
@@ -283,9 +295,9 @@ def _attn_block(lp, x, cfg: ArchConfig, rope, mode, kv_cache, pos):
     int8 = cfg.kv_cache_dtype == "int8"
     new_cache = kv_cache
     if mode == "decode" and cfg.decode_deferred_write:
-        # the reference pins the cache's sharding here
-        # (kv_cache_constraint, src/repro/models/lm.py:248-252): sharding slice
         k_c, v_c = kv_cache[0], kv_cache[1]  # read-only in the layer loop
+        k_c = kv_cache_constraint(k_c, KV, hd)
+        v_c = kv_cache_constraint(v_c, KV, hd)
         out = decode_attention_deferred(
             q, k_c, v_c, k, v, pos,
             k_scale=kv_cache[2] if int8 else None,
@@ -316,8 +328,9 @@ def _attn_block(lp, x, cfg: ArchConfig, rope, mode, kv_cache, pos):
             idx = slot.reshape(1).long()
             k_c = k_c.index_copy(1, idx, k.to(k_c.dtype))
             v_c = v_c.index_copy(1, idx, v.to(v_c.dtype))
-        # the reference pins the cache's sharding through the attention
-        # einsums here (src/repro/models/lm.py:295-296): sharding slice
+        # pin the cache sharding through the attention einsums
+        k_c = kv_cache_constraint(k_c, KV, hd)
+        v_c = kv_cache_constraint(v_c, KV, hd)
         out = decode_attention(q, k_c, v_c, cache_len=torch.clamp(pos + 1, max=Sc))
         new_cache = (k_c, v_c)
     else:
@@ -351,7 +364,8 @@ def _attn_block(lp, x, cfg: ArchConfig, rope, mode, kv_cache, pos):
                              v_last.to(kv_cache[1].dtype))
 
     out = out.reshape(B, T, Hq * hd)
-    return torch.einsum("bth,hd->btd", out, lp["wo"].to(x.dtype)), new_cache
+    wo = _use(lp["wo"], cfg, "model", None).to(x.dtype)
+    return torch.einsum("bth,hd->btd", out, wo), new_cache
 
 
 def _ssm_block(lp, x, cfg: ArchConfig, mode, ssm_cache):
@@ -360,7 +374,8 @@ def _ssm_block(lp, x, cfg: ArchConfig, mode, ssm_cache):
     di, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     G, N, W = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_conv_width
 
-    zxbcdt = torch.einsum("btd,de->bte", x, lp["in_proj"].to(x.dtype))
+    zxbcdt = torch.einsum("btd,de->bte", x,
+                          _use(lp["in_proj"], cfg, None, "model").to(x.dtype))
     z, xin, Bc, Cc, dt = torch.split(zxbcdt, [di, di, G * N, G * N, H], dim=-1)
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)  # (B, T, CD)
 
@@ -411,19 +426,30 @@ def _ssm_block(lp, x, cfg: ArchConfig, mode, ssm_cache):
 
     y = y * F.silu(z.float()).to(y.dtype)  # gate
     y = rms_norm(y, lp["norm"], cfg.norm_eps)
-    return torch.einsum("bte,ed->btd", y, lp["out_proj"].to(x.dtype)), new_cache
+    out_proj = _use(lp["out_proj"], cfg, "model", None).to(x.dtype)
+    return torch.einsum("bte,ed->btd", y, out_proj), new_cache
 
 
 def _ffn_block(lp, x, cfg: ArchConfig, mode):
     """MLP / MoE (+ Arctic's dense residual).  Returns (out, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.n_experts:
-        # the reference probes its mesh here to shard the experts over
-        # "model" (EP) or their FFN dims (TP) (src/repro/models/lm.py:434);
-        # on one device neither applies: sharding slice
+        # expert weights: EP (E over model) or TP (F over model) at use
+        ep = ("model", None, None)
+        tp = (None, None, "model")
+        tp_dn = (None, "model", None)
+        amesh = current_mesh()
+        use_ep = (amesh is not None and "model" in amesh.axis_names
+                  and cfg.n_experts % amesh.shape["model"] == 0)
+        w_spec = ep if use_ep else tp
+        d_spec = ep if use_ep else tp_dn
         moe = lp["moe"]
-        mp = {name: moe[name].to(x.dtype)
-              for name in ("router", "w_gate", "w_up", "w_down")}
+        mp = {
+            "router": moe["router"].to(x.dtype),
+            "w_gate": _use(moe["w_gate"], cfg, *w_spec).to(x.dtype),
+            "w_up": _use(moe["w_up"], cfg, *w_spec).to(x.dtype),
+            "w_down": _use(moe["w_down"], cfg, *d_spec).to(x.dtype),
+        }
         if mode == "decode":
             B = x.shape[0]
             xg = x.reshape(1, B, x.shape[-1])
@@ -437,13 +463,21 @@ def _ffn_block(lp, x, cfg: ArchConfig, mode):
         aux = metrics.aux_loss + 1e-3 * metrics.z_loss
         if cfg.moe_dense_residual:
             rp = lp["res"]
-            out = out + swiglu(x, rp["w_gate"].to(x.dtype), rp["w_up"].to(x.dtype),
-                               rp["w_down"].to(x.dtype))
+            out = out + swiglu(
+                x,
+                _use(rp["w_gate"], cfg, None, "model").to(x.dtype),
+                _use(rp["w_up"], cfg, None, "model").to(x.dtype),
+                _use(rp["w_down"], cfg, "model", None).to(x.dtype),
+            )
         return out, aux
     mp = lp["mlp"]
     return (
-        swiglu(x, mp["w_gate"].to(x.dtype), mp["w_up"].to(x.dtype),
-               mp["w_down"].to(x.dtype)),
+        swiglu(
+            x,
+            _use(mp["w_gate"], cfg, None, "model").to(x.dtype),
+            _use(mp["w_up"], cfg, None, "model").to(x.dtype),
+            _use(mp["w_down"], cfg, "model", None).to(x.dtype),
+        ),
         aux,
     )
 
@@ -547,9 +581,10 @@ def _stack(params, cfg, x, rope, mode, cache, pos):
                 use_reentrant=False, preserve_rng_state=False)
         else:
             x, new_l, a = _layer_body(lp, x, cfg, rope, mode, cache_l, pos)
-        # train mode with seq_parallel: the reference shards the residual
-        # stream's sequence axis between layers (constrain,
-        # src/repro/models/lm.py:548-561): sharding slice
+        if mode == "train" and cfg.seq_parallel:
+            # Megatron-SP: the inter-layer residual's sequence axis over
+            # "model"
+            x = constrain(x, ("pod", "data"), "model", None)
         aux = aux + a
         for k in layer_keys:
             outs[k].append(new_l[k])
@@ -578,9 +613,7 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     (last_logits (B, V) f32, cache) for prefill."""
     adt = torch_dtype(cfg.activation_dtype)
     h = _embed_inputs(params, cfg, tokens, prefix_embeds, adt)
-    # the reference constrains h's batch axis here
-    # (src/repro/models/lm.py:599-603) and the logits' vocab axis
-    # (:626): sharding slice
+    h = constrain(h, ("pod", "data"), None, None)
     B, S, _ = h.shape
     rope = (_rope_tables(cfg, torch.arange(S, device=h.device))
             if _has_attn(cfg) else None)
@@ -600,6 +633,7 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
         return last.float(), new_cache
 
     logits = torch.einsum("btd,dv->btv", h, params["lm_head"].to(adt))
+    logits = constrain(logits, ("pod", "data"), None, "model")
     return logits, aux
 
 

@@ -10,8 +10,9 @@ back weighted by the router probabilities.  Pairs beyond capacity are
 dropped (GShard semantics) into a sink row at E*C; capacity_factor sets
 the slack.
 
-The reference shards experts over its mesh here; on one device that
-does nothing (the sharding slice).
+The experts' sharding (EP over "model" when E divides it, else TP over
+the expert FFN dim) is chosen in ``models/lm.py::_ffn_block`` from the
+ambient mesh and pins nothing here (``distributed/sharding.py``).
 """
 from __future__ import annotations
 

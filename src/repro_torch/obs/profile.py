@@ -35,8 +35,10 @@ fractions price CPU walls against the H100's roof, a trend signal
 between runs, not a utilisation.
 
 The reference's ``measured_depth`` lowers a jitted function and counts
-loop trips in its HLO (``hlocount``); it waits for the
-language-model testbed, which brings ``hlocount``.
+loop trips in its HLO (``hlocount.total_trip_count``).  It is not mapped:
+the port's sequential depth is inside its kernels (K1's T radix steps
+are one launch), where no operation stream sees it, so it raises
+``NotImplementedError``; ``depth`` stays the model.
 
 Everything is shape arithmetic; profiles are cached per (spec, path,
 cell), so a dispatch with tracing on pays one dict lookup.
@@ -51,7 +53,7 @@ from typing import Optional
 from repro_torch.core.trellis import CodeSpec, build_acs_tables
 from repro_torch.roofline import H100, HW
 
-__all__ = ["DispatchProfile", "dispatch_profile"]
+__all__ = ["DispatchProfile", "dispatch_profile", "measured_depth"]
 
 # decode routes the adapter models: the engine's routing-table labels
 # plus the session (chunk-multi) dispatch
@@ -222,3 +224,11 @@ def dispatch_profile(dec, path: str, f_cell: int, n_stages: int,
     if path not in _PATHS:
         path = "batch"
     return _profile_cached(*_profile_key(dec, path, f_cell, n_stages), hw)
+
+
+def measured_depth(fn, *args) -> int:
+    """Not mapped (module docstring): raises ``NotImplementedError``."""
+    raise NotImplementedError(
+        "measured_depth counts XLA loop trips; the port's sequential depth "
+        "is inside its kernels (K1's radix steps are one launch), where no "
+        "operation stream sees it: use DispatchProfile.depth, the model")

@@ -104,14 +104,19 @@ def adamw_init(params) -> OptState:
 
 @torch.no_grad()
 def adamw_update(grads, state: OptState, params, cfg: AdamWConfig,
-                 lr_fn: Optional[Callable] = None):
+                 lr_fn: Optional[Callable] = None,
+                 grad_norm: Optional[torch.Tensor] = None):
     """Returns (new_params, new_state, stats), stats being the step's
-    ``lr``, ``grad_norm`` and ``clip_scale`` as 0-d tensors."""
+    ``lr``, ``grad_norm`` and ``clip_scale`` as 0-d tensors.
+
+    ``grad_norm`` is the norm to clip by when ``grads`` are one shard's
+    pieces of the gradient (``distributed/spmd.py``): the global norm of
+    the whole reduced gradient, not the pieces'.  None: ``grads``'s own."""
     lr_fn = lr_fn or cosine_schedule(cfg)
     step = state.step + 1
     lr = lr_fn(step)
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-12), max=1.0)
     stepf = step.to(torch.float32)
     bc1 = 1 - torch.pow(cfg.b1, stepf)

@@ -13,16 +13,28 @@ H100 data sheet.  A card set to a lower power limit runs slower under
 load, so a measurement priced against this entry names the card and the
 limit it ran at (``nvidia-smi --query-gpu=name,power.limit``).
 
-Not ported: ``parse_collectives``, ``collective_wire_bytes`` and
-``analyze`` read the XLA HLO text of a compiled dry-run, which only the
-language-model testbed makes; they come with it and ``hlocount``.
+The reference reads its three terms from a compiled executable's HLO
+text and ``memory_analysis()``.  The port has neither: ``analyze`` takes
+an ``hlocount.HloCost``, the counted operation stream of one shard's
+program (``hlocount.analyze``), and the per-shard state bytes the caller
+computes from the sharding specs in place of ``memory_analysis()``'s
+argument bytes.  ``parse_collectives`` is the list of that cost's
+collective records (kind, group size, result bytes), and
+``collective_wire_bytes`` applies the reference's per-kind ring model
+to them (``hlocount.wire_bytes``; the reference's own ``CollectiveOp``
+charges a reduce-scatter (g-1)/g of its result, the shard, where its
+``hlocount`` charges g-1 shards, a ring's; the port charges the
+latter everywhere).  ``memory_analysis()``'s temp bytes are not mapped
+on ``meta``;
+on the card a step's peak comes from ``torch.cuda.max_memory_allocated``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
-__all__ = ["HW", "H100", "RooflineReport"]
+__all__ = ["HW", "H100", "CollectiveOp", "parse_collectives",
+           "collective_wire_bytes", "RooflineReport", "analyze"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +53,34 @@ class HW:
 # directions together), where the reference's v5e entry gives a link's.
 H100 = HW(name="h100-sxm5-80gb-700w", peak_flops=67e12, hbm_bw=3.35e12,
           ici_bw=900e9)
+
+
+@dataclasses.dataclass
+class CollectiveOp:
+    kind: str
+    dtype: str
+    shape: tuple
+    group_size: int
+    result_bytes: int
+
+    @property
+    def wire_bytes(self) -> float:
+        from repro_torch.hlocount import wire_bytes
+
+        return wire_bytes(self.kind, self.group_size, self.result_bytes)
+
+
+def parse_collectives(cost) -> List[CollectiveOp]:
+    """The collectives of an ``hlocount.HloCost`` (or a list of
+    ``collective_log`` records) as ``CollectiveOp``s."""
+    records = cost.collectives if hasattr(cost, "collectives") else cost
+    return [CollectiveOp(kind=r["kind"], dtype=r["dtype"], shape=tuple(r["shape"]),
+                         group_size=r["group_size"], result_bytes=r["result_bytes"])
+            for r in records]
+
+
+def collective_wire_bytes(cost) -> float:
+    return sum(op.wire_bytes for op in parse_collectives(cost))
 
 
 @dataclasses.dataclass
@@ -114,3 +154,24 @@ class RooflineReport:
             "collective_counts": self.collective_counts,
             "memory_stats": self.memory_stats,
         }
+
+
+def analyze(arch: str, cell: str, mesh_name: str, n_chips: int, cost,
+            model_flops: float, hw: HW = H100,
+            memory_stats: Optional[dict] = None) -> RooflineReport:
+    """Build a report from an ``hlocount.HloCost`` of one shard's program.
+    ``memory_stats`` (the caller's) carries the per-shard state bytes as
+    ``argument_bytes``; ``temp_bytes`` is None where not measured."""
+    return RooflineReport(
+        arch=arch,
+        cell=cell,
+        mesh=mesh_name,
+        n_chips=n_chips,
+        flops_per_device=float(cost.flops),
+        hbm_bytes_per_device=float(cost.bytes),
+        wire_bytes_per_device=float(collective_wire_bytes(cost)),
+        model_flops=model_flops,
+        hw=hw,
+        collective_counts={k: int(v) for k, v in cost.coll_counts.items()},
+        memory_stats=memory_stats,
+    )

@@ -24,10 +24,14 @@ a ``SaveHandle`` whose ``result()`` re-raises whatever the thread hit;
 ``keep`` (its collection runs in the writer thread, after the new step
 exists) and surfaces a failed background write on the next
 ``maybe_save`` or ``wait``.  ``restore`` puts each leaf on the device of
-the matching ``tree_like`` leaf (the reference's ``shardings=`` waits
-for the sharding slice).  bf16 leaves are refused: numpy has no bf16
-type without ``ml_dtypes``, and every config's ``param_dtype`` is f32,
-so no train state holds one.
+the matching ``tree_like`` leaf, or, with ``shardings=`` (a tree of
+``distributed.sharding.NamedSharding``), cuts it onto that mesh's
+shards: a checkpoint written on one mesh restores onto any other, the
+reference's elastic re-mesh.  ``save`` and ``save_async`` take sharded
+trees too and gather each ``ShardedTensor`` leaf once, so a sharded
+state's file equals an unsharded one's key for key.  bf16 leaves are
+refused: numpy has no bf16 type without ``ml_dtypes``, and every
+config's ``param_dtype`` is f32, so no train state holds one.
 
 The session half: ``save_sessions`` / ``load_sessions`` keep the
 scalars (stream position, code name, consumed stages) in the manifest's
@@ -98,6 +102,10 @@ def _rebuild(tree, fn, prefix: str = ""):
 
 
 def _to_host(leaf) -> np.ndarray:
+    from repro_torch.distributed.sharding import ShardedTensor, gather
+
+    if isinstance(leaf, ShardedTensor):
+        leaf = gather(leaf, "cpu")
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError(
@@ -192,12 +200,18 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir, step: int, tree_like):
+def restore(ckpt_dir, step: int, tree_like, shardings=None):
     """Checkpoint ``step`` in the structure of ``tree_like``: a tensor leaf
     comes back as a tensor on that leaf's device (with the checkpoint's
-    dtype), any other leaf as a numpy array."""
+    dtype), a ``ShardedTensor`` leaf in that leaf's layout, any other leaf
+    as a numpy array.  ``shardings``, a tree of ``NamedSharding`` in
+    ``tree_like``'s structure, cuts every leaf onto its mesh instead
+    (``distributed.sharding.shard``)."""
+    from repro_torch.distributed.sharding import ShardedTensor, shard
+
     out = pathlib.Path(ckpt_dir) / f"step_{step:09d}"
     dtypes = json.loads((out / "manifest.json").read_text())["dtypes"]
+    layouts = _flatten(shardings) if shardings is not None else {}
 
     def load(key, like):
         if dtypes.get(key) == "bfloat16":
@@ -205,6 +219,10 @@ def restore(ckpt_dir, step: int, tree_like):
                 f"checkpoint leaf {key} is bf16, which numpy cannot read "
                 "without ml_dtypes; the port refuses it")
         arr = data[key]
+        if key in layouts:
+            return shard(torch.from_numpy(arr), layouts[key].mesh, layouts[key].spec)
+        if isinstance(like, ShardedTensor):
+            return shard(torch.from_numpy(arr), like.mesh, like.spec)
         if isinstance(like, torch.Tensor):
             return torch.from_numpy(arr).to(like.device)
         return arr

@@ -50,31 +50,36 @@ __all__ = ["lm_loss", "make_train_step", "init_train_state",
            "opt_state_from_numpy"]
 
 
-def lm_loss(params, cfg: ArchConfig, batch):
+def lm_loss(params, cfg: ArchConfig, batch, n_tokens=None):
     """Next-token cross-entropy (+ 0.01 x the MoE aux loss); labels < 0
     are masked.  Returns (loss, {"ce_loss", "aux_loss"}).
 
+    ``n_tokens`` (an f32 0-d tensor) replaces the batch's own count of
+    unmasked labels as the divisor: a data-parallel group of the sharded
+    step (``distributed/spmd.py``) passes the global batch's count, so
+    the groups' losses add up to the global batch's mean.
+
     The reference reduces a (B, S, V) f32 one-hot against the logits so
     that GSPMD keeps the vocab axis sharded (src/repro/train/step.py:
-    37-42).  On one device ``torch.gather`` of ``max(labels, 0)`` gives
-    the same true-class logit bit for bit on finite logits (one exact
-    product and exact zeros) and the same one-hot gradient, without the
-    (B, S, V) one-hot."""
+    37-42).  ``torch.gather`` of ``max(labels, 0)`` gives the same
+    true-class logit bit for bit on finite logits (one exact product and
+    exact zeros) and the same one-hot gradient, without the (B, S, V)
+    one-hot; the vocab constraint then acts on the logits alone."""
+    from repro_torch.distributed.sharding import constrain
+
     logits, aux = lm.forward(
         params, cfg, batch["tokens"], batch.get("prefix_embeds"), mode="train"
     )
     logits = logits[:, cfg.prefix_len:].to(torch.float32)
-    # the reference constrains the logits' batch and vocab axes here
-    # (src/repro/train/step.py:35): sharding slice
+    logits = constrain(logits, ("pod", "data"), None, "model")
     labels = batch["labels"]
     lse = torch.logsumexp(logits, dim=-1)  # (B, S)
-    # the one-hot's vocab-axis constraint (src/repro/train/step.py:41)
-    # has no one-hot to act on here: sharding slice
     true_logit = torch.gather(
         logits, -1, torch.clamp(labels, min=0).long()[..., None])[..., 0]
     nll = lse - true_logit
     mask = (labels >= 0).to(torch.float32)
-    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum() if n_tokens is None else n_tokens
+    loss = (nll * mask).sum() / torch.clamp(count, min=1.0)
     metrics = {"ce_loss": loss, "aux_loss": aux}
     return loss + 0.01 * aux, metrics
 
@@ -92,11 +97,12 @@ def _or_zeros(g, p):
 
 
 def _grad_fn(cfg: ArchConfig):
-    """params, batch -> (loss, metrics, grads), all detached."""
-    def grad_fn(params, batch):
+    """params, batch -> (loss, metrics, grads), all detached; ``n_tokens``
+    as ``lm_loss``'s."""
+    def grad_fn(params, batch, n_tokens=None):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
         with torch.enable_grad():
-            loss, metrics = lm_loss(leaves, cfg, batch)
+            loss, metrics = lm_loss(leaves, cfg, batch, n_tokens)
             grads = torch.autograd.grad(loss, tree_leaves(leaves), allow_unused=True)
         it = iter(grads)
         # a leaf the loss does not reach gets zeros, as jax.grad gives

@@ -90,6 +90,10 @@ def test_every_module_imports_without_triton_nvcc_or_jax():
             "repro_torch.optim.compress", "repro_torch.train",
             "repro_torch.train.step", "repro_torch.train.loop",
             "repro_torch.launch.train", "repro_torch.data.pipeline"} <= set(modules)
+    # and the sharding and HLO-tooling slice's
+    assert {"repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+            "repro_torch.distributed.sharding", "repro_torch.distributed.spmd",
+            "repro_torch.distributed.pipeline", "repro_torch.hlocount"} <= set(modules)
     code = (
         "import sys\n"
         "sys.modules['triton'] = None\n"
@@ -173,6 +177,27 @@ def test_exported_tensor_builders_default_to_the_card(builder):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
     assert build("cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("factory", ["test_mesh", "production_mesh", "multi_pod_mesh"])
+def test_meshes_default_to_the_card(factory):
+    """A mesh without ``device`` puts its shards on the card and raises
+    where there is none; ``"cpu"`` and the dry run's ``"meta"`` are asked
+    for by name."""
+    from repro_torch.launch import mesh
+
+    build = {
+        "test_mesh": lambda device=None: mesh.make_test_mesh((2, 2), device=device),
+        "production_mesh": lambda device=None: mesh.make_production_mesh(device=device),
+        "multi_pod_mesh": lambda device=None: mesh.make_production_mesh(True, device),
+    }[factory]
+    if torch.cuda.is_available():
+        assert {d.type for d in build().devices} == {"cuda"}
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    assert {d.type for d in build("cpu").devices} == {"cpu"}
+    assert {d.type for d in build("meta").devices} == {"meta"}
 
 
 def test_launch_train_defaults_to_the_card():

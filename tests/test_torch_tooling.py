@@ -4,7 +4,8 @@ it) and ``repro_torch.kernels.parity``, against the reference's.
 
 Traffic bytes and profile bytes, operations and depth are shape
 arithmetic and must equal the reference's number for number (its traffic
-at ``xla="static"``, the only form the port has).  The roofline differs
+at ``xla="static"``; the port's ``xla="hlo"`` counts its own plain
+stages with ``hlocount``).  The roofline differs
 only in its entry: the reference's terms are computed here with
 ``repro.roofline.HW`` holding the H100 entry's numbers.
 """
@@ -116,16 +117,29 @@ def test_traffic_report_equals_reference(shape):
         want["ratio"])
 
 
-def test_traffic_hlo_mode_raises():
+def test_traffic_hlo_mode_counts_the_plain_stages():
+    """``xla="hlo"`` counts the plain stages' operation stream with
+    ``hlocount.analyze`` on ``meta`` tensors: the kernels' interface bytes
+    are the static model's, the one-pass repack (a transpose view and one
+    int8 -> int32 cast) is exactly the boundary model's, and the eager
+    traceback, which materialises every step, moves more than the
+    boundary model charges."""
     from repro_torch.kernels import traffic
 
+    kw = dict(n_stages=128, n_frames=16, decision_depth=32)
     for fn in (traffic.two_pass_stream_traffic, traffic.one_pass_stream_traffic):
-        with pytest.raises(ValueError, match="hlocount"):
-            fn(xla="hlo")
+        hlo, static = fn(xla="hlo", **kw), fn(xla="static", **kw)
+        assert hlo.kernel_bytes == static.kernel_bytes
+        assert hlo.breakdown["flush"] > static.breakdown["flush"]
+        assert hlo.xla_bytes > 0
         with pytest.raises(ValueError, match="auto|hlo|static"):
             fn(xla="measured")
-    with pytest.raises(ValueError, match="hlocount"):
-        traffic.streaming_traffic_report(xla="hlo")
+    one_hlo = traffic.one_pass_stream_traffic(xla="hlo", **kw)
+    one_static = traffic.one_pass_stream_traffic(xla="static", **kw)
+    assert one_hlo.breakdown["chunk_post"] == one_static.breakdown["chunk_post"]
+    assert traffic.one_pass_stream_traffic(xla="auto", **kw) == one_static
+    rep = traffic.streaming_traffic_report(xla="hlo")
+    assert rep["xla_mode"] == "hlo" and rep["ratio"] > 1.0
 
 
 def test_k2_ring_placement_is_the_launchers():
