@@ -1,0 +1,9 @@
+"""device_idle_frac: the share of the traced window in which no kernel,
+copy or fill ran on the card (the union of the profiler's device
+intervals), in percent."""
+
+
+def read(ctx):
+    if ctx.trace is None or ctx.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)

@@ -1,0 +1,10 @@
+"""The benchmark's own tests: run from the checkout's root with
+``python -m pytest portbench/tests``; the program is imported from
+``src/``."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for path in (ROOT, ROOT / "src"):
+    if str(path) not in sys.path:
+        sys.path.insert(0, str(path))
