@@ -53,6 +53,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as tnf
 
+from repro_torch.obs.trace import host_read, stage
+
 from .backend import device_underfill_rows, resolve_device
 from .kernel_geometry import (
     one_pass_time_tile,
@@ -411,6 +413,19 @@ class ViterbiDecoder:
 
         return depuncture(llrs, self.puncture)
 
+    def _headroom_check(self, llrs) -> None:
+        """``batch_headroom_check`` of an un-chunked decode of shaped
+        ``llrs`` when inputs are validated and the carry is not
+        renormalised (one host read of max|llr|)."""
+        if self.validate_inputs and not self.precision.renorm:
+            batch_headroom_check(
+                self.precision,
+                -(-llrs.shape[1] // self.rho),
+                host_read(llrs.abs().max()) if llrs.numel() else 0.0,
+                self.rho,
+                llrs.shape[2],
+            )
+
     def _check_shaped(self, llrs, where: str) -> None:
         if llrs.dim() != 3 or llrs.shape[2] != self.spec.beta:
             raise InvalidInputError(
@@ -460,60 +475,60 @@ class ViterbiDecoder:
         request, or on auto when the frames underfill the card.
         """
         term = termination or self.termination
-        llrs = self.depunctured(llrs)
-        if term == "tailbiting":
-            return self.decode_tailbiting(llrs, time_parallel=time_parallel)[0]
-        self._check_shaped(llrs, "decode_batch")
-        llrs = self._harden(llrs)
-        F, n, _ = llrs.shape
-        if self.validate_inputs and not self.precision.renorm:
-            batch_headroom_check(
-                self.precision,
-                -(-n // self.rho),
-                float(llrs.abs().max()) if llrs.numel() else 0.0,
-                self.rho,
-                llrs.shape[2],
+        with stage("decode", device=self.device) as sp:
+            if term == "tailbiting":
+                return self.decode_tailbiting(
+                    self.depunctured(llrs), time_parallel=time_parallel
+                )[0]
+            with stage("front_door", device=self.device):
+                llrs = self.depunctured(llrs)
+                self._check_shaped(llrs, "decode_batch")
+                llrs = self._harden(llrs)
+                n = llrs.shape[1]
+                self._headroom_check(llrs)
+            F = llrs.shape[0]
+            pad = (-n) % self.rho
+            if pad:
+                if final_state is not None:
+                    raise ValueError(
+                        f"final_state requires n divisible by rho={self.rho}; "
+                        f"got n={n} (the pin would land on padded stages)"
+                    )
+                llrs = tnf.pad(llrs, (0, 0, 0, pad))
+            tp_tile = self._time_parallel_tile(
+                F, (n + pad) // self.rho, time_parallel
             )
-        pad = (-n) % self.rho
-        if pad:
-            if final_state is not None:
-                raise ValueError(
-                    f"final_state requires n divisible by rho={self.rho}; "
-                    f"got n={n} (the pin would land on padded stages)"
-                )
-            llrs = tnf.pad(llrs, (0, 0, 0, pad))
-        tp_tile = self._time_parallel_tile(
-            F, (n + pad) // self.rho, time_parallel
-        )
-        _count_dispatch("time_parallel" if tp_tile is not None else "batch")
-        if tp_tile is not None:
-            from .timeparallel import decode_time_parallel
+            path = "time_parallel" if tp_tile is not None else "batch"
+            sp.set(path=path)
+            _count_dispatch(path)
+            if tp_tile is not None:
+                from .timeparallel import decode_time_parallel
 
-            out = decode_time_parallel(
-                llrs,
-                self.spec,
-                rho=self.rho,
-                initial_state=initial_state,
-                final_state=final_state,
-                precision=self.precision,
-                transfer_tile=tp_tile,
-                use_kernel=self.use_kernel,
-                pack_survivors=self.pack_survivors,
-                device=self.device,
-            )
-        else:
-            out = decode_frames(
-                llrs,
-                self.spec,
-                rho=self.rho,
-                initial_state=initial_state,
-                final_state=final_state,
-                precision=self.precision,
-                use_kernel=self.use_kernel,
-                pack_survivors=self.pack_survivors,
-                device=self.device,
-            )
-        return out[:, :n] if pad else out
+                out = decode_time_parallel(
+                    llrs,
+                    self.spec,
+                    rho=self.rho,
+                    initial_state=initial_state,
+                    final_state=final_state,
+                    precision=self.precision,
+                    transfer_tile=tp_tile,
+                    use_kernel=self.use_kernel,
+                    pack_survivors=self.pack_survivors,
+                    device=self.device,
+                )
+            else:
+                out = decode_frames(
+                    llrs,
+                    self.spec,
+                    rho=self.rho,
+                    initial_state=initial_state,
+                    final_state=final_state,
+                    precision=self.precision,
+                    use_kernel=self.use_kernel,
+                    pack_survivors=self.pack_survivors,
+                    device=self.device,
+                )
+            return out[:, :n] if pad else out
 
     # -- tiled stream (stateless, latency-optimal) ------------------------
 
@@ -888,75 +903,75 @@ class ViterbiDecoder:
                 f"output must be 'llr', 'bits' or 'list', got {output!r}"
             )
         term = termination or self.termination
-        llrs = self.depunctured(llrs)
-        self._check_shaped(llrs, "decode_soft")
-        llrs = self._harden(llrs)
-        F, n, _ = llrs.shape
-        if self.validate_inputs and not self.precision.renorm:
-            batch_headroom_check(
-                self.precision,
-                -(-n // self.rho),
-                float(llrs.abs().max()) if llrs.numel() else 0.0,
-                self.rho,
-                llrs.shape[2],
-            )
-        if term == "tailbiting":
-            tables = (
-                self.tables if n % self.rho == 0
-                else build_acs_tables(self.spec, 1)
-            )
+        with stage("decode", device=self.device) as sp:
+            with stage("front_door", device=self.device):
+                llrs = self.depunctured(llrs)
+                self._check_shaped(llrs, "decode_soft")
+                llrs = self._harden(llrs)
+                n = llrs.shape[1]
+                self._headroom_check(llrs)
+            if term == "tailbiting":
+                tables = (
+                    self.tables if n % self.rho == 0
+                    else build_acs_tables(self.spec, 1)
+                )
+                if output == "list":
+                    from .soft import wava_list_decode
+
+                    sp.set(path="soft_list")
+                    _count_dispatch("soft_list")
+                    bits, metrics, _ = wava_list_decode(
+                        llrs, tables, n_list, self.precision,
+                        device=self.device,
+                    )
+                    return bits, metrics
+                from .soft import bcjr_circular_llrs
+
+                sp.set(path="soft")
+                _count_dispatch("soft")
+                out = bcjr_circular_llrs(
+                    llrs, tables, self.precision, use_kernel=self.use_kernel,
+                    device=self.device,
+                )
+                return out if output == "llr" else (out < 0).to(torch.int32)
+            pad = (-n) % self.rho
+            if pad:
+                if final_state is not None:
+                    raise ValueError(
+                        f"final_state requires n divisible by rho={self.rho}; "
+                        f"got n={n} (the pin would land on padded stages)"
+                    )
+                llrs = tnf.pad(llrs, (0, 0, 0, pad))
             if output == "list":
-                from .soft import wava_list_decode
+                from .soft import list_decode
 
+                sp.set(path="soft_list")
                 _count_dispatch("soft_list")
-                bits, metrics, _ = wava_list_decode(
-                    llrs, tables, n_list, self.precision, device=self.device
+                bits, metrics = list_decode(
+                    llrs,
+                    self.spec,
+                    n_list=n_list,
+                    rho=self.rho,
+                    initial_state=initial_state,
+                    final_state=final_state,
+                    precision=self.precision,
+                    device=self.device,
                 )
-                return bits, metrics
-            from .soft import bcjr_circular_llrs
+                return (bits[:, :, :n] if pad else bits), metrics
+            from .soft import bcjr_llrs
 
+            sp.set(path="soft")
             _count_dispatch("soft")
-            out = bcjr_circular_llrs(
-                llrs, tables, self.precision, use_kernel=self.use_kernel,
-                device=self.device,
-            )
-            return out if output == "llr" else (out < 0).to(torch.int32)
-        pad = (-n) % self.rho
-        if pad:
-            if final_state is not None:
-                raise ValueError(
-                    f"final_state requires n divisible by rho={self.rho}; "
-                    f"got n={n} (the pin would land on padded stages)"
-                )
-            llrs = tnf.pad(llrs, (0, 0, 0, pad))
-        if output == "list":
-            from .soft import list_decode
-
-            _count_dispatch("soft_list")
-            bits, metrics = list_decode(
+            out = bcjr_llrs(
                 llrs,
                 self.spec,
-                n_list=n_list,
                 rho=self.rho,
                 initial_state=initial_state,
                 final_state=final_state,
                 precision=self.precision,
+                transfer_tile=self.transfer_tile,
+                use_kernel=self.use_kernel,
                 device=self.device,
             )
-            return (bits[:, :, :n] if pad else bits), metrics
-        from .soft import bcjr_llrs
-
-        _count_dispatch("soft")
-        out = bcjr_llrs(
-            llrs,
-            self.spec,
-            rho=self.rho,
-            initial_state=initial_state,
-            final_state=final_state,
-            precision=self.precision,
-            transfer_tile=self.transfer_tile,
-            use_kernel=self.use_kernel,
-            device=self.device,
-        )
-        out = out[:, :n] if pad else out
-        return out if output == "llr" else (out < 0).to(torch.int32)
+            out = out[:, :n] if pad else out
+            return out if output == "llr" else (out < 0).to(torch.int32)

@@ -46,6 +46,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.obs.trace import host_upload, stage
+
 from .backend import resolve_device
 from .kernel_geometry import pick_transfer_tile
 from .semiring import LOGPROB, NEG
@@ -94,9 +96,9 @@ def _step_operands(theta, route, fused, precision, dev):
     in f32."""
     mm = precision.matmul_dtype
     return (
-        torch.as_tensor(fused, device=dev).to(mm),
-        torch.as_tensor(theta, device=dev).to(mm),
-        torch.as_tensor(route, device=dev),
+        host_upload(fused, dev).to(mm),
+        host_upload(theta, dev).to(mm),
+        host_upload(route, dev),
     )
 
 
@@ -105,17 +107,18 @@ def _alpha_scan(blocks, lam0, tables: AcsTables, precision: AcsPrecision):
     The step of ``forward_fused`` (same potentials, renorm and carry
     cast) emitting the metric instead of survivors."""
     dev = blocks.device
-    W, W_theta, W_pred = _step_operands(
-        tables.theta_t, tables.pred_onehot, tables.fused_w, precision, dev
-    )
     S, R = tables.n_states, tables.n_slots
     T, rows = blocks.shape[0], lam0.shape[0]
-    alphas = torch.empty((T, rows, S), dtype=torch.float32, device=dev)
-    lam = lam0.to(precision.carry_dtype)
-    for t in range(T):
-        lam = _logprob_step(blocks[t], lam, W, W_theta, W_pred, S, R, precision)
-        alphas[t] = lam
-    return alphas
+    with stage("alpha", device=dev, steps=T):
+        W, W_theta, W_pred = _step_operands(
+            tables.theta_t, tables.pred_onehot, tables.fused_w, precision, dev
+        )
+        alphas = torch.empty((T, rows, S), dtype=torch.float32, device=dev)
+        lam = lam0.to(precision.carry_dtype)
+        for t in range(T):
+            lam = _logprob_step(blocks[t], lam, W, W_theta, W_pred, S, R, precision)
+            alphas[t] = lam
+        return alphas
 
 
 def _beta_scan(blocks, beta_end, rev: ReverseTables, precision: AcsPrecision):
@@ -124,19 +127,20 @@ def _beta_scan(blocks, beta_end, rev: ReverseTables, precision: AcsPrecision):
     The backward step is the forward fused-matmul shape on the reversed
     tables: beta_t[i] = lse_v( branch(i, v) + beta_{t+1}[succ(i, v)] )."""
     dev = blocks.device
-    W, W_theta, W_succ = _step_operands(
-        rev.theta_rev, rev.succ_onehot, rev.fused_w, precision, dev
-    )
     S, R = rev.n_states, rev.n_slots
     T, rows = blocks.shape[0], beta_end.shape[0]
-    betas = torch.empty((T, rows, S), dtype=torch.float32, device=dev)
-    betas[T - 1] = beta_end.to(torch.float32)
-    beta = beta_end.to(precision.carry_dtype)
-    # processing block t gives the beta at boundary t, kept at out[t-1]
-    for t in range(T - 1, 0, -1):
-        beta = _logprob_step(blocks[t], beta, W, W_theta, W_succ, S, R, precision)
-        betas[t - 1] = beta
-    return betas
+    with stage("beta", device=dev, steps=T - 1):
+        W, W_theta, W_succ = _step_operands(
+            rev.theta_rev, rev.succ_onehot, rev.fused_w, precision, dev
+        )
+        betas = torch.empty((T, rows, S), dtype=torch.float32, device=dev)
+        betas[T - 1] = beta_end.to(torch.float32)
+        beta = beta_end.to(precision.carry_dtype)
+        # processing block t gives the beta at boundary t, kept at out[t-1]
+        for t in range(T - 1, 0, -1):
+            beta = _logprob_step(blocks[t], beta, W, W_theta, W_succ, S, R, precision)
+            betas[t - 1] = beta
+        return betas
 
 
 def _logprob_step(l_t, lam, W, W_theta, W_route, S, R, precision):
@@ -155,13 +159,14 @@ def _llrs_from_joints(joint: torch.Tensor, tables: AcsTables) -> torch.Tensor:
     The rho bits of step t are dec_bits(arrival state at boundary t+1),
     chronological: mask the joint by bit value and logsumexp over j.
     """
-    dec = torch.as_tensor(tables.dec_bits, device=joint.device)  # (S, rho)
-    jt = joint[:, :, None, :]  # (T, F, 1, S)
-    mask = dec.T[None, None]  # (1, 1, rho, S)
-    neg = torch.tensor(NEG, dtype=torch.float32, device=joint.device)
-    pos = LOGPROB.sum(torch.where(mask == 0, jt, neg), dim=-1)
-    llr = pos - LOGPROB.sum(torch.where(mask == 1, jt, neg), dim=-1)
-    return llr.permute(1, 0, 2).reshape(joint.shape[1], -1)  # (F, T*rho)
+    with stage("llr_combine", device=joint.device):
+        dec = host_upload(tables.dec_bits, joint.device)  # (S, rho)
+        jt = joint[:, :, None, :]  # (T, F, 1, S)
+        mask = dec.T[None, None]  # (1, 1, rho, S)
+        neg = host_upload(torch.tensor(NEG, dtype=torch.float32), joint.device)
+        pos = LOGPROB.sum(torch.where(mask == 0, jt, neg), dim=-1)
+        llr = pos - LOGPROB.sum(torch.where(mask == 1, jt, neg), dim=-1)
+        return llr.permute(1, 0, 2).reshape(joint.shape[1], -1)  # (F, T*rho)
 
 
 def _bcjr_joints(
@@ -349,25 +354,26 @@ def list_forward(
     first argmax.  Renorm subtracts the per-frame max over (S, L).
     """
     dev = blocks.device
-    W, W_theta, W_pred = _step_operands(
-        tables.theta_t, tables.pred_onehot, tables.fused_w, precision, dev
-    )
     S, R, L = tables.n_states, tables.n_slots, n_list
     F, B = lam0.shape[0], tables.llr_block
-    blocks = blocks.to(precision.channel_dtype)
     T = blocks.shape[0]
-    phis = torch.empty((T, F, S, L), dtype=torch.int32, device=dev)
-    lam = lam0.to(precision.carry_dtype)
-    for t in range(T):
-        lam_rows = lam.permute(2, 0, 1).reshape(L * F, S)
-        l_rows = blocks[t][None].expand(L, F, B).reshape(L * F, B)
-        pot = fused_potentials(l_rows, lam_rows, W, W_theta, W_pred, precision)
-        cand = pot.view(L, F, S, R).permute(1, 2, 0, 3).reshape(F, S, L * R)
-        new_lam, code = _top_k(cand, L)  # (F, S, L)
-        if precision.renorm:
-            new_lam = new_lam - new_lam.reshape(F, S * L).amax(dim=-1)[:, None, None]
-        lam = new_lam.to(precision.carry_dtype)
-        phis[t] = code
+    with stage("list_forward", device=dev, steps=T):
+        W, W_theta, W_pred = _step_operands(
+            tables.theta_t, tables.pred_onehot, tables.fused_w, precision, dev
+        )
+        blocks = blocks.to(precision.channel_dtype)
+        phis = torch.empty((T, F, S, L), dtype=torch.int32, device=dev)
+        lam = lam0.to(precision.carry_dtype)
+        for t in range(T):
+            lam_rows = lam.permute(2, 0, 1).reshape(L * F, S)
+            l_rows = blocks[t][None].expand(L, F, B).reshape(L * F, B)
+            pot = fused_potentials(l_rows, lam_rows, W, W_theta, W_pred, precision)
+            cand = pot.view(L, F, S, R).permute(1, 2, 0, 3).reshape(F, S, L * R)
+            new_lam, code = _top_k(cand, L)  # (F, S, L)
+            if precision.renorm:
+                new_lam = new_lam - new_lam.reshape(F, S * L).amax(dim=-1)[:, None, None]
+            lam = new_lam.to(precision.carry_dtype)
+            phis[t] = code
     return lam.to(torch.float32), phis
 
 
@@ -393,10 +399,11 @@ def list_traceback(
         metrics, rank = _top_k(lam[:, final_state, :], n_list)
         j = torch.full((F, n_list), final_state, dtype=torch.int64, device=dev)
     vs = torch.empty((T, F, n_list), dtype=torch.int64, device=dev)
-    for t in range(T - 1, -1, -1):
-        code = phis[t].reshape(F, S * L).gather(1, j * L + rank).to(torch.int64)
-        vs[t] = j >> shift  # the rho decoded bits of this step
-        j, rank = ((j & mask) << rho) | (code % R), code // R
+    with stage("list_traceback", device=dev, steps=T):
+        for t in range(T - 1, -1, -1):
+            code = phis[t].reshape(F, S * L).gather(1, j * L + rank).to(torch.int64)
+            vs[t] = j >> shift  # the rho decoded bits of this step
+            j, rank = ((j & mask) << rho) | (code % R), code // R
     bits = (vs[..., None] >> torch.arange(rho, device=dev)) & 1  # (T, F, L, rho)
     bits = bits.permute(1, 2, 0, 3).reshape(F, n_list, T * rho)
     return bits.to(torch.int32), metrics, j.to(torch.int32)

@@ -37,6 +37,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.obs.trace import stage
+
 from .backend import resolve_device
 from .kernel_geometry import pick_transfer_tile
 from .semiring import TROPICAL, Semiring
@@ -69,9 +71,10 @@ def associative_scan(fn, x: torch.Tensor, reverse: bool = False) -> torch.Tensor
     pairs, combine each scanned pair with the next even element,
     interleave.  ``reverse`` flips the input and the output, so ``fn``
     then gets the later element as its left operand."""
-    if reverse:
-        return _scan(fn, x.flip(0)).flip(0)
-    return _scan(fn, x)
+    with stage("scan", device=x.device):
+        if reverse:
+            return _scan(fn, x.flip(0)).flip(0)
+        return _scan(fn, x)
 
 
 def _scan(fn, x: torch.Tensor) -> torch.Tensor:
@@ -232,16 +235,17 @@ def _recovery(
     (tile, N*F, S | S//16) survivors)."""
     T, F, _ = blocks.shape
     n_tiles = T // transfer_tile
-    tiles = tiled_blocks(blocks, transfer_tile)
-    lam_fin, phis = forward_fused(
-        tiles.reshape(transfer_tile, n_tiles * F, -1),
-        entry.reshape(n_tiles * F, -1),
-        tables,
-        precision,
-        use_kernel,
-        pack_survivors,
-    )
-    return lam_fin.reshape(n_tiles, F, -1), phis
+    with stage("recovery", device=blocks.device):
+        tiles = tiled_blocks(blocks, transfer_tile)
+        lam_fin, phis = forward_fused(
+            tiles.reshape(transfer_tile, n_tiles * F, -1),
+            entry.reshape(n_tiles * F, -1),
+            tables,
+            precision,
+            use_kernel,
+            pack_survivors,
+        )
+        return lam_fin.reshape(n_tiles, F, -1), phis
 
 
 def _formation_and_recovery(

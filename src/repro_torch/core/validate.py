@@ -26,6 +26,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import host_read
+
 __all__ = [
     "LLR_CLAMP",
     "InvalidInputError",
@@ -89,7 +91,7 @@ def validate_llrs(
     """
     is_np = isinstance(llrs, np.ndarray)
     xp_isfinite = np.isfinite if is_np else torch.isfinite
-    finite = bool(xp_isfinite(llrs).all())
+    finite = host_read(xp_isfinite(llrs).all())
     n_bad = n_nan = n_over = 0
     if not finite or sanitize:
         if is_np:
@@ -99,8 +101,8 @@ def validate_llrs(
         else:
             nan = torch.isnan(llrs)
             over = llrs.abs() > clamp
-        n_nan = int(nan.sum())
-        n_over = int((over & ~nan).sum())
+        n_nan = host_read(nan.sum())
+        n_over = host_read((over & ~nan).sum())
         n_bad = n_nan + n_over
     if not finite and not sanitize:
         raise InvalidInputError(
@@ -177,7 +179,7 @@ class RenormGuard:
         pinned by the renorm shift."""
         self.observations += 1
         live = lam > _NEG_FLOOR
-        mag = float(torch.where(live, lam.abs(), 0.0).max())
+        mag = host_read(torch.where(live, lam.abs(), 0.0).max())
         if mag >= self.hard:
             _count("decoder_renorm_guard_total", event="overflow")
             raise MetricOverflowError(

@@ -33,6 +33,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.obs.trace import host_upload, stage
+
 from .backend import device_underfill_rows, resolve_device
 from .kernel_geometry import (
     SLOT_BITS,
@@ -195,25 +197,26 @@ def forward_fused(
         check_packable(S, R)
     dev = blocks.device
     mm = precision.matmul_dtype
-    W = torch.as_tensor(tables.fused_w, device=dev).to(mm)
-    W_theta = torch.as_tensor(tables.theta_t, device=dev).to(mm)
-    W_pred = torch.as_tensor(tables.pred_onehot, device=dev)
-    blocks = blocks.to(precision.channel_dtype)
     T, F = blocks.shape[0], blocks.shape[1]
-    phis = torch.empty(
-        (T, F, ring_words(S, pack_survivors)),
-        dtype=ring_dtype(pack_survivors), device=dev,
-    )
-    lam = lam0.to(precision.carry_dtype)
-    for t in range(T):
-        pot = fused_potentials(blocks[t], lam, W, W_theta, W_pred, precision)
-        pot = pot.view(F, S, R)
-        new_lam = semiring.sum(pot, dim=-1)
-        phi = pot.argmax(dim=-1)
-        phis[t] = pack_slots(phi, R) if pack_survivors else phi
-        if precision.renorm:
-            new_lam = new_lam - new_lam.amax(dim=-1, keepdim=True)
-        lam = new_lam.to(precision.carry_dtype)
+    with stage("forward", device=dev, steps=T):
+        W = host_upload(tables.fused_w, dev).to(mm)
+        W_theta = host_upload(tables.theta_t, dev).to(mm)
+        W_pred = host_upload(tables.pred_onehot, dev)
+        blocks = blocks.to(precision.channel_dtype)
+        phis = torch.empty(
+            (T, F, ring_words(S, pack_survivors)),
+            dtype=ring_dtype(pack_survivors), device=dev,
+        )
+        lam = lam0.to(precision.carry_dtype)
+        for t in range(T):
+            pot = fused_potentials(blocks[t], lam, W, W_theta, W_pred, precision)
+            pot = pot.view(F, S, R)
+            new_lam = semiring.sum(pot, dim=-1)
+            phi = pot.argmax(dim=-1)
+            phis[t] = pack_slots(phi, R) if pack_survivors else phi
+            if precision.renorm:
+                new_lam = new_lam - new_lam.amax(dim=-1, keepdim=True)
+            lam = new_lam.to(precision.carry_dtype)
     return lam.to(torch.float32), phis
 
 
@@ -230,22 +233,23 @@ def _traceback_scan(
     packed = phis.dtype == torch.int32
     slot_bits = SLOT_BITS[R]
     T, F = phis.shape[0], phis.shape[1]
-    j = final_state.to(device=phis.device, dtype=torch.int64)
-    states = torch.empty((T, F), dtype=torch.int64, device=phis.device)
-    for t in range(T - 1, -1, -1):
-        states[t] = j
-        if packed:
-            word = phis[t].gather(1, (j >> 4)[:, None])[:, 0].to(torch.int64)
-            slot = (word >> (slot_bits * (j & 15))) & (R - 1)
-        else:
-            slot = phis[t].gather(1, j[:, None])[:, 0].to(torch.int64)
-        j = ((j & mask) << rho) | slot
-    # the rho decoded bits of each step are the top rho bits of its state,
-    # chronological = LSB-first of that field
-    v = states >> shift  # (T', F)
-    bits = (v[..., None] >> torch.arange(rho, device=phis.device)) & 1
-    bits = bits.permute(1, 0, 2).reshape(F, T * rho)
-    return j.to(torch.int32), bits.to(torch.int32)
+    with stage("traceback", device=phis.device, steps=T):
+        j = final_state.to(device=phis.device, dtype=torch.int64)
+        states = torch.empty((T, F), dtype=torch.int64, device=phis.device)
+        for t in range(T - 1, -1, -1):
+            states[t] = j
+            if packed:
+                word = phis[t].gather(1, (j >> 4)[:, None])[:, 0].to(torch.int64)
+                slot = (word >> (slot_bits * (j & 15))) & (R - 1)
+            else:
+                slot = phis[t].gather(1, j[:, None])[:, 0].to(torch.int64)
+            j = ((j & mask) << rho) | slot
+        # the rho decoded bits of each step are the top rho bits of its
+        # state, chronological = LSB-first of that field
+        v = states >> shift  # (T', F)
+        bits = (v[..., None] >> torch.arange(rho, device=phis.device)) & 1
+        bits = bits.permute(1, 0, 2).reshape(F, T * rho)
+        return j.to(torch.int32), bits.to(torch.int32)
 
 
 def traceback(
@@ -447,13 +451,14 @@ def tiled_decode_streams(
     f, v = cfg.frame_len, cfg.overlap
     n_windows = -(-n // f)
     padded_len = n_windows * f + 2 * v
-    padded = torch.nn.functional.pad(llrs, (0, 0, v, padded_len - n - v))
-    idx = (
-        torch.arange(n_windows, device=dev)[:, None] * f
-        + torch.arange(cfg.window, device=dev)[None, :]
-    )
-    # (N * n_windows, window, beta), stream-major
-    frames = padded[:, idx].reshape(N * n_windows, cfg.window, beta)
+    with stage("window_gather", device=dev):
+        padded = torch.nn.functional.pad(llrs, (0, 0, v, padded_len - n - v))
+        idx = (
+            torch.arange(n_windows, device=dev)[:, None] * f
+            + torch.arange(cfg.window, device=dev)[None, :]
+        )
+        # (N * n_windows, window, beta), stream-major
+        frames = padded[:, idx].reshape(N * n_windows, cfg.window, beta)
     tp_tile = time_parallel_plan(
         n_windows, cfg.window // cfg.rho, spec.n_states,
         time_parallel, transfer_tile, device_underfill_rows(dev),

@@ -20,6 +20,7 @@ from repro_torch.core import kernel_geometry
 from repro_torch.core.kernel_geometry import DEFAULT_TIME_TILE
 from repro_torch.core.trellis import AcsTables
 from repro_torch.core.viterbi import AcsPrecision
+from repro_torch.obs.trace import stage
 
 from .viterbi_acs import (
     GatherOperands, acs_decode_fused, acs_forward, gather_operands, transfer_matrix,
@@ -70,19 +71,20 @@ def viterbi_forward(
     """
     precision = precision or AcsPrecision()
     w, operands = device_tables(tables, blocks.device)
-    return acs_forward(
-        blocks.to(torch.float32).contiguous(),
-        lam0.to(torch.float32).contiguous(),
-        w,
-        n_states=tables.n_states,
-        n_slots=tables.n_slots,
-        carry_dtype=precision.carry_dtype,
-        matmul_dtype=precision.matmul_dtype,
-        renorm=precision.renorm,
-        pack_survivors=pack_survivors,
-        semiring=semiring,
-        operands=operands,
-    )
+    with stage("k1", device=blocks.device, semiring=semiring):
+        return acs_forward(
+            blocks.to(torch.float32).contiguous(),
+            lam0.to(torch.float32).contiguous(),
+            w,
+            n_states=tables.n_states,
+            n_slots=tables.n_slots,
+            carry_dtype=precision.carry_dtype,
+            matmul_dtype=precision.matmul_dtype,
+            renorm=precision.renorm,
+            pack_survivors=pack_survivors,
+            semiring=semiring,
+            operands=operands,
+        )
 
 
 def viterbi_decode_fused(
@@ -103,22 +105,23 @@ def viterbi_decode_fused(
     """
     precision = precision or AcsPrecision()
     w, operands = device_tables(tables, blocks.device)
-    return acs_decode_fused(
-        blocks.to(torch.float32).contiguous(),
-        lam0.to(torch.float32).contiguous(),
-        hist0.contiguous(),
-        w,
-        n_states=tables.n_states,
-        n_slots=tables.n_slots,
-        k=tables.spec.k,
-        rho=tables.rho,
-        time_tile=time_tile,
-        carry_dtype=precision.carry_dtype,
-        matmul_dtype=precision.matmul_dtype,
-        renorm=precision.renorm,
-        pack_survivors=pack_survivors,
-        operands=operands,
-    )
+    with stage("k2", device=blocks.device):
+        return acs_decode_fused(
+            blocks.to(torch.float32).contiguous(),
+            lam0.to(torch.float32).contiguous(),
+            hist0.contiguous(),
+            w,
+            n_states=tables.n_states,
+            n_slots=tables.n_slots,
+            k=tables.spec.k,
+            rho=tables.rho,
+            time_tile=time_tile,
+            carry_dtype=precision.carry_dtype,
+            matmul_dtype=precision.matmul_dtype,
+            renorm=precision.renorm,
+            pack_survivors=pack_survivors,
+            operands=operands,
+        )
 
 
 def viterbi_transfer_matrices(
@@ -135,15 +138,16 @@ def viterbi_transfer_matrices(
     in the reference; ``split_dot`` is honoured."""
     precision = precision or AcsPrecision()
     w, operands = device_tables(tables, blocks.device)
-    return transfer_matrix(
-        blocks.to(precision.channel_dtype).to(torch.float32).contiguous(),
-        w,
-        n_states=tables.n_states,
-        n_slots=tables.n_slots,
-        transfer_tile=transfer_tile,
-        carry_dtype=precision.carry_dtype,
-        matmul_dtype=precision.matmul_dtype,
-        split_dot=precision.split_dot,
-        semiring=semiring,
-        operands=operands,
-    )
+    with stage("k3", device=blocks.device, semiring=semiring):
+        return transfer_matrix(
+            blocks.to(precision.channel_dtype).to(torch.float32).contiguous(),
+            w,
+            n_states=tables.n_states,
+            n_slots=tables.n_slots,
+            transfer_tile=transfer_tile,
+            carry_dtype=precision.carry_dtype,
+            matmul_dtype=precision.matmul_dtype,
+            split_dot=precision.split_dot,
+            semiring=semiring,
+            operands=operands,
+        )

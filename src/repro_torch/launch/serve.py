@@ -248,8 +248,9 @@ def serve_engine(args) -> dict:
     backpressure, and the engine's occupancy, padding-waste and
     callable-cache counters.
 
-    With ``--metrics-jsonl PATH`` the run records lifecycle spans and a
-    final metrics snapshot to PATH (render it with ``python -m
+    With ``--metrics-jsonl PATH`` the run records lifecycle spans (the
+    decode stages, ``repro_torch.*``, nested under ``engine.dispatch``)
+    and a final metrics snapshot to PATH (render it with ``python -m
     repro_torch.obs.top --jsonl PATH``), and the drain prints the
     Prometheus text dump.  With ``--chaos SCHEDULE.json`` the replay
     runs under the fault-injection harness (the JSON is a
@@ -260,7 +261,11 @@ def serve_engine(args) -> dict:
 
     Returns the report: bits, errors, BER, dropped and errored requests,
     peak queue, seconds and the engine's ``stats()``."""
-    from repro_torch.obs import Observability, set_default_registry
+    from repro_torch.obs import (
+        Observability,
+        set_default_recorder,
+        set_default_registry,
+    )
     from repro_torch.serve.step import make_decode_engine
 
     if args.slo == "mixed":
@@ -276,6 +281,8 @@ def serve_engine(args) -> dict:
         enabled=args.metrics_jsonl is not None, jsonl=args.metrics_jsonl
     )
     prev_reg = set_default_registry(obs.registry)  # decoder path counters
+    # the decode stages nest under the engine's dispatch spans
+    prev_rec = set_default_recorder(obs.recorder)
     chaos = None
     if args.chaos is not None:
         from repro_torch.runtime.chaos import ChaosInjector, ChaosSchedule
@@ -363,6 +370,7 @@ def serve_engine(args) -> dict:
             print(f"[engine] spans+metrics -> {args.metrics_jsonl}")
     finally:
         set_default_registry(prev_reg)
+        set_default_recorder(prev_rec)
     return dict(bits=total, errors=err, ber=err / max(total, 1),
                 dropped=dropped, errored=errored, peak_queue=peak_q,
                 seconds=dt, stats=s, requests=len(reqs))

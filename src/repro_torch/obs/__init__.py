@@ -6,13 +6,17 @@ dependency-free and zero-cost when disabled.
     layer's (code, path, F-rung, T-rung) cell labels, with Prometheus
     text and plain-dict snapshot exporters.
   * :mod:`repro_torch.obs.trace` — ``SpanRecorder``/``span(...)`` nested
-    spans with a JSONL event-log sink.
+    spans with a JSONL event-log sink, and the decode paths' stages
+    (``stage``, ``host_read``, ``stage_totals``) on the default recorder
+    and the profiler's trace.
 
 ``Observability`` bundles one registry and one recorder (and an optional
 JSONL sink) for handing to ``DecodeEngine``; the module-level
 ``default_registry()`` is a ``NullRegistry`` until one is installed, so
 library-level instrumentation (the decoder's path counters) costs
-nothing by default.
+nothing by default; ``default_recorder()`` is likewise a
+``NullRecorder`` until one is installed, and the decode stages cost two
+flag checks while neither it nor a profiler session is on.
 
   * :mod:`repro_torch.obs.profile` — ``dispatch_profile``: modelled
     device-memory bytes, operations and trip-count depth per engine
@@ -42,6 +46,12 @@ from repro_torch.obs.trace import (
     NullRecorder,
     Span,
     SpanRecorder,
+    default_recorder,
+    host_read,
+    reset_stage_totals,
+    set_default_recorder,
+    stage,
+    stage_totals,
 )
 
 __all__ = [
@@ -57,6 +67,12 @@ __all__ = [
     "SpanRecorder",
     "NullRecorder",
     "JsonlSink",
+    "default_recorder",
+    "set_default_recorder",
+    "stage",
+    "host_read",
+    "stage_totals",
+    "reset_stage_totals",
     "DispatchProfile",
     "dispatch_profile",
     "Observability",

@@ -1,5 +1,6 @@
 """Span/trace layer: nested spans and standalone events with a JSONL
-exporter, a copy of the reference's ``obs/trace.py`` (pure Python).
+exporter, a copy of the reference's ``obs/trace.py``, and the port's
+decode stages on top of it (below).
 
 A ``SpanRecorder`` holds a stack of open spans; ``span(...)`` is a
 context manager that opens a child of whatever span is open, so the
@@ -23,6 +24,36 @@ tracing is off.
 On the card a span around a dispatch measures host time: it covers the
 kernels only when it closes after the copy that waits for them (the
 engine's ``engine.device_wait`` span closes after the ``.cpu()`` copy).
+
+**Decode stages.**  ``stage(name, device=None, **attrs)`` marks one stage
+of the decode paths (``repro_torch.decode``, ``.front_door``,
+``.window_gather``, ``.k1``-``.k3``, ``.forward``, ``.traceback``,
+``.scan``, ``.recovery``, ``.alpha``, ``.beta``, ``.llr_combine``, the
+list loops).  It is active only while a ``torch.profiler`` session runs
+or while the process default recorder (``set_default_recorder``) is
+enabled; otherwise it returns the shared no-op span, at the cost of one
+call and two flag checks.  An active stage
+
+  * opens the host range ``repro_torch.<name>`` in the profiler's trace,
+    on the clock of the device's kernels.  The range is of the
+    profiler's function scope: a user-scope range
+    (``torch.profiler.record_function``) also gets an image on the
+    device timeline, which a trace reader would count as a kernel;
+  * opens the span ``repro_torch.<name>`` on the default recorder, a
+    child of whatever span is open there;
+  * on a CUDA ``device``, records a timing event on its current stream
+    at entry and at exit; once the device has passed both, their
+    distance is the stage's ``device_s`` (how long the stage held the
+    stream), set on the span and added to the totals;
+  * adds to ``stage_totals()[name]``: ``device_s``, ``steps`` (the
+    ``steps=`` attribute: iterations of a plain per-step loop) and
+    ``host_syncs`` (``host_read`` and ``host_upload`` calls while the
+    stage was the innermost open one: the sites that block the host
+    until the card's stream drains, counted on every device).
+
+Counts are attributes given once per stage, never per loop step.  A
+span's JSONL line is written at its end, before its ``device_s`` is
+known; the in-memory span and the totals carry it.
 """
 from __future__ import annotations
 
@@ -33,11 +64,21 @@ import os
 import time
 from typing import Dict, List, Optional
 
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
 __all__ = [
     "Span",
     "SpanRecorder",
     "NullRecorder",
     "JsonlSink",
+    "default_recorder",
+    "set_default_recorder",
+    "stage",
+    "host_read",
+    "host_upload",
+    "stage_totals",
+    "reset_stage_totals",
 ]
 
 
@@ -267,3 +308,144 @@ class NullRecorder(SpanRecorder):
 
     def close(self) -> None:
         pass
+
+
+# ---------------------------------------------------------------------------
+# Decode stages (module docstring)
+# ---------------------------------------------------------------------------
+
+_DEFAULT: SpanRecorder = NullRecorder()
+
+
+def default_recorder() -> SpanRecorder:
+    """The process-wide default recorder the decode stages write to: a
+    ``NullRecorder`` until something calls ``set_default_recorder``."""
+    return _DEFAULT
+
+
+def set_default_recorder(rec: Optional[SpanRecorder]) -> SpanRecorder:
+    """Install ``rec`` as the process default (None -> NullRecorder);
+    returns the previous default so callers can restore it."""
+    global _DEFAULT
+    prev = _DEFAULT
+    _DEFAULT = rec if rec is not None else NullRecorder()
+    return prev
+
+
+_ZERO = {"device_s": 0.0, "steps": 0, "host_syncs": 0}
+_TOTALS: Dict[str, Dict[str, float]] = {}
+_OPEN: List["_Stage"] = []  # active stages, innermost last
+# (totals entry, span, entry event, exit event) awaiting the device
+_PENDING: "collections.deque" = collections.deque()
+
+
+class _Stage:
+    """An active stage: the profiler range, the recorder's span, the
+    timing events and the totals."""
+
+    __slots__ = ("name", "device", "attrs", "span", "range", "start", "syncs")
+
+    def __init__(self, name: str, device, attrs: dict):
+        self.name = name
+        self.device = device if device is not None and device.type == "cuda" else None
+        self.attrs = attrs
+        self.range = None
+        self.start = None
+        self.syncs = 0
+
+    def __enter__(self):
+        full = "repro_torch." + self.name
+        if _autograd_profiler._is_profiler_enabled:
+            # private API (torch 2.11 to 2.13 have it); a test in
+            # tests/test_torch_obs_stages.py fails on a torch without it
+            self.range = torch._C._profiler._RecordFunctionFast(full)
+            self.range.__enter__()
+        self.span = _DEFAULT.start(full, **self.attrs)
+        if self.device is not None:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record(torch.cuda.current_stream(self.device))
+        _OPEN.append(self)
+        return self.span
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        while _OPEN and _OPEN.pop() is not self:
+            pass
+        total = _TOTALS.get(self.name)
+        if total is None:
+            total = _TOTALS[self.name] = dict(_ZERO)
+        total["steps"] += self.attrs.get("steps", 0)
+        total["host_syncs"] += self.syncs
+        real = self.span is not _NULL_SPAN
+        if real:
+            if self.syncs:
+                self.span.attrs["host_syncs"] = self.syncs
+            if exc_type is not None:
+                self.span.attrs["error"] = repr(exc)
+        if self.start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(self.device))
+            _PENDING.append((total, self.span if real else None, self.start, end))
+        _DEFAULT.end(self.span)
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
+        _settle(block=False)
+        return False
+
+
+def stage(name: str, device=None, **attrs):
+    """``with stage("traceback", device=phis.device, steps=T):`` — one
+    decode stage (module docstring); the shared no-op span when neither
+    a profiler session nor an enabled default recorder is there.
+    ``device`` (a ``torch.device``, or None) is where the stage's work
+    runs: a CUDA device gets the stage's ``device_s``."""
+    if not (_autograd_profiler._is_profiler_enabled or _DEFAULT.enabled):
+        return _NULL_SPAN
+    return _Stage(name, device, attrs)
+
+
+def host_read(x):
+    """``x.item()``: the blocking device-to-host read of a one-element
+    tensor (a numpy scalar reads the same way), counted in the innermost
+    open stage's ``host_syncs`` when ``x`` is a tensor."""
+    if _OPEN and isinstance(x, torch.Tensor):
+        _OPEN[-1].syncs += 1
+    return x.item()
+
+
+def host_upload(x, device) -> torch.Tensor:
+    """``torch.as_tensor(x, device=device)``: a copy of host data onto
+    ``device``, which from pageable memory waits for the card's stream to
+    drain, counted in the innermost open stage's ``host_syncs``."""
+    if _OPEN:
+        _OPEN[-1].syncs += 1
+    return torch.as_tensor(x, device=device)
+
+
+def _settle(block: bool) -> None:
+    """Turn the timing events the device has passed (all of them with
+    ``block``, waiting for the device) into ``device_s``."""
+    while _PENDING:
+        total, span, start, end = _PENDING[0]
+        if block:
+            end.synchronize()
+        elif not end.query():
+            return
+        device_s = start.elapsed_time(end) * 1e-3
+        total["device_s"] += device_s
+        if span is not None:
+            span.attrs["device_s"] = device_s
+        _PENDING.popleft()
+
+
+def stage_totals() -> Dict[str, Dict[str, float]]:
+    """Per-stage totals since the last ``reset_stage_totals``: ``{name:
+    {device_s, steps, host_syncs}}``.  Waits for the device
+    to pass every stage already closed, so ``device_s`` is complete."""
+    _settle(block=True)
+    return {name: dict(total) for name, total in _TOTALS.items()}
+
+
+def reset_stage_totals() -> None:
+    """Empty the totals (and forget device times still pending)."""
+    _TOTALS.clear()
+    _PENDING.clear()

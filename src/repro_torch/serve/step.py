@@ -108,6 +108,7 @@ def make_viterbi_serve_step(vcfg, precision=None, use_kernel: bool = True,
     """
     from repro_torch.core.decoder import _count_dispatch
     from repro_torch.core.viterbi import tiled_decode_streams
+    from repro_torch.obs.trace import stage
 
     decoder = make_viterbi_decoder(
         vcfg, precision, use_kernel, one_pass=one_pass, device=device)
@@ -120,22 +121,25 @@ def make_viterbi_serve_step(vcfg, precision=None, use_kernel: bool = True,
         cfg = decoder.default_tiled_config(vcfg.tiled)
 
         def serve_step(llrs) -> torch.Tensor:
-            llrs = decoder._harden(decoder.depunctured(llrs))
-            _count_dispatch("tiled")
-            return tiled_decode_streams(
-                llrs,
-                decoder.spec,
-                cfg,
-                precision=decoder.precision,
-                use_kernel=decoder.use_kernel,
-                pack_survivors=decoder.pack_survivors,
-                one_pass=decoder.one_pass,
-                time_tile=decoder.time_tile,
-                block_frames=decoder.block_frames,
-                time_parallel=decoder.time_parallel,
-                transfer_tile=decoder.transfer_tile,
-                device=decoder.device,
-            )
+            with stage("decode", device=decoder.device) as sp:
+                with stage("front_door", device=decoder.device):
+                    llrs = decoder._harden(decoder.depunctured(llrs))
+                sp.set(path="tiled")
+                _count_dispatch("tiled")
+                return tiled_decode_streams(
+                    llrs,
+                    decoder.spec,
+                    cfg,
+                    precision=decoder.precision,
+                    use_kernel=decoder.use_kernel,
+                    pack_survivors=decoder.pack_survivors,
+                    one_pass=decoder.one_pass,
+                    time_tile=decoder.time_tile,
+                    block_frames=decoder.block_frames,
+                    time_parallel=decoder.time_parallel,
+                    transfer_tile=decoder.transfer_tile,
+                    device=decoder.device,
+                )
     elif mode == "batch":
         if decoder.termination == "tailbiting":
             def serve_step(llrs) -> torch.Tensor:
