@@ -71,7 +71,18 @@ which ends the run with a non-zero exit when it fails:
   8. multi   — ``decode_chunk_multi``: two sessions at different stream
                positions emit on the card what each emits alone, and
                reach the same metrics, ring and position;
-  9. timepar — K3 (``transfer_matrix``) against its plain version, bit
+  9. timepar — K4 (``semiring_compose``, the scans' compose) against
+               its plain version (``Semiring.matmul_plain``) at S = 2 ..
+               64 on the scans' strided views, a broadcast identity,
+               batches of 0, 1, 12 and 111 products, f32 and bf16 operands
+               (tropical bit for bit, LOGPROB within K4_LOGPROB_ATOL),
+               refusals before any launch; both scans at the
+               time-parallel cell's shape (512 tiles x 16 frames,
+               tropical) and the soft cell's (128 tiles x 256 frames,
+               LOGPROB): the pairing tree's launches, held to the plain
+               tree; K4's time over one call's compose pairs beside the
+               plain version's and its bound (``portbench.work``); then
+               K3 (``transfer_matrix``) against its plain version, bit
                for bit on quantised integer LLRs, at F=16 x T=4096 radix
                steps, tile 64, over f32/bf16 matmul x split_dot on/off x
                f32/bf16 carry, at a frame count that is not a multiple of
@@ -79,7 +90,8 @@ which ends the run with a non-zero exit when it fails:
                latency shape itself (cell decode_512k_f16): ccsds-k7,
                rho=2, 16 zero-terminated frames x 2^19 stages through
                ``decode_batch(time_parallel=True)``: dispatch label
-               ``time_parallel``, one K3 and one K1 launch, BER <= 1e-4
+               ``time_parallel``, one K3 and one K1 launch and the two
+               scans' K4 launches (``scan_composes``), BER <= 1e-4
                at 4 dB, the bits that differ from the sequential path
                printed, and the sequential path's bits on the integer
                LLRs.  Times: K3, the prefix and suffix scans, the
@@ -96,7 +108,8 @@ which ends the run with a non-zero exit when it fails:
  10. soft    — the soft-output path at full width (S=64):
                ``decode_soft(output="llr")`` on 64 of phase 4's AWGN
                frames x 65536 stages (T'=32768, TT=256, N=128): dispatch
-               ``soft``, one K3-LOGPROB launch, BER of ``llr < 0`` <= 1e-4,
+               ``soft``, one K3-LOGPROB launch and the two scans'
+               K4-LOGPROB launches, BER of ``llr < 0`` <= 1e-4,
                the bits that differ from decode_batch's printed; K3-LOGPROB
                against its plain version at that shape; K1-LOGPROB through
                ``forward_fused(semiring=LOGPROB)`` on the same blocks (one
@@ -117,7 +130,8 @@ which ends the run with a non-zero exit when it fails:
                ``decode_batch(time_parallel=False)``'s exactly, on the AWGN
                and on the integer LLRs), and lte-tbcc, 512 tail-biting
                frames x 64 bits through ``bcjr_circular_llrs``: K3-LOGPROB
-               at one step a tile (beta=3) against its plain version, BER,
+               at one step a tile (beta=3) against its plain version, the
+               two scans' K4-LOGPROB launches over 32 steps, BER,
                times;
  11. codes   — the standard codes on the reference's cells
                (``configs/viterbi_k7.py``), LLRs drawn on the card
@@ -334,6 +348,8 @@ which ends the run with a non-zero exit when it fails:
                phase's seconds against a budget of 60 s.
 
 Parity: at TROPICAL every kernel is held bit for bit to its plain version.
+K4-LOGPROB sums its S exponentials in k order, the plain version in the
+order its reduction picks: within K4_LOGPROB_ATOL.
 At LOGPROB the slot reduction is a logsumexp, whose expf/logf (CUDA) and
 exp/log (PyTorch) need not round alike, so K1-LOGPROB and K3-LOGPROB are
 held to their plain versions within ``logprob_bound``, the difference f32
@@ -383,6 +399,9 @@ TBCC_BER_LIMIT = 1e-3  # 32768 tail-biting bits: the frames decode
 # T_SEP steps of the soft blocks, K1-LOGPROB's metrics after T1_SEP steps
 T_SEP, TT_SEP, T1_SEP = 2048, 8, 8
 PHI_TIE = 1e-3  # K1-LOGPROB's survivors may differ only at potential gaps under this
+# K4-LOGPROB against its plain version: the two sum the S exponentials in
+# other orders (the tolerance of the soft tests)
+K4_LOGPROB_ATOL = 1e-4
 # K3's register layout where it can break, each (code, rho, tiles) on the
 # integer and on the AWGN LLRs: a row's map from state to register
 # rotates by rho of k-1 bits a step, so its period is (k-1)/gcd(k-1, rho):
@@ -848,11 +867,177 @@ def shape_sweep_phase(dev):
     return err, lp_err
 
 
+def scan_composes(n):
+    """The non-empty composes (K4 launches) of one ``associative_scan``
+    over n elements: its pairing tree, one level at a time."""
+    if n < 2:
+        return 0
+    return 1 + ((n - 1) // 2 > 0) + scan_composes(n // 2)
+
+
+def k4_work(S, products, semiring):
+    """``portbench.work.Work`` of ``products`` semiring products of S x S
+    matrices: each (i, j, k) an add and a max, at LOGPROB also a
+    difference, an exponential and an add; each operand read once and the
+    result written once."""
+    from portbench.work import Work
+
+    cube = float(S) ** 3 * products
+    if semiring == "tropical":
+        return Work(2 * cube, 0.0, 12.0 * S * S * products)
+    return Work(4 * cube + 2.0 * S * S * products, cube + S * S * products,
+                12.0 * S * S * products)
+
+
+def compose_phase(dev):
+    """Phase 9, first part: K4 (``semiring_compose``) against its plain
+    version (``Semiring.matmul_plain``) on the card, then both scans of
+    the time-parallel and of the soft cell's shapes through K4; returns
+    the K4 and K4-LOGPROB rows of the kernels line, whose ``launches``
+    the main paths' runs fill in (phases 9 and 10)."""
+    from repro_torch.core import timeparallel as tp
+    from repro_torch.core.semiring import NEG, get_semiring
+    from repro_torch.kernels import viterbi_acs
+
+    t_phase = time.perf_counter()
+    k4 = viterbi_acs.semiring_compose
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    errs = {"tropical": 0.0, "logprob": 0.0}
+
+    def hold(label, got, want, semiring, quiet=True):
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            fail(f"K4 {label}: shape {tuple(got.shape)}, want {tuple(want.shape)}")
+        err = (got - want).abs().max().item() if got.numel() else 0.0
+        errs[semiring] = max(errs[semiring], err)
+        ok = torch.equal(got, want) if semiring == "tropical" else err <= K4_LOGPROB_ATOL
+        if not quiet or not ok:
+            print(f"K4 vs plain {label}: max abs err {err!r} "
+                  f"({'bit-identical' if torch.equal(got, want) else 'not bit-identical'})",
+                  flush=True)
+        if not ok:
+            fail(f"K4 {label} differs from its plain version by {err} "
+                 f"({'bits' if semiring == 'tropical' else f'atol {K4_LOGPROB_ATOL}'})")
+
+    # single composes: the scans' strided views, a broadcast identity,
+    # batches of 0, 1 and odd sizes, NEG rows and columns
+    for S in (2, 4, 8, 16, 32, 64):
+        for n, F in ((9, 3), (1, 5), (2, 1), (7, 37)):
+            x = torch.randn(n, F, S, S, generator=gen, device=dev) * 3
+            x[:, :, 0, :] = NEG
+            x[:, :, :, -1] += NEG
+            pairs = [(x[0:-1:2], x[1::2]), (x[1::2][: (n - 1) // 2], x[2::2]),
+                     (x[2::2], torch.eye(S, device=dev).expand(F, S, S))]
+            for semiring in ("tropical", "logprob"):
+                sr = get_semiring(semiring)
+                for mm in (torch.float32, torch.bfloat16):
+                    for a, b in pairs:
+                        before = k4.launches
+                        got = k4(a, b, semiring=semiring, matmul_dtype=mm)
+                        if k4.launches - before != int(got.numel() > 0):
+                            fail(f"K4 launched {k4.launches - before} times for "
+                                 f"{got.numel() // (S * S)} products")
+                        hold(f"S={S} n={n} F={F} {semiring} mm={str(mm)[6:]}", got,
+                             sr.matmul_plain(a, b, mm), semiring)
+    print("K4 vs plain: S = 2 .. 64, strided, broadcast, empty and ragged batches, "
+          f"f32 and bf16 operands: tropical bit-identical, LOGPROB max abs err "
+          f"{errs['logprob']!r} (atol {K4_LOGPROB_ATOL})", flush=True)
+    before = k4.launches
+    for a_shape, b_shape in (((2, 128, 128), (2, 128, 128)), ((2, 12, 12), (2, 12, 12)),
+                             ((2, 4, 5), (2, 5, 5)), ((2, 4, 4), (2, 8, 8))):
+        try:
+            k4(torch.zeros(a_shape, device=dev), torch.zeros(b_shape, device=dev))
+        except ValueError as e:
+            print(f"K4 refuses {a_shape} x {b_shape}: {e}")
+        else:
+            fail(f"K4 took {a_shape} x {b_shape}")
+    if k4.launches != before:
+        fail("a refused K4 call launched")
+
+    # both scans at the cells' shapes: the time-parallel cell's tropical
+    # matrices (512 tiles x 16 frames) and the soft cell's LOGPROB ones
+    # (128 tiles x 256 frames, log row-stochastic so the scans' values
+    # stay within a few tens of 0); the compose pairs of one call replayed
+    rows = []
+    for semiring, n, F, cell in (("tropical", 512, 16, "ccsds_tp_16x512k"),
+                                 ("logprob", 128, 256, "ccsds_soft_256x64k")):
+        sr = get_semiring(semiring)
+        S = 64
+        if semiring == "tropical":
+            m = torch.randn(n, F, S, S, generator=gen, device=dev) * 3
+        else:
+            logits = torch.randn(n, F, S, S, generator=gen, device=dev) * 2
+            keep = torch.rand(n, F, S, S, generator=gen, device=dev) < 0.5
+            keep[..., 0] = True
+            m = torch.log_softmax(logits.masked_fill(~keep, float("-inf")), dim=-1)
+            m = m.masked_fill(~keep, NEG)
+            del logits, keep
+        pairs = []
+
+        def recorded(flip):
+            def compose(a, b):
+                if flip:
+                    a, b = b, a
+                pairs.append((a, b))
+                return sr.matmul(a, b)
+            return compose
+
+        k4.launches = k4.logprob_launches = 0
+        prefix = tp.associative_scan(recorded(False), m)
+        suffix = tp.associative_scan(recorded(True), m, reverse=True)
+        torch.cuda.synchronize()
+        launches = (k4.launches, k4.logprob_launches)
+        want_n = 2 * scan_composes(n)
+        print(f"K4 at {cell}'s scans ({n} tiles x {F} frames, {semiring}): launches "
+              f"{launches}, the pairing tree's {want_n}")
+        if launches != (want_n, want_n if semiring == "logprob" else 0):
+            fail(f"the {cell} scans launched K4 {launches}, not {want_n}")
+        plain_prefix = tp.associative_scan(sr.matmul_plain, m)
+        plain_suffix = tp.associative_scan(lambda a, b: sr.matmul_plain(b, a), m,
+                                           reverse=True)
+        hold(f"prefix scan at {cell}'s shape", prefix, plain_prefix, semiring, quiet=False)
+        hold(f"suffix scan at {cell}'s shape", suffix, plain_suffix, semiring, quiet=False)
+        del prefix, suffix, plain_prefix, plain_suffix
+        pairs = [(a, b) for a, b in pairs if a.numel() and b.numel()]
+        products = sum(max(a.numel(), b.numel()) // (S * S) for a, b in pairs)
+        k4_ms = cuda_ms(lambda: [k4(a, b, semiring=semiring) for a, b in pairs], reps=3)
+        plain_ms = cuda_ms(lambda: [sr.matmul_plain(a, b) for a, b in pairs])
+        scans_ms = cuda_ms(lambda: (tp.associative_scan(tp._compose(torch.float32, sr), m),
+                                    tp.associative_scan(tp._compose(torch.float32, sr, True),
+                                                        m, reverse=True)), reps=3)
+        work = k4_work(S, products, semiring)
+        bound_ms = work.least_time_s() * 1e3
+        name = "K4" if semiring == "tropical" else "K4-LOGPROB"
+        print(f"time {name} over one call's two scans at {cell}'s shape ({len(pairs)} "
+              f"launches, {products} products of {S} x {S}): {k4_ms:.3f} ms; the two "
+              f"scans {scans_ms:.3f} ms; plain version {plain_ms:.3f} ms; bound "
+              f"{bound_ms:.3f} ms ({work.bound_by()}), {name} at "
+              f"{bound_ms / k4_ms:.2%} of it", flush=True)
+        rows.append({
+            "name": f"{name} semiring_compose",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/semiring_compose.cu",
+            "replaces": None,
+            "max_abs_err": errs[semiring],
+            "ms": k4_ms,
+            "shape": f"{cell}'s two scans: {n} tiles x {F} frames, {len(pairs)} "
+                     f"launches, {products} products",
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": work.bound_by(),
+            "library_ms": None,
+        })
+        del m, pairs
+    print(f"phase 9 (K4) took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
 def time_parallel_phase(decoder, llrs, gen, tables, w):
     """Phase 9: K3 against its plain version, the time-parallel
     decode_batch at the decode_512k_f16 shape, its stage times, the
-    underfill budget sweep and the auto-selection; returns K3's row of
-    the kernels line."""
+    underfill budget sweep and the auto-selection; returns (the time-parallel
+    decode's K4 launches, K3's row of the kernels line)."""
     from repro_torch.core import conv_encode_torch
     from repro_torch.core import timeparallel as tp
     from repro_torch.core.backend import device_underfill_rows
@@ -933,16 +1118,23 @@ def time_parallel_phase(decoder, llrs, gen, tables, w):
           f"{llrs_tp.numel() * 4 / 2**20:.0f} MiB; transfer tile {tt} steps, "
           f"{T // tt} tiles", flush=True)
 
-    k3.launches = k1.launches = 0
+    k4 = viterbi_acs.semiring_compose
+    k3.launches = k1.launches = k4.launches = k4.logprob_launches = 0
     bits, paths = dispatched(lambda: decoder.decode_batch(llrs_tp, time_parallel=True))
     k3_launches, k1_launches = k3.launches, k1.launches
+    k4_launches = (k4.launches, k4.logprob_launches)
+    k4_want = 2 * scan_composes(T // tt)
     print(f"decode_batch(time_parallel=True): dispatch {paths}; "
-          f"K3 launches {k3_launches}, K1 launches {k1_launches}")
+          f"K3 launches {k3_launches}, K1 launches {k1_launches}, K4 launches "
+          f"{k4_launches[0]} (the two scans' pairing trees: {k4_want})")
     if paths != {"time_parallel": 1}:
         fail(f"decode_batch(time_parallel=True) dispatched {paths}")
     if (k3_launches, k1_launches) != (1, 1):
         fail(f"the time-parallel decode launched K3 {k3_launches} and K1 "
              f"{k1_launches} times, not once each")
+    if k4_launches != (k4_want, 0):
+        fail(f"the time-parallel decode launched K4 {k4_launches}, not {k4_want} "
+             "tropical composes")
     if bits.shape != (F_TP, N_TP) or bits.device.type != "cuda":
         fail(f"time-parallel decode_batch returned {tuple(bits.shape)} on {bits.device}")
     errors = int((bits[:, :n_info] != info).sum())
@@ -1065,7 +1257,7 @@ def time_parallel_phase(decoder, llrs, gen, tables, w):
         fail(f"decode_64k dispatched {paths_64k}, not batch")
     print(f"phase 9 (timepar) took {time.perf_counter() - t_phase:.1f} s")
 
-    return {
+    return k4_launches[0], {
         "name": "K3 transfer_matrix",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/transfer_matrix.cu",
@@ -1128,9 +1320,9 @@ def logprob_case(label, got, want, steps, scale, n_llr, n_slots, renorm,
 def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w, sweep_err):
     """Phase 10: decode_soft at full width, K3-LOGPROB and K1-LOGPROB
     against their plain versions, the list decode and lte-tbcc; returns
-    the K1-LOGPROB and K3-LOGPROB rows of the kernels line (K1-LOGPROB's
-    error the larger of this phase's and ``sweep_err``, the shape
-    sweep's)."""
+    (decode_soft's K4-LOGPROB launches, the K1-LOGPROB and K3-LOGPROB rows
+    of the kernels line: K1-LOGPROB's error the larger of this phase's
+    and ``sweep_err``, the shape sweep's)."""
     import math
 
     from repro_torch.core import ViterbiDecoder, conv_encode_torch
@@ -1159,17 +1351,22 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w, sweep_err
           f"N={N} tiles", flush=True)
 
     # the main path: decode_soft(output="llr"), counts zeroed just before
-    for kernel in (k1, k3):
+    k4 = viterbi_acs.semiring_compose
+    for kernel in (k1, k3, k4):
         kernel.launches = kernel.logprob_launches = 0
     out, paths = dispatched(lambda: decoder.decode_soft(x))
     k3_launches, k3_all, k1_all = k3.logprob_launches, k3.launches, k1.launches
+    k4_launches, k4_want = (k4.launches, k4.logprob_launches), 2 * scan_composes(N)
     print(f"decode_soft(llr): dispatch {paths}; K3-LOGPROB launches "
-          f"{k3_launches} (K3 launches in all {k3_all}, K1 {k1_all})")
+          f"{k3_launches} (K3 launches in all {k3_all}, K1 {k1_all}); K4-LOGPROB "
+          f"launches {k4_launches[1]} (the two scans' pairing trees: {k4_want})")
     if paths != {"soft": 1}:
         fail(f"decode_soft dispatched {paths}")
     if (k3_launches, k3_all, k1_all) != (1, 1, 0):
         fail(f"decode_soft launched K3-LOGPROB {k3_launches} times (K3 {k3_all}, "
              f"K1 {k1_all}), not one K3-LOGPROB launch")
+    if k4_launches != (k4_want, k4_want):
+        fail(f"decode_soft launched K4 {k4_launches}, not {k4_want} LOGPROB composes")
     if out.shape != (F_SOFT, N_FULL) or out.dtype != torch.float32 \
             or not bool(torch.isfinite(out).all()):
         fail(f"decode_soft returned {tuple(out.shape)} {out.dtype}, or non-finite LLRs")
@@ -1373,15 +1570,20 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w, sweep_err
     coded = conv_encode_torch(torch.cat([msg[:, -(k - 1):], msg], dim=1), spec3)
     y = llr(awgn(gen, bpsk(coded[:, k - 1:]), EBN0_DB, spec3.rate),
             EBN0_DB, spec3.rate)
-    for kernel in (k1, k3):
+    for kernel in (k1, k3, k4):
         kernel.launches = kernel.logprob_launches = 0
     out3, paths = dispatched(lambda: tbd.decode_soft(y))
     tb_launches = k3.logprob_launches
+    tb_k4, tb_k4_want = k4.logprob_launches, 2 * scan_composes(N_TBCC // 2)
     print(f"lte-tbcc decode_soft: dispatch {paths}; K3-LOGPROB launches "
-          f"{tb_launches} (K3 {k3.launches}, K1 {k1.launches})")
+          f"{tb_launches} (K3 {k3.launches}, K1 {k1.launches}); K4-LOGPROB launches "
+          f"{tb_k4} (the circular BCJR's two scans over {N_TBCC // 2} steps: {tb_k4_want})")
     if paths != {"soft": 1} or (tb_launches, k3.launches, k1.launches) != (1, 1, 0):
         fail(f"lte-tbcc decode_soft dispatched {paths} with {tb_launches} "
              "K3-LOGPROB launches")
+    if (k4.launches, tb_k4) != (tb_k4_want, tb_k4_want):
+        fail(f"lte-tbcc decode_soft launched K4 ({k4.launches}, {tb_k4}), not "
+             f"{tb_k4_want} LOGPROB composes")
     if out3.shape != (F_TBCC, N_TBCC) or not bool(torch.isfinite(out3).all()):
         fail(f"lte-tbcc decode_soft returned {tuple(out3.shape)} or non-finite LLRs")
     err3 = int(((out3 < 0).to(msg.dtype) != msg).sum())
@@ -1411,7 +1613,7 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w, sweep_err
 
     shape = (f"decode_soft(llr): F={F_SOFT} x {N_FULL} stages, T={T} steps, "
              f"TT={tt}, N={N}")
-    return [{
+    return k4_launches[1], [{
         "name": "K1-LOGPROB acs_forward",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/acs_forward.cu",
@@ -4610,9 +4812,10 @@ def main() -> None:
     print(f"decode_chunk_multi: two sessions at positions 512 and 0 (steps) "
           f"emit what each emits alone, over 2 rounds (K2 launches {k2.launches})")
 
-    k3_row = time_parallel_phase(decoder, llrs, gen, tables, w)
-    logprob_rows = soft_phase(decoder, llrs, info, bits, quant, gen, tables, w,
-                              sweep_lp_err)
+    k4_row, k4_logprob_row = compose_phase(dev)
+    k4_row["launches"], k3_row = time_parallel_phase(decoder, llrs, gen, tables, w)
+    k4_logprob_row["launches"], logprob_rows = soft_phase(
+        decoder, llrs, info, bits, quant, gen, tables, w, sweep_lp_err)
     del llrs, quant, bits, info
     codes_launches, codes_err = codes_phase(dev)
     serve_launches, serve_err = serve_phase(dev)
@@ -4639,7 +4842,7 @@ def main() -> None:
         "bound_ms": k2_bound,
         "bound_by": k2_bound_by,
         "library_ms": None,
-    }, k3_row, *logprob_rows]
+    }, k3_row, *logprob_rows, k4_row, k4_logprob_row]
     # each kernel's launches on phase 11's paths, each its own main run,
     # on phase 12's routes in its clean run and on phase 13's launcher
     # runs, and its largest error there against its plain version

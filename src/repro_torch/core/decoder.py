@@ -202,9 +202,11 @@ class ViterbiDecoder:
     """One front door per (code, radix, precision, device).
 
     The fused-ACS tables are built once at construction.  ``use_kernel``
-    (default True) runs the forward pass in K1 — the CUDA kernel on the
-    card, its plain version on the CPU; ``use_kernel=False`` runs the
-    plain scan with ``split_dot`` honoured.  ``one_pass`` (default:
+    (default True) runs the forward pass in K1 (and the time-parallel and
+    soft paths' formation in K3, their scans' compose in K4) — the CUDA
+    kernel on the card, its plain version on the CPU; ``use_kernel=False``
+    runs the plain versions directly, the scan with ``split_dot``
+    honoured.  ``one_pass`` (default:
     ``use_kernel``) sends streaming chunks and tiled windows through K2
     where the one-pass rule admits them; ``time_tile`` and
     ``block_frames`` are that rule's inputs, as in the reference.

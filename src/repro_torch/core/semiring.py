@@ -33,9 +33,9 @@ __all__ = [
 # arithmetic NaN-free (the reference's value, as an f32)
 NEG = -1.0e9
 
-# cap on the broadcast temporary of one ``Semiring.matmul`` chunk: the
-# reference materialises (batch, n, k, m) at once, which at a long
-# time-parallel stream is gigabytes
+# cap on the broadcast temporary of one chunk of the plain compose
+# (``Semiring.matmul_plain``): the reference materialises (batch, n, k, m)
+# at once, which at a long time-parallel stream is gigabytes
 COMPOSE_TEMP_BYTES = 256 * 2**20
 
 # the semirings' names, also the kernels' selectors; ``_BY_NAME`` is built from them
@@ -87,14 +87,36 @@ class Semiring:
         a: torch.Tensor,
         b: torch.Tensor,
         matmul_dtype: torch.dtype = torch.float32,
+        use_kernel: bool = True,
     ) -> torch.Tensor:
         """Semiring compose  C[..., i, j] = sum_k A[..., i, k] * B[..., k, j].
 
         Operands are quantised to ``matmul_dtype`` and the sums taken in
-        f32, as in the reference.  The batch is worked through in chunks
-        whose (chunk, n, k, m) temporary stays under ``COMPOSE_TEMP_BYTES``;
-        every output is a reduction over its own elementwise sums, which
-        no chunk shares, so the chunking leaves every value unchanged.
+        f32, as in the reference.  ``use_kernel`` (default) composes in K4
+        (``kernels.viterbi_acs.semiring_compose``: square operands of at
+        most 64 states) — the CUDA kernel on the card, its plain version
+        on the CPU; ``use_kernel=False`` runs ``matmul_plain`` directly,
+        on any device and at any shape.
+        """
+        if use_kernel:
+            from repro_torch.kernels.viterbi_acs import semiring_compose
+
+            return semiring_compose(
+                a, b, semiring=self.name, matmul_dtype=matmul_dtype)
+        return self.matmul_plain(a, b, matmul_dtype)
+
+    def matmul_plain(
+        self,
+        a: torch.Tensor,
+        b: torch.Tensor,
+        matmul_dtype: torch.dtype = torch.float32,
+    ) -> torch.Tensor:
+        """The plain version of ``matmul`` (K4's, on either device): the
+        (batch, n, k, m) sums broadcast and reduced, the batch worked
+        through in chunks whose temporary stays under
+        ``COMPOSE_TEMP_BYTES``; every output is a reduction over its own
+        elementwise sums, which no chunk shares, so the chunking leaves
+        every value unchanged.
         """
         a = a.to(matmul_dtype).to(torch.float32)
         b = b.to(matmul_dtype).to(torch.float32)

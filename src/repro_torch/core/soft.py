@@ -195,10 +195,11 @@ def _bcjr_joints(
         semiring=LOGPROB,
     )  # (N, F, S, S)
     mm = precision.matmul_dtype
-    prefix = associative_scan(_compose(mm, LOGPROB), m)
+    prefix = associative_scan(_compose(mm, LOGPROB, use_kernel=use_kernel), m)
     entry = entry_from_prefix(prefix, lam0, LOGPROB)  # (N, F, S) tile alphas
     del prefix
-    suffix = associative_scan(_compose(mm, LOGPROB, flip=True), m, reverse=True)
+    suffix = associative_scan(
+        _compose(mm, LOGPROB, flip=True, use_kernel=use_kernel), m, reverse=True)
     # beta at the start of tile p: suffix_p composed into the end metric
     beta_start = LOGPROB.sum(suffix + beta_end[None, :, None, :], dim=-1)
     del suffix, m
@@ -232,8 +233,9 @@ def bcjr_llrs(
 
     Positive = bit 0 more likely (the hard decision is ``llr < 0``, the
     convention of the channel LLRs).  ``use_kernel`` (default) forms the
-    tile transfer matrices in K3-LOGPROB (its plain version on the CPU);
-    ``use_kernel=False`` runs the plain formation directly.
+    tile transfer matrices in K3-LOGPROB and composes them in K4-LOGPROB
+    (their plain versions on the CPU); ``use_kernel=False`` runs the
+    plain versions directly.
     """
     dev = resolve_device(device)
     llrs = torch.as_tensor(llrs, device=dev).to(torch.float32)
@@ -280,8 +282,9 @@ def _bcjr_circular_joints(
         semiring=LOGPROB,
     )  # (T', F, S, S) per-stage matrices
     mm = precision.matmul_dtype
-    prefix = associative_scan(_compose(mm, LOGPROB), a)
-    suffix = associative_scan(_compose(mm, LOGPROB, flip=True), a, reverse=True)
+    prefix = associative_scan(_compose(mm, LOGPROB, use_kernel=use_kernel), a)
+    suffix = associative_scan(
+        _compose(mm, LOGPROB, flip=True, use_kernel=use_kernel), a, reverse=True)
     del a
     ident = LOGPROB.identity(S, device=blocks.device).expand(1, F, S, S)
     suffix_next = torch.cat([suffix[1:], ident], dim=0)
@@ -299,7 +302,8 @@ def bcjr_circular_llrs(
 ) -> torch.Tensor:
     """Per-bit LLRs (F, n) f32 of the exact tail-biting posterior, on
     ``device`` (None is the card).  ``use_kernel`` forms the per-stage
-    matrices in K3-LOGPROB at one step a tile."""
+    matrices in K3-LOGPROB at one step a tile and composes them in
+    K4-LOGPROB."""
     dev = resolve_device(device)
     llrs = torch.as_tensor(llrs, device=dev).to(torch.float32)
     if llrs.shape[1] % tables.rho:

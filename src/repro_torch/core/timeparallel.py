@@ -10,7 +10,9 @@ so the transfer matrices of whole tiles of steps compose in any order:
      folded into the rows, in K3 (``kernels.viterbi_acs.transfer_matrix``)
      or its plain version;
   2. **prefix scan**: every tile's entry metric in O(log2 N) compose
-     depth, through ``associative_scan`` over the tropical matmul;
+     depth, through ``associative_scan`` over the tropical matmul (K4,
+     ``kernels.viterbi_acs.semiring_compose``, on the card; its plain
+     version on the CPU);
   3. **recovery**: K1 re-runs every tile at once (tiles folded into the
      frame axis) from its entry metric, writing the survivors;
   4. **traceback**: a reverse scan gives each tile's best metric to the
@@ -91,12 +93,13 @@ def _scan(fn, x: torch.Tensor) -> torch.Tensor:
 
 
 def tropical_matmul(
-    a: torch.Tensor, b: torch.Tensor, matmul_dtype=torch.float32
+    a: torch.Tensor, b: torch.Tensor, matmul_dtype=torch.float32,
+    use_kernel: bool = True,
 ) -> torch.Tensor:
     """Max-plus compose  C[..., i, j] = max_k A[..., i, k] + B[..., k, j],
     operands quantised to ``matmul_dtype``, sums in f32
-    (``Semiring.matmul`` at TROPICAL)."""
-    return TROPICAL.matmul(a, b, matmul_dtype)
+    (``Semiring.matmul`` at TROPICAL, K4 unless ``use_kernel=False``)."""
+    return TROPICAL.matmul(a, b, matmul_dtype, use_kernel)
 
 
 def tropical_identity(n_states: int, device=None) -> torch.Tensor:
@@ -156,13 +159,20 @@ def transfer_matrices(
     )
 
 
-def _compose(matmul_dtype, semiring: Semiring = TROPICAL, flip: bool = False):
-    """The semiring matmul as a scan operator.  A reverse scan hands the
-    later element in as the left operand, so ``flip`` swaps the operands
-    to keep the products in stream order."""
+def _compose(
+    matmul_dtype,
+    semiring: Semiring = TROPICAL,
+    flip: bool = False,
+    use_kernel: bool = True,
+):
+    """The semiring matmul as a scan operator, in K4 unless
+    ``use_kernel=False``.  A reverse scan hands the later element in as
+    the left operand, so ``flip`` swaps the operands to keep the products
+    in stream order."""
     if flip:
-        return lambda a, b: semiring.matmul(b, a, matmul_dtype=matmul_dtype)
-    return functools.partial(semiring.matmul, matmul_dtype=matmul_dtype)
+        return lambda a, b: semiring.matmul(b, a, matmul_dtype, use_kernel)
+    return functools.partial(
+        semiring.matmul, matmul_dtype=matmul_dtype, use_kernel=use_kernel)
 
 
 def prefix_entry_metrics(
@@ -170,11 +180,14 @@ def prefix_entry_metrics(
     lam0: torch.Tensor,  # (F, S) stream-entry metrics
     matmul_dtype=torch.float32,
     semiring: Semiring = TROPICAL,
+    use_kernel: bool = True,
 ) -> torch.Tensor:
     """Entry metric of every tile, (N, F, S): entry_0 = lam0 and
     entry_p = lam0 (x) (M_0 o ... o M_{p-1}), through one
-    ``associative_scan`` of the semiring matmul."""
-    prefix = associative_scan(_compose(matmul_dtype, semiring), m)
+    ``associative_scan`` of the semiring matmul (K4 unless
+    ``use_kernel=False``)."""
+    prefix = associative_scan(
+        _compose(matmul_dtype, semiring, use_kernel=use_kernel), m)
     return entry_from_prefix(prefix, lam0, semiring)
 
 
@@ -192,12 +205,14 @@ def _suffix_to_final(
     m: torch.Tensor,  # (N, F, S, S)
     final_state: torch.Tensor,  # (F,) traceback start state
     matmul_dtype=torch.float32,
+    use_kernel: bool = True,
 ) -> torch.Tensor:
     """v (N, F, S): best metric from state s at the start of tile p to
     ``final_state`` at the stream end — the reverse scan of the same
     matmul, flipped, at the final state's column:
     suffix_p = M_p o ... o M_{N-1}."""
-    suffix = associative_scan(_compose(matmul_dtype, flip=True), m, reverse=True)
+    suffix = associative_scan(
+        _compose(matmul_dtype, flip=True, use_kernel=use_kernel), m, reverse=True)
     idx = final_state.to(device=m.device, dtype=torch.int64)
     idx = idx[None, :, None, None].expand(*suffix.shape[:-1], 1)
     return suffix.gather(-1, idx)[..., 0]
@@ -218,7 +233,8 @@ def transfer_prefix(
         blocks, tables, precision, transfer_tile, use_kernel=use_kernel,
         semiring=semiring,
     )
-    return associative_scan(_compose(precision.matmul_dtype, semiring), m)
+    return associative_scan(
+        _compose(precision.matmul_dtype, semiring, use_kernel=use_kernel), m)
 
 
 def _recovery(
@@ -262,7 +278,8 @@ def _formation_and_recovery(
     m = transfer_matrices(
         blocks, tables, precision, transfer_tile, use_kernel=use_kernel
     )
-    entry = prefix_entry_metrics(m, lam0, precision.matmul_dtype)
+    entry = prefix_entry_metrics(
+        m, lam0, precision.matmul_dtype, use_kernel=use_kernel)
     lam_fin, phis = _recovery(
         blocks, entry, tables, precision, transfer_tile, use_kernel,
         pack_survivors,
@@ -328,7 +345,7 @@ def _decode_tp(
     # pin the survivor path's state at every tile boundary at once:
     # through state s at the start of tile p, the best full path scores
     # entry_p[s] + (best s -> final_state over the remaining tiles)
-    v = _suffix_to_final(m, fs, precision.matmul_dtype)
+    v = _suffix_to_final(m, fs, precision.matmul_dtype, use_kernel)
     starts = (entry + v).argmax(dim=-1)  # (N, F)
     exits = torch.cat([starts[1:], fs[None]], dim=0)
     bits = traceback(phis, exits.reshape(n_tiles * F), tables)
@@ -352,8 +369,8 @@ def decode_time_parallel(
     """Time-parallel ``decode_frames``: llrs (F, n, beta) -> bits (F, n)
     int32, n divisible by rho, on ``device`` (None is the card).  Same
     contract and survivors as the sequential path, sequential depth
-    O(tile + log2 tiles).  ``use_kernel`` runs the formation in K3 and
-    the recovery in K1."""
+    O(tile + log2 tiles).  ``use_kernel`` runs the formation in K3, the
+    scans' compose in K4 and the recovery in K1."""
     dev = resolve_device(device)
     llrs = torch.as_tensor(llrs, device=dev).to(torch.float32)
     tables = build_acs_tables(spec, rho)

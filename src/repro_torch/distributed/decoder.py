@@ -290,7 +290,7 @@ def sharded_decode_time_parallel(
     home = mesh.devices[0]
 
     def compose(a, b):
-        return tp.tropical_matmul(a, b, mm)
+        return tp.tropical_matmul(a, b, mm, use_kernel)
 
     def span(i):
         return blocks[i * t_loc:(i + 1) * t_loc].to(mesh.devices[i])

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper, one per Pallas TPU kernel of the
-reference, each with its plain PyTorch version.
+reference and K4 for the scans' compose, each with its plain PyTorch
+version.
 
 Layout: ``csrc/`` (CUDA C++ sources, built with ``nvcc`` at first use),
 ``<name>.py`` (build, binding and the wrapper that launches the kernel),
@@ -14,5 +15,6 @@ from .ops import (  # noqa: F401
 from .viterbi_acs import (  # noqa: F401
     acs_decode_fused,
     acs_forward,
+    semiring_compose,
     transfer_matrix,
 )

@@ -1,5 +1,6 @@
 """K1, K2 and K3 — the kernels of the reference, hand-written in CUDA for
-Hopper.
+Hopper — and K4, the compose of the scans, which the reference leaves to
+XLA.
 
   * K1, ``acs_forward`` (``csrc/acs_forward.cu``), replaces
     ``acs_forward_pallas`` (body ``_acs_kernel``) of the reference's
@@ -11,11 +12,16 @@ Hopper.
   * K3, ``transfer_matrix`` (``csrc/transfer_matrix.cu``), replaces
     ``transfer_matrix_pallas`` (body ``_transfer_kernel``): the per-tile
     transfer matrices of the time-parallel decode and of the BCJR.
+  * K4, ``semiring_compose`` (``csrc/semiring_compose.cu``), replaces no
+    Pallas kernel: the semiring product of (S x S) matrices that
+    ``Semiring.matmul`` runs at every level of ``associative_scan``,
+    where the reference broadcasts and reduces.
 
-All three share the ACS step of ``csrc/acs_step.cuh``; each source's header
+K1-K3 share the ACS step of ``csrc/acs_step.cuh``; each source's header
 comment gives its design and what bounds it on an H100.  K1 and K3 take
 ``semiring``, as the reference's kernels do: ``"tropical"`` (the slot
-max) or ``"logprob"`` (the max-normalised logsumexp of the BCJR).
+max) or ``"logprob"`` (the max-normalised logsumexp of the BCJR), and so
+does K4.
 ``launches`` counts every launch of a kernel, ``logprob_launches``
 those of its LOGPROB variant.
 
@@ -62,6 +68,7 @@ import torch
 
 from repro_torch.core.backend import is_hopper
 from repro_torch.core.kernel_geometry import (
+    K3_MAX_STATES,
     SLOT_BITS,
     SMEM_LIMIT_BYTES,
     check_packable,
@@ -76,18 +83,19 @@ from repro_torch.core.kernel_geometry import (
     ring_dtype,
     ring_words,
 )
-from repro_torch.core.semiring import check_semiring
+from repro_torch.core.semiring import check_semiring, get_semiring
 
 from .ref import acs_decode_fused_ref, acs_forward_ref, transfer_matrix_ref
 
 __all__ = [
-    "acs_forward", "acs_decode_fused", "transfer_matrix", "build", "bind",
+    "acs_forward", "acs_decode_fused", "transfer_matrix", "semiring_compose",
+    "build", "bind",
     "gather_operands", "GatherOperands", "KernelError", "KernelRefusal", "SMEM_LIMIT_BYTES",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # one shared library per kernel, each built from its own source
-KERNELS = ("acs_forward", "acs_decode_fused", "transfer_matrix")
+KERNELS = ("acs_forward", "acs_decode_fused", "transfer_matrix", "semiring_compose")
 _HEADERS = (_CSRC / "acs_step.cuh",)
 # the checkout's build/ directory (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
@@ -238,6 +246,13 @@ def bind(path: Path, name: str) -> ctypes.CDLL:
         lib.acs_decode_fused_launch.restype = ctypes.c_int
         lib.acs_decode_fused_blocks_per_sm.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong]
         lib.acs_decode_fused_blocks_per_sm.restype = ctypes.c_int
+    elif name == "semiring_compose":
+        operand = [ctypes.c_void_p] + [ctypes.c_longlong] * 3
+        lib.semiring_compose_launch.argtypes = (
+            operand * 2 + [ctypes.c_void_p, ctypes.c_longlong]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        )
+        lib.semiring_compose_launch.restype = ctypes.c_int
     else:
         lib.transfer_matrix_launch.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
@@ -682,3 +697,120 @@ def _launch_k3(blocks, w, *, operands, **kw):
     _raise_on(lib, "transfer_matrix", err)
     _count_launch(transfer_matrix, semiring)
     return m
+
+
+def semiring_compose(
+    a: torch.Tensor,  # (..., S, S)
+    b: torch.Tensor,  # (..., S, S), the batch broadcast against a's
+    *,
+    semiring: str = "tropical",
+    matmul_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """The semiring product C = A (x) B of square (S, S) matrices over a
+    broadcast batch, f32: ``Semiring.matmul``.  Operands are quantised to
+    ``matmul_dtype`` and the sums taken in f32.  Non-square or mismatched
+    operands, or more than ``K3_MAX_STATES`` (64) states (every matrix
+    K3 forms fits), raise ``ValueError``
+    on both devices.  On CUDA tensors this launches K4 over the whole
+    batch (operands strided along their batch, as ``associative_scan``'s
+    views are, are read where they lie) and adds one to
+    ``semiring_compose.launches`` (and, at LOGPROB, to
+    ``semiring_compose.logprob_launches``); an empty batch launches
+    nothing.  On CPU tensors it runs the plain version,
+    ``Semiring.matmul_plain``.
+    """
+    check_semiring(semiring)
+    dev = _one_device("semiring_compose", a, b)
+    S = _k4_states(a, b)
+    if dev.type == "cpu":
+        return get_semiring(semiring).matmul_plain(a, b, matmul_dtype)
+    return _launch_k4(a, b, S, semiring=semiring, matmul_dtype=matmul_dtype)
+
+
+semiring_compose.launches = 0  # K4 launches in this process (set to 0 to count a run)
+semiring_compose.logprob_launches = 0  # of which K4-LOGPROB
+
+
+def _k4_states(a: torch.Tensor, b: torch.Tensor) -> int:
+    """K4's checks on both devices: S of two square (S, S) operands."""
+    if a.dim() < 2 or b.dim() < 2:
+        raise ValueError(
+            "semiring_compose: operands must be (..., S, S), got "
+            f"{tuple(a.shape)} and {tuple(b.shape)}")
+    S = a.shape[-1]
+    if a.shape[-2] != S or tuple(b.shape[-2:]) != (S, S) or S == 0:
+        raise ValueError(
+            "semiring_compose: operands must be square matrices of one size, "
+            f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    if S > K3_MAX_STATES:
+        raise ValueError(
+            f"semiring_compose: {S} states do not fit (at most {K3_MAX_STATES})")
+    return S
+
+
+def _k4_levels(x: torch.Tensor):
+    """The flattened batch of x (..., S, S) as (inner, inner stride, outer
+    stride): matrix b at (b // inner) * outer + (b % inner) * inner floats,
+    or None where x's rows are not contiguous, its batch takes more than
+    two levels of strides, or K4's 16-byte loads would be misaligned."""
+    S = x.shape[-1]
+    if S > 1 and (x.stride(-1) != 1 or x.stride(-2) != S):
+        return None
+    levels = []  # (size, stride), innermost first; merged where they chain
+    for size, stride in zip(reversed(x.shape[:-2]), reversed(x.stride()[:-2])):
+        if size == 1:
+            continue
+        if levels and stride == levels[-1][0] * levels[-1][1]:
+            levels[-1] = (levels[-1][0] * size, levels[-1][1])
+        else:
+            levels.append((size, stride))
+    if len(levels) > 2:
+        return None
+    if S % 4 == 0 and (x.data_ptr() % 16 or any(st % 4 for _, st in levels)):
+        return None
+    (inner, inner_stride), (_, outer_stride) = levels + [(1, 0)] * (2 - len(levels))
+    return inner, inner_stride, outer_stride
+
+
+def _k4_operand(x: torch.Tensor, batch) -> tuple:
+    """(tensor, inner, inner stride, outer stride) of x broadcast to
+    ``batch``: x's own storage where ``_k4_levels`` takes it, else a
+    contiguous copy."""
+    if x.shape[:-2] != batch:
+        x = x.expand(*batch, *x.shape[-2:])
+    levels = _k4_levels(x)
+    if levels is None:
+        x = x.clone(memory_format=torch.contiguous_format)
+        levels = _k4_levels(x)
+    return (x, *levels)
+
+
+@_card_errors
+def _launch_k4(a, b, S, *, semiring, matmul_dtype):
+    dev = a.device
+    _check_card(dev, "K4")
+    if S & (S - 1):
+        raise ValueError(f"semiring_compose: K4 takes S a power of two, got {S}")
+    f32 = torch.float32
+    if (a.dtype, b.dtype, matmul_dtype) != (f32, f32, f32):
+        a, b = (x.to(matmul_dtype).to(f32) for x in (a, b))
+    # the scans' operands share one batch shape; broadcast_shapes costs
+    # more host time than the launch
+    batch = a.shape[:-2]
+    if b.shape[:-2] != batch:
+        batch = torch.broadcast_shapes(batch, b.shape[:-2])
+    out = torch.empty((*batch, S, S), dtype=f32, device=dev)
+    n = out.numel() // (S * S)
+    if n == 0:
+        return out
+    xa, *la = _k4_operand(a, batch)
+    xb, *lb = _k4_operand(b, batch)
+    lib = _library("semiring_compose")
+    err = lib.semiring_compose_launch(
+        xa.data_ptr(), *la, xb.data_ptr(), *lb, out.data_ptr(), n, S,
+        _SEMIRING_CODES[semiring], _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, "semiring_compose", err)
+    _count_launch(semiring_compose, semiring)
+    return out

@@ -282,7 +282,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize(
-    "name", ["acs_forward", "acs_decode_fused", "transfer_matrix"]
+    "name", ["acs_forward", "acs_decode_fused", "transfer_matrix", "semiring_compose"]
 )
 def test_every_kernel_build_raises_without_nvcc(monkeypatch, tmp_path, name):
     from repro_torch.kernels import viterbi_acs

@@ -1249,3 +1249,369 @@ def test_logprob_variants_build_without_fast_math():
     assert "__expf" not in code and "__logf" not in code
     assert re.search(r"kTropical = 0, kLogprob = 1", code)
     assert viterbi_acs._SEMIRING_CODES == {"tropical": 0, "logprob": 1}
+
+
+# -- K4: the semiring compose of the scans --------------------------------
+
+def _compose_operands(S, n, F, seed):
+    """``associative_scan``'s three dim-0-strided operand views of an
+    (n, F, S, S) stack of Gaussian matrices with NEG rows, NEG columns and
+    NEG-shifted entries, as the scans' transfer matrices have them."""
+    from repro_torch.core.semiring import NEG
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.normal(0.0, 3.0, (n, F, S, S))).astype(np.float32))
+    x[:, :, 0, :] = NEG
+    x[:, :, :, -1] = NEG + x[:, :, :, -1]
+    return x[0:-1:2], x[1::2], x[2::2]
+
+
+def scan_composes(n):
+    """``chip_smoke.scan_composes``: the non-empty composes (K4 launches)
+    of one ``associative_scan`` over n elements."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.scan_composes(n)
+
+
+@pytest.mark.parametrize("semiring", ["tropical", "logprob"])
+@pytest.mark.parametrize("mm", DT, ids=["mmf32", "mmbf16"])
+@pytest.mark.parametrize("S,n,F", [(4, 9, 3), (16, 5, 1), (64, 3, 2), (64, 1, 5),
+                                   (8, 2, 7), (2, 7, 0)],
+                         ids=["S4", "S16-batch2", "S64", "S64-batch0",
+                              "S8-batch7", "S2-empty"])
+def test_k4_plain_is_the_semiring_matmul(S, n, F, mm, semiring):
+    """On CPU tensors ``semiring_compose`` (and so ``Semiring.matmul``)
+    runs the plain version, ``Semiring.matmul_plain``, bit for bit and
+    launching nothing, and matches the reference's semiring matmul: bit
+    for bit at TROPICAL, at LOGPROB reachable where it is and within
+    1e-4 there, on the scans' strided views, broadcast operands and
+    batches of 0, 1 and odd sizes, at both matmul dtypes."""
+    import jax.numpy as jnp
+    from repro.core.semiring import get_semiring as ref_semiring
+
+    from repro_torch.core.semiring import get_semiring
+    from repro_torch.kernels import semiring_compose
+
+    mm_t, mm_j = {"f32": (torch.float32, jnp.float32),
+                  "bf16": (torch.bfloat16, jnp.bfloat16)}[mm]
+    sr, ref = get_semiring(semiring), ref_semiring(semiring)
+    x0, x1, x2 = _compose_operands(S, n, F, 7 * S + n)
+    pairs = [(x0, x1), (x1[: len(x2)], x2), (x0[:1], x2[:1]),
+             (x2, torch.eye(S).expand(F, S, S))]
+    before = (semiring_compose.launches, semiring_compose.logprob_launches)
+    for a, b in pairs:
+        got = semiring_compose(a, b, semiring=semiring, matmul_dtype=mm_t)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, sr.matmul_plain(a, b, mm_t))
+        assert torch.equal(sr.matmul(a, b, mm_t), got)
+        want = np.asarray(ref.matmul(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()), mm_j))
+        got = got.numpy()
+        assert got.shape == want.shape
+        if semiring == "tropical":
+            np.testing.assert_array_equal(got, want)
+        else:
+            reach = want > -1e8
+            np.testing.assert_array_equal(got > -1e8, reach)
+            np.testing.assert_allclose(got[reach], want[reach], atol=1e-4, rtol=0)
+    assert (semiring_compose.launches, semiring_compose.logprob_launches) == before
+
+
+@pytest.mark.parametrize("a_shape,b_shape,match", [
+    ((2, 65, 65), (2, 65, 65), "do not fit"),
+    ((2, 128, 128), (128, 128), "do not fit"),
+    ((2, 4, 5), (2, 5, 5), "square"),
+    ((2, 4, 4), (2, 8, 8), "square"),
+    ((4, 4), (4, 5), "square"),
+    ((4,), (4, 4), r"\(\.\.\., S, S\)"),
+    ((0, 0), (0, 0), "square"),
+], ids=["S65", "S128", "non-square-a", "mismatched", "non-square-b", "vector", "S0"])
+def test_k4_refuses_what_it_cannot_hold(a_shape, b_shape, match):
+    """More than 64 states, non-square or mismatched operands raise
+    ValueError before anything runs, at both semirings (on the card too:
+    ``test_cuda_k4_matches_plain``); an unknown semiring raises."""
+    from repro_torch.kernels import semiring_compose
+
+    for semiring in ("tropical", "logprob"):
+        with pytest.raises(ValueError, match=match):
+            semiring_compose(torch.zeros(a_shape), torch.zeros(b_shape),
+                             semiring=semiring)
+    with pytest.raises(ValueError, match="unknown semiring"):
+        semiring_compose(torch.zeros(4, 4), torch.zeros(4, 4), semiring="maxplus")
+
+
+def test_k4_refuses_other_devices():
+    from repro_torch.kernels import semiring_compose
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        semiring_compose(torch.zeros(2, 4, 4, device="meta"),
+                         torch.zeros(2, 4, 4, device="meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        semiring_compose(torch.zeros(2, 4, 4, device="meta"), torch.zeros(2, 4, 4))
+
+
+def test_k4_reads_the_scans_views_where_they_lie():
+    """The operand levels K4 is given: ``associative_scan``'s strided
+    views and a broadcast identity are read in place (one or two levels
+    of strides, no copy); a transposed or misaligned operand, or a batch
+    of three levels, is copied to a contiguous one first."""
+    from repro_torch.kernels.viterbi_acs import _k4_levels, _k4_operand
+
+    x = torch.zeros(9, 3, 64, 64)
+    S2 = 64 * 64
+    assert _k4_levels(x) == (27, S2, 0)
+    assert _k4_levels(x[0:-1:2]) == (3, S2, 6 * S2)
+    assert _k4_levels(x[1::2]) == (3, S2, 6 * S2)
+    assert _k4_levels(x[2::2]) == (3, S2, 6 * S2)
+    assert _k4_levels(torch.eye(64).expand(3, 64, 64)) == (3, 0, 0)
+    assert _k4_levels(x[0, 0]) == (1, 0, 0)
+    for view in (x[1::2], torch.eye(64).expand(4, 3, 64, 64)):
+        got, *levels = _k4_operand(view, view.shape[:-2])
+        assert got.data_ptr() == view.data_ptr() and levels == list(_k4_levels(view))
+    odd = torch.zeros(2 * S2 + 1)[1:].view(2, 64, 64)  # 4 bytes past a 16-byte line
+    for view in (x.transpose(-1, -2), odd, x[::2, ::2, None].expand(5, 2, 2, 64, 64)):
+        assert _k4_levels(view) is None
+        got, *levels = _k4_operand(view, view.shape[:-2])
+        assert got.is_contiguous() and torch.equal(got, view)
+        assert levels == [got.numel() // S2, S2, 0]
+    assert _k4_levels(torch.zeros(5, 3, 3)[1:]) == (4, 9, 0)  # no vector loads at S = 3
+
+
+def _scan_paths():
+    """Each path of the port that scans, as run(use_kernel) -> its output
+    on the CPU, with the semiring its scans compose in."""
+    from repro_torch.codes import get_code
+    from repro_torch.codes.tailbiting import wava_decode
+    from repro_torch.core import build_acs_tables
+    from repro_torch.core.soft import bcjr_circular_llrs, bcjr_llrs
+    from repro_torch.core.timeparallel import decode_time_parallel
+    from repro_torch.distributed.decoder import (
+        frame_mesh, sharded_decode_time_parallel)
+
+    spec = get_code("ccsds-k7").spec
+    tables = build_acs_tables(spec, 2)
+    llrs = torch.from_numpy(
+        np.random.default_rng(5).normal(1.0, 2.0, (3, 256, 2)).astype(np.float32))
+    return {
+        "time_parallel": ("tropical", lambda uk: decode_time_parallel(
+            llrs, spec, transfer_tile=8, use_kernel=uk, device="cpu")),
+        "sharded": ("tropical", lambda uk: sharded_decode_time_parallel(
+            llrs, spec, mesh=frame_mesh(2, axis="tiles", device="cpu"),
+            transfer_tile=8, use_kernel=uk)),
+        "wava": ("tropical", lambda uk: wava_decode(
+            llrs, tables, use_kernel=uk, time_parallel=True, transfer_tile=8,
+            device="cpu")[0]),
+        "bcjr": ("logprob", lambda uk: bcjr_llrs(
+            llrs, spec, transfer_tile=8, use_kernel=uk, device="cpu")),
+        "bcjr_circular": ("logprob", lambda uk: bcjr_circular_llrs(
+            llrs[:, :32], tables, use_kernel=uk, device="cpu")),
+    }
+
+
+@pytest.mark.parametrize(
+    "path", ["time_parallel", "sharded", "wava", "bcjr", "bcjr_circular"])
+def test_scans_compose_in_k4_unless_use_kernel_false(path, monkeypatch):
+    """``use_kernel`` selects the scans' compose as it selects K1 and K3:
+    True composes through ``semiring_compose`` (K4 on the card), False
+    runs ``Semiring.matmul_plain`` and never reaches the wrapper, so it
+    takes any device and any S; on the CPU both give the same output."""
+    from repro_torch.kernels import viterbi_acs
+
+    real = viterbi_acs.semiring_compose
+    calls = []
+
+    def spy(a, b, *, semiring="tropical", matmul_dtype=torch.float32):
+        calls.append(semiring)
+        return real(a, b, semiring=semiring, matmul_dtype=matmul_dtype)
+
+    monkeypatch.setattr(viterbi_acs, "semiring_compose", spy)
+    semiring, run = _scan_paths()[path]
+    on = run(True)
+    assert calls and set(calls) == {semiring}
+    calls.clear()
+    off = run(False)
+    assert not calls
+    assert torch.equal(on, off)
+
+
+def test_plain_scans_take_more_than_64_states(monkeypatch):
+    """At 128 states (k = 8), beyond K3 and K4, ``use_kernel=False`` runs
+    the time-parallel decode and the BCJR in plain PyTorch, with no call
+    of K4's wrapper, and decodes noiseless frames; ``use_kernel=True``
+    refuses before anything runs."""
+    from repro_torch.core import CodeSpec, conv_encode
+    from repro_torch.core.soft import bcjr_llrs
+    from repro_torch.core.timeparallel import decode_time_parallel
+    from repro_torch.kernels import viterbi_acs
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("use_kernel=False reached semiring_compose")
+
+    spec = CodeSpec(8, (0o247, 0o371))
+    msg = np.random.default_rng(8).integers(0, 2, (2, 64))
+    msg[:, -7:] = 0
+    coded = np.stack([conv_encode(m, spec) for m in msg])  # (2, 64, 2)
+    llrs = torch.from_numpy((4.0 * (1 - 2 * coded)).astype(np.float32))
+    with pytest.raises(ValueError, match="128 states do not fit"):
+        decode_time_parallel(llrs, spec, transfer_tile=8, device="cpu")
+    monkeypatch.setattr(viterbi_acs, "semiring_compose", refuse)
+    bits = decode_time_parallel(llrs, spec, transfer_tile=8, use_kernel=False,
+                                device="cpu")
+    assert np.array_equal(bits.numpy(), msg)
+    soft = bcjr_llrs(llrs, spec, transfer_tile=8, use_kernel=False, device="cpu")
+    assert np.array_equal((soft < 0).numpy().astype(msg.dtype), msg)
+
+
+@pytest.mark.parametrize("n,want", [(0, 0), (1, 0), (2, 1), (3, 2), (4, 3), (5, 3),
+                                    (128, 13), (512, 17)])
+def test_scan_composes_counts_the_pairing_tree(n, want):
+    """The launch counts the card tests and ``chip_smoke.py`` hold K4 to:
+    the number of non-empty composes of an ``associative_scan`` over n,
+    as a compose that counts its calls sees them."""
+    from repro_torch.core.timeparallel import associative_scan
+
+    assert scan_composes(n) == want
+    calls = []
+
+    def compose(a, b):
+        calls.append(a.shape[0])
+        return a + b
+
+    associative_scan(compose, torch.zeros(n, 1))
+    assert sum(1 for c in calls if c) == want
+
+
+def test_k4_source_uses_accurate_expf_and_logf():
+    """K4-LOGPROB takes the accurate expf and logf (no intrinsics, no
+    fast-math flag in the build) and the semiring codes the wrappers
+    pass; the source says it replaces no Pallas kernel."""
+    import re
+
+    from repro_torch.kernels import viterbi_acs
+
+    assert "semiring_compose" in viterbi_acs.KERNELS
+    src = (viterbi_acs._CSRC / "semiring_compose.cu").read_text()
+    assert "Replaces no Pallas kernel" in src
+    code = re.sub(r"//[^\n]*", "", src)
+    assert "expf(" in code and "logf(" in code
+    for fast in ("__expf", "__logf", "exp2f", "__fdividef", "ex2.approx"):
+        assert fast not in code
+    assert re.search(r"kTropical = 0, kLogprob = 1", code)
+    assert "fast" not in " ".join(viterbi_acs._NVCC_FLAGS)
+
+
+def _log_stochastic(n, F, S, gen, dev):
+    """(n, F, S, S) log row-stochastic matrices with NEG where a transition
+    is masked (column 0 never is): their LOGPROB products stay
+    log-stochastic, so a scan's values stay within a few tens of 0."""
+    from repro_torch.core.semiring import NEG
+
+    logits = torch.randn(n, F, S, S, generator=gen) * 2
+    logits[..., 1:] = logits[..., 1:].masked_fill(
+        torch.rand(n, F, S, S - 1, generator=gen) < 0.5, float("-inf"))
+    x = torch.log_softmax(logits, dim=-1)
+    return x.masked_fill(x == float("-inf"), NEG).to(dev)
+
+
+@pytest.mark.cuda
+def test_cuda_k4_matches_plain():
+    """K4 against its plain version on the card (needs an H100 and nvcc):
+    tropical products equal under ``torch.equal``, LOGPROB within 1e-4,
+    at S = 4, 16 and 64, on the scans' strided views, a broadcast
+    identity, batches of 0, 1 and odd sizes and the cells' first-level
+    batches (512 tiles x 16 frames, 128 tiles x 256 frames), one launch a
+    non-empty call; more than 64 states, S not a power of two and
+    non-square or mismatched operands raise before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.core.semiring import get_semiring
+    from repro_torch.kernels import semiring_compose
+
+    dev = torch.device("cuda")
+    k4 = semiring_compose
+    shapes = [(4, 9, 3), (4, 1, 1), (16, 7, 5), (16, 2, 1), (64, 3, 2), (64, 1, 5),
+              (64, 513, 16), (64, 129, 256)]
+    for S, n, F in shapes:
+        x0, x1, x2 = (v.to(dev) for v in _compose_operands(S, n, F, S + n))
+        pairs = [(x0, x1), (x1[: len(x2)], x2),
+                 (x2, torch.eye(S, device=dev).expand(F, S, S))]
+        for semiring in ("tropical", "logprob"):
+            sr = get_semiring(semiring)
+            for mm in (torch.float32, torch.bfloat16) if n < 100 else (torch.float32,):
+                for a, b in pairs:
+                    before = k4.launches, k4.logprob_launches
+                    got = k4(a, b, semiring=semiring, matmul_dtype=mm)
+                    want = sr.matmul_plain(a, b, mm)
+                    torch.cuda.synchronize()
+                    launched = int(got.numel() > 0)
+                    assert (k4.launches, k4.logprob_launches) == (
+                        before[0] + launched,
+                        before[1] + launched * (semiring == "logprob"))
+                    assert got.shape == want.shape
+                    label = (S, n, F, semiring, mm)
+                    if semiring == "tropical":
+                        assert torch.equal(got, want), label
+                    elif got.numel():
+                        assert (got - want).abs().max().item() <= 1e-4, label
+    before = k4.launches
+    for a_shape, b_shape in (((2, 128, 128), (2, 128, 128)), ((2, 12, 12), (2, 12, 12)),
+                             ((2, 4, 5), (2, 5, 5)), ((2, 4, 4), (2, 8, 8))):
+        with pytest.raises(ValueError):
+            k4(torch.zeros(a_shape, device=dev), torch.zeros(b_shape, device=dev))
+    assert k4.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_k4_scans_match_the_plain_tree():
+    """``associative_scan`` forward and reverse (the program's operand
+    order, ``timeparallel._compose``) through K4 against the same pairing
+    tree of the plain version on the card: bit for bit at TROPICAL,
+    within 1e-4 at LOGPROB, in the launches the tree predicts; then the
+    time-parallel decode and the BCJR at small shapes launch two scans'
+    worth of K4 and nothing of its plain version's chunk loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.core import timeparallel as tp
+    from repro_torch.core.decoder import ViterbiDecoder
+    from repro_torch.core.kernel_geometry import pick_transfer_tile
+    from repro_torch.core.semiring import LOGPROB, TROPICAL
+    from repro_torch.kernels import semiring_compose as k4
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(41)
+    for S, n, F in ((16, 33, 3), (64, 1, 2), (64, 2, 2), (64, 7, 5), (64, 128, 4)):
+        for sr in (TROPICAL, LOGPROB):
+            x = (torch.randn(n, F, S, S, generator=gen).mul(3).to(dev) if sr is TROPICAL
+                 else _log_stochastic(n, F, S, gen, dev))
+            for reverse in (False, True):
+                before = k4.launches
+                got = tp.associative_scan(tp._compose(torch.float32, sr, reverse), x,
+                                          reverse=reverse)
+                want = tp.associative_scan(
+                    (lambda a, b: sr.matmul_plain(b, a)) if reverse else sr.matmul_plain,
+                    x, reverse=reverse)
+                torch.cuda.synchronize()
+                assert k4.launches - before == scan_composes(n)
+                label = (S, n, F, sr.name, reverse)
+                if sr is TROPICAL:
+                    assert torch.equal(got, want), label
+                else:
+                    assert (got - want).abs().max().item() <= 1e-4, label
+    dec = ViterbiDecoder.from_standard("ccsds-k7", device=dev)
+    llrs = torch.randn(4, 2**14, 2, generator=gen).mul(2).to(dev)
+    T = llrs.shape[1] // 2
+    for call, tt, semiring in (
+            (lambda: dec.decode_batch(llrs, time_parallel=True),
+             dec._time_parallel_tile(4, T, True), "tropical"),
+            (lambda: dec.decode_soft(llrs, output="llr"), pick_transfer_tile(T), "logprob")):
+        k4.launches = k4.logprob_launches = 0
+        call()
+        torch.cuda.synchronize()
+        want = 2 * scan_composes(T // tt)
+        assert k4.launches == want and want > 0
+        assert k4.logprob_launches == (want if semiring == "logprob" else 0)
