@@ -17,7 +17,9 @@ sequence:
 Each circulation is one ``forward_fused`` (K1 on the card) or, with
 ``time_parallel``, one ``timeparallel_forward`` over a transfer prefix
 formed once (K3, then K1 per circulation); WAVA adds no kernel.  All
-``max_iters`` circulations run, as in the reference.
+``max_iters`` circulations run, as in the reference, inside one
+``wava`` stage (``obs.trace.stage``) that carries their count as
+``circulations``.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from repro_torch.core.viterbi import (
     init_metric,
     traceback_with_state,
 )
+from repro_torch.obs.trace import stage
 
 __all__ = ["DEFAULT_WAVA_ITERS", "wava_decode", "tail_bite_state"]
 
@@ -99,19 +102,20 @@ def wava_decode(
     lam = init_metric(F, tables.n_states, None, device=dev)  # uniform prior
     done = torch.zeros(F, dtype=torch.bool, device=dev)
     out = torch.zeros((F, n), dtype=torch.int32, device=dev)
-    for _ in range(max_iters):
-        if tp_tile is not None:
-            lam, phis = timeparallel_forward(
-                blocks, lam, tables, precision, tp_tile,
-                use_kernel, pack_survivors, prefix=prefix,
-            )
-        else:
-            lam, phis = forward_fused(
-                blocks, lam, tables, precision, use_kernel, pack_survivors
-            )
-        fs = lam.argmax(dim=-1)
-        start, bits = traceback_with_state(phis, fs, tables)
-        consistent = start.to(torch.int64) == fs
-        out = torch.where(done[:, None], out, bits)  # freeze once consistent
-        done = done | consistent
+    with stage("wava", device=dev, circulations=max_iters):
+        for _ in range(max_iters):
+            if tp_tile is not None:
+                lam, phis = timeparallel_forward(
+                    blocks, lam, tables, precision, tp_tile,
+                    use_kernel, pack_survivors, prefix=prefix,
+                )
+            else:
+                lam, phis = forward_fused(
+                    blocks, lam, tables, precision, use_kernel, pack_survivors
+                )
+            fs = lam.argmax(dim=-1)
+            start, bits = traceback_with_state(phis, fs, tables)
+            consistent = start.to(torch.int64) == fs
+            out = torch.where(done[:, None], out, bits)  # freeze once consistent
+            done = done | consistent
     return out, done

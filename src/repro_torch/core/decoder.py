@@ -477,11 +477,9 @@ class ViterbiDecoder:
         request, or on auto when the frames underfill the card.
         """
         term = termination or self.termination
+        if term == "tailbiting":  # opens its own ``decode`` root
+            return self.decode_tailbiting(llrs, time_parallel=time_parallel)[0]
         with stage("decode", device=self.device) as sp:
-            if term == "tailbiting":
-                return self.decode_tailbiting(
-                    self.depunctured(llrs), time_parallel=time_parallel
-                )[0]
             with stage("front_door", device=self.device):
                 llrs = self.depunctured(llrs)
                 self._check_shaped(llrs, "decode_batch")
@@ -796,31 +794,35 @@ class ViterbiDecoder:
         divisible by rho fall back to radix-2 tables, since the circular
         trellis cannot be padded.  With the time-parallel plan (on
         request, or on auto when the frames underfill the card) each
-        circulation runs the transfer-matrix scan.
+        circulation runs the transfer-matrix scan.  The call is one
+        ``decode`` stage (``path="wava"``) holding ``front_door`` and
+        ``wava``, reached from here or from ``decode_batch``.
         """
         from repro_torch.codes.tailbiting import DEFAULT_WAVA_ITERS, wava_decode
 
-        llrs = self.depunctured(llrs)
-        self._check_shaped(llrs, "decode_tailbiting")
-        llrs = self._harden(llrs)
-        F, n = llrs.shape[0], llrs.shape[1]
-        tables = (
-            self.tables if n % self.rho == 0
-            else build_acs_tables(self.spec, 1)
-        )
-        tp_tile = self._time_parallel_tile(F, n // tables.rho, time_parallel)
-        _count_dispatch("wava")
-        return wava_decode(
-            llrs,
-            tables,
-            precision=self.precision,
-            use_kernel=self.use_kernel,
-            pack_survivors=self.pack_survivors,
-            max_iters=max_iters or DEFAULT_WAVA_ITERS,
-            time_parallel=tp_tile is not None,
-            transfer_tile=tp_tile,
-            device=self.device,
-        )
+        with stage("decode", device=self.device, path="wava"):
+            with stage("front_door", device=self.device):
+                llrs = self.depunctured(llrs)
+                self._check_shaped(llrs, "decode_tailbiting")
+                llrs = self._harden(llrs)
+            F, n = llrs.shape[0], llrs.shape[1]
+            tables = (
+                self.tables if n % self.rho == 0
+                else build_acs_tables(self.spec, 1)
+            )
+            tp_tile = self._time_parallel_tile(F, n // tables.rho, time_parallel)
+            _count_dispatch("wava")
+            return wava_decode(
+                llrs,
+                tables,
+                precision=self.precision,
+                use_kernel=self.use_kernel,
+                pack_survivors=self.pack_survivors,
+                max_iters=max_iters or DEFAULT_WAVA_ITERS,
+                time_parallel=tp_tile is not None,
+                transfer_tile=tp_tile,
+                device=self.device,
+            )
 
     # -- sharded ----------------------------------------------------------
 

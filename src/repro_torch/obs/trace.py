@@ -29,10 +29,11 @@ engine's ``engine.device_wait`` span closes after the ``.cpu()`` copy).
 of the decode paths (``repro_torch.decode``, ``.front_door``,
 ``.window_gather``, ``.k1``-``.k3``, ``.forward``, ``.traceback``,
 ``.scan``, ``.recovery``, ``.alpha``, ``.beta``, ``.llr_combine``, the
-list loops).  It is active only while a ``torch.profiler`` session runs
-or while the process default recorder (``set_default_recorder``) is
-enabled; otherwise it returns the shared no-op span, at the cost of one
-call and two flag checks.  An active stage
+list loops, ``.wava``).  It is active only while a ``torch.profiler``
+session runs or while the process default recorder
+(``set_default_recorder``) is enabled; otherwise it returns the shared
+no-op span, at the cost of one call and two flag checks.  An active
+stage
 
   * opens the host range ``repro_torch.<name>`` in the profiler's trace,
     on the clock of the device's kernels.  The range is of the
@@ -46,10 +47,12 @@ call and two flag checks.  An active stage
     distance is the stage's ``device_s`` (how long the stage held the
     stream), set on the span and added to the totals;
   * adds to ``stage_totals()[name]``: ``device_s``, ``steps`` (the
-    ``steps=`` attribute: iterations of a plain per-step loop) and
-    ``host_syncs`` (``host_read`` and ``host_upload`` calls while the
-    stage was the innermost open one: the sites that block the host
-    until the card's stream drains, counted on every device).
+    ``steps=`` attribute: iterations of a plain per-step loop),
+    ``circulations`` (the ``circulations=`` attribute: WAVA's passes
+    over the circular trellis) and ``host_syncs`` (``host_read`` and
+    ``host_upload`` calls while the stage was the innermost open one:
+    the sites that block the host until the card's stream drains,
+    counted on every device).
 
 Counts are attributes given once per stage, never per loop step.  A
 span's JSONL line is written at its end, before its ``device_s`` is
@@ -332,7 +335,7 @@ def set_default_recorder(rec: Optional[SpanRecorder]) -> SpanRecorder:
     return prev
 
 
-_ZERO = {"device_s": 0.0, "steps": 0, "host_syncs": 0}
+_ZERO = {"device_s": 0.0, "steps": 0, "circulations": 0, "host_syncs": 0}
 _TOTALS: Dict[str, Dict[str, float]] = {}
 _OPEN: List["_Stage"] = []  # active stages, innermost last
 # (totals entry, span, entry event, exit event) awaiting the device
@@ -374,6 +377,7 @@ class _Stage:
         if total is None:
             total = _TOTALS[self.name] = dict(_ZERO)
         total["steps"] += self.attrs.get("steps", 0)
+        total["circulations"] += self.attrs.get("circulations", 0)
         total["host_syncs"] += self.syncs
         real = self.span is not _NULL_SPAN
         if real:
@@ -439,7 +443,7 @@ def _settle(block: bool) -> None:
 
 def stage_totals() -> Dict[str, Dict[str, float]]:
     """Per-stage totals since the last ``reset_stage_totals``: ``{name:
-    {device_s, steps, host_syncs}}``.  Waits for the device
+    {device_s, steps, circulations, host_syncs}}``.  Waits for the device
     to pass every stage already closed, so ``device_s`` is complete."""
     _settle(block=True)
     return {name: dict(total) for name, total in _TOTALS.items()}

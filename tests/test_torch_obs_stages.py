@@ -1,6 +1,7 @@
 """The decode stages of ``repro_torch.obs.trace`` on the CPU: the span
 trees and counts of ``decode_batch(time_parallel=True)``,
-``decode_soft(output="llr")`` and the tiled serve step with a recorder
+``decode_soft(output="llr")``, the tiled serve step and WAVA (the batch
+serve step and ``decode_batch`` of tail-biting blocks) with a recorder
 installed as the default, the ``repro_torch.*`` ranges and totals under
 ``torch.profiler``, the no-op path with neither, outputs unchanged by
 tracing, the host-sync counts of the front door, and the engine's
@@ -103,7 +104,8 @@ def test_span_tree_and_steps_under_a_default_recorder(kind):
         assert [sp.attrs["steps"] for sp in by_name[name]] == [want]
     totals = rt.stage_totals()
     assert set(totals) == {sp.name.removeprefix("repro_torch.") for sp in rec.spans}
-    assert all(set(t) == {"device_s", "steps", "host_syncs"} for t in totals.values())
+    assert all(set(t) == {"device_s", "steps", "circulations", "host_syncs"}
+               for t in totals.values())
     assert sum(t["steps"] for t in totals.values()) == sum(steps.values())
     assert all(t["device_s"] == 0.0 for t in totals.values())  # no card here
 
@@ -122,7 +124,77 @@ def test_scan_is_one_stage_whatever_its_depth(n):
     want = torch.cumsum(x.flip(0), 0).flip(0) if reverse else torch.cumsum(x, 0)
     assert torch.equal(out, want)
     assert [sp.name for sp in rec.spans] == ["repro_torch.scan"]
-    assert rt.stage_totals() == {"scan": {"device_s": 0.0, "steps": 0, "host_syncs": 0}}
+    assert rt.stage_totals() == {
+        "scan": {"device_s": 0.0, "steps": 0, "circulations": 0, "host_syncs": 0}}
+
+
+def _wava_call(kind):
+    """A WAVA decode of 4 ``lte-tbcc`` blocks of 64 bits (32 radix steps):
+    through the batch serve step, or through ``decode_batch``."""
+    llrs = _frames("lte-tbcc", 4, 64, seed=11)
+    if kind == "serve_batch":
+        from repro_torch.configs.viterbi_k7 import config_for_standard
+        from repro_torch.serve.step import make_viterbi_serve_step
+
+        step = make_viterbi_serve_step(config_for_standard("lte-tbcc"), mode="batch",
+                                       device="cpu")
+        return lambda: step(llrs)
+    dec = _decoder("lte-tbcc")
+    return lambda: dec.decode_batch(llrs)
+
+
+WAVA_KINDS = ["serve_batch", "decode_batch"]
+
+
+@pytest.mark.parametrize("kind", WAVA_KINDS)
+def test_wava_is_one_decode_root_with_its_circulations(kind):
+    call = _wava_call(kind)
+    rec = rt.SpanRecorder()
+    rt.set_default_recorder(rec)
+    call()
+    by_name, root = _tree(rec)  # exactly one root
+    assert root.parent is None and root.attrs["path"] == "wava" and rec.open_spans == 0
+    assert _children(rec, root) == ["front_door", "wava"]
+    (wava,) = by_name["wava"]
+    assert wava.attrs["circulations"] == 4
+    assert _children(rec, wava) == ["k1", "traceback"] * 4
+    assert [sp.attrs["steps"] for sp in by_name["traceback"]] == [32] * 4
+    totals = rt.stage_totals()
+    assert totals["wava"]["circulations"] == 4
+    assert sum(t["circulations"] for t in totals.values()) == 4
+    assert sum(t["steps"] for t in totals.values()) == 4 * 32
+    assert totals["front_door"]["host_syncs"] == 1
+
+
+@pytest.mark.parametrize("kind", WAVA_KINDS)
+def test_wava_stages_add_no_host_sync(kind, monkeypatch):
+    """The stages count the reads the call makes and make none: the same
+    ``.item()`` reads with the stages on and off, all of them counted."""
+    call = _wava_call(kind)
+    reads = []
+    item = torch.Tensor.item
+    monkeypatch.setattr(torch.Tensor, "item", lambda self: reads.append(1) or item(self))
+    off = call()
+    n_off = len(reads)
+    rt.set_default_recorder(rt.SpanRecorder())
+    on = call()
+    assert len(reads) - n_off == n_off == 1
+    assert sum(t["host_syncs"] for t in rt.stage_totals().values()) == n_off
+    assert torch.equal(on, off)
+
+
+@pytest.mark.parametrize("kind", WAVA_KINDS)
+def test_wava_ranges_and_totals_under_the_profiler(kind):
+    call = _wava_call(kind)
+    off = call()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        on = call()
+    names = {e.name for e in prof.events() if e.name.startswith("repro_torch.")}
+    assert names == {"repro_torch." + s for s in
+                     ["decode", "front_door", "wava", "k1", "traceback"]}
+    totals = rt.stage_totals()
+    assert totals["wava"]["circulations"] == 4 and totals["traceback"]["steps"] == 128
+    assert torch.equal(on, off)
 
 
 def test_the_profiler_range_class_exists():
