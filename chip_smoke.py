@@ -117,9 +117,13 @@ which ends the run with a non-zero exit when it fails:
                short enough (tiles of 8 steps, 8 steps) for the bound to
                sit far under the tropical instantiation's distance, which
                each of these gates (and K3's at TT=256) must reject.
+               One K6-F and one K6-B launch, read by the kernels
+               line's K6 rows; the call in its stages
+               gives the call's LLRs, within K4_LOGPROB_ATOL of the plain
+               alpha and beta scans and ``_llrs_from_joints``.
                Times: K3-LOGPROB, the
-               two LOGPROB compose scans, the alpha and beta scans and
-               ``_llrs_from_joints`` (CUDA events), the decode_soft wall
+               two LOGPROB compose scans, K6-F and K6-B, the plain scans
+               and ``_llrs_from_joints`` (CUDA events), the decode_soft wall
                (median of 3), Mb/s, peak memory, K1-LOGPROB, both plain
                versions and K1-LOGPROB's yardstick (``library_forward``'s
                LOGPROB form: torch.matmul, torch.logsumexp over the slots
@@ -129,10 +133,17 @@ which ends the run with a non-zero exit when it fails:
                ``list_traceback``; at n_list=1 the bits equal
                ``decode_batch(time_parallel=False)``'s exactly, on the AWGN
                and on the integer LLRs), and lte-tbcc, 512 tail-biting
-               frames x 64 bits through ``bcjr_circular_llrs``: K3-LOGPROB
-               at one step a tile (beta=3) against its plain version, the
+               frames x 64 bits through ``bcjr_circular_llrs`` (no K6
+               launch): K3-LOGPROB at one step a tile (beta=3) against its plain version, the
                two scans' K4-LOGPROB launches over 32 steps, BER,
-               times;
+               times; then K6 at the soft cell's shape (256 frames x
+               65536 stages, 128 tiles of 256 steps): K6-F's alphas
+               within ``logprob_bound`` of ``bcjr_forward_ref``, K6-B's
+               LLRs on the same alphas within ``k6_llr_bound`` of
+               ``bcjr_backward_ref``, the whole within K4_LOGPROB_ATOL of
+               the plain scans; times of K6-F, K6-B, their plain
+               versions, the plain scans, one torch.logsumexp loop
+               (yardstick) and decode_soft (Mb/s, peak memory);
  11. codes   — the standard codes on the reference's cells
                (``configs/viterbi_k7.py``), LLRs drawn on the card
                (``simulate.point_key`` seeds, ``sim_frame_batch``):
@@ -142,7 +153,8 @@ which ends the run with a non-zero exit when it fails:
                (the two-pass step, one K1 a chunk; each chunk's path,
                launches and CUDA-event times printed), chunked bits ==
                batch bits; ``decode_soft(output="llr")`` on 64 of its
-               frames (one K3-LOGPROB); a 2^20-LLR wifi-11a-r34 stream
+               frames (one K3-LOGPROB, one K6-F, one K6-B); a 2^20-LLR
+               wifi-11a-r34 stream
                through ``decode_stream_tiled`` (one K2) and
                ``decode_batch(time_parallel=True)`` (one K3, one K1),
                tiled bits == batch bits; decode_tbcc_blocks (lte-tbcc,
@@ -178,7 +190,8 @@ which ends the run with a non-zero exit when it fails:
                on the host clock, is the main path: launch counts zeroed
                just before; each dispatch's launches must be its route's
                (K1 a batch cell, K1 a shard, K3 + K1, K2 a stream chunk or
-               session group, K1 a WAVA circulation, K3-LOGPROB); no fault,
+               session group, K1 a WAVA circulation, K3-LOGPROB, K6-F
+               and K6-B a soft group); no fault,
                retry or degradation; every ticket's bits equal a direct
                call of its route's entry point on the unpadded frames (one
                call a request group; soft LLRs within 1e-4), each tenant's
@@ -391,6 +404,10 @@ TP_CELL = {}  # phase 9's AWGN codeword LLRs and their sequential decode, for ph
 T_K3, TT_K3 = 4096, 64  # K3 sweep: radix steps and transfer tile
 SWEEP_FRAMES = (1, 4, 16, 64, 256)  # budget sweep at N_FULL stages
 F_SOFT = 64  # decode_soft("llr"): decode_64k's frame length at 1/8 of its frames
+F_K6 = 256  # K6 at the soft cell's shape: 256 frames x 65536 stages (128 tiles of 256)
+# the launches of one open BCJR (decode_soft on zero-terminated frames) in
+# ``launch_counts``: K3-LOGPROB once, K6-F and K6-B once each
+SOFT_LAUNCHES = {"K3-LOGPROB": 1, "K6-F": 1, "K6-B": 1}
 N_LIST, L_LIST = 4096, 4  # decode_soft("list"): stages and list size
 F_TBCC, N_TBCC = 512, 64  # lte-tbcc tail-biting frames x bits
 EBN0_DB, BER_LIMIT = 4.0, 1e-4
@@ -1317,6 +1334,162 @@ def logprob_case(label, got, want, steps, scale, n_llr, n_slots, renorm,
     return err, bound
 
 
+def k6_bound(w, n_llr, n_states, n_slots, row_steps, bytes_moved, combine):
+    """(bound_ms, bound_by) of ``row_steps`` K6 row-steps: ``acs_bound``'s
+    LOGPROB step (one row a step, with the renorm); with ``combine``
+    (K6-B) each boundary also takes, for each of the rho bits, one expf a
+    state (its joint in its own bit value's logsumexp; the other value's
+    NEG terms are exactly 0 and need none) and two logarithms, at the
+    special-function rate."""
+    from repro_torch.roofline import H100
+
+    step_ms, by = acs_bound(w, n_llr, n_states, n_slots, row_steps, 1, True, bytes_moved,
+                            semiring="logprob")
+    if not combine:
+        return step_ms, by
+    rho = n_slots.bit_length() - 1
+    sfu = row_steps * (n_states * (n_slots - 1) + rho * (n_states + 2))
+    t_sfu = sfu / PEAK_SFU_OPS * 1e3
+    t_bytes = bytes_moved / H100.hbm_bw * 1e3
+    if t_sfu >= max(step_ms, t_bytes):
+        return t_sfu, "operations"
+    return step_ms, by
+
+
+def k6_llr_bound(steps, scale, n_llr, n_slots, n_states, renorm=True):
+    """How far K6-B's LLRs may lie from its plain version's on the same
+    alphas: each side's betas within ``logprob_bound`` of the other's
+    after ``steps`` steps, the metrics' range X = ``scale`` with
+    ``renorm`` (``steps`` x ``scale`` without); the joint's add rounds
+    once on each side at |values| <= 2 X; each of an LLR's two masked
+    logsumexps moves by its inputs' distance plus the rounding of the
+    sum of S exponentials and its log ((S + 6) u) and of its final add;
+    the LLR's difference rounds once more.  The card tests load it from
+    here."""
+    u = 2.0 ** -24
+    x = scale if renorm else steps * scale
+    eps = logprob_bound(steps, scale, n_llr, n_slots, renorm)
+    return 2 * (eps + 2 * u * 2 * x + (n_states + 6) * u + 2 * u * 2 * x) + 4 * u * x
+
+
+def k6_cell_phase(llrs, tables, prec, w, launches):
+    """Phase 10, K6 at the soft cell's shape (``F_K6`` frames x 65536
+    stages of phase 4's AWGN input, 128 tiles of 256 steps): K6-F's alphas
+    against ``bcjr_forward_ref`` within ``logprob_bound``, K6-B's LLRs on
+    the same alphas against ``bcjr_backward_ref`` within
+    ``k6_llr_bound``, the whole within ``K4_LOGPROB_ATOL`` of the plain
+    scans and combine; times (CUDA events) of K6-F, K6-B, their plain
+    versions, the plain scans and combine, and the yardstick of one
+    ``torch.logsumexp`` loop (``library_forward``'s LOGPROB form over the
+    32,768 rows); decode_soft's wall (median of 3), Mb/s and peak memory
+    at that shape.  Returns the K6-F and K6-B rows of the kernels line,
+    each with its ``launches`` on phase 10's main path."""
+    import math
+
+    from repro_torch.core import ViterbiDecoder, soft
+    from repro_torch.core import timeparallel as tp
+    from repro_torch.core.kernel_geometry import pick_transfer_tile
+    from repro_torch.core.trellis import build_reverse_tables
+    from repro_torch.core.viterbi import blocks_from_llrs, init_metric
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import viterbi_acs
+    from repro_torch.kernels.ref import bcjr_backward_ref, bcjr_forward_ref
+
+    dev = llrs.device
+    S, R, B = tables.n_states, tables.n_slots, tables.llr_block
+    rev = build_reverse_tables(tables.spec, tables.rho)
+    x = llrs[:F_K6]
+    blocks = blocks_from_llrs(x, 2) * 0.5  # decode_soft's strided blocks
+    T = blocks.shape[0]
+    tt = pick_transfer_tile(T)
+    N, rows = T // tt, (T // tt) * F_K6
+    lam0 = init_metric(F_K6, S, 0, device=dev)
+    entry, bte = soft._tile_boundaries(blocks, lam0, init_metric(F_K6, S, None, device=dev),
+                                       tables, prec, tt, True)
+    fwd, bwd = kops.device_sweep_tables(tables, rev, dev)
+    k6 = viterbi_acs.bcjr_sweep
+    k6.launches = 0
+    k6f_ms = cuda_ms(lambda: kops.bcjr_sweep(blocks, entry, tables, rev, prec,
+                                             transfer_tile=tt), reps=3)
+    alphas = kops.bcjr_sweep(blocks, entry, tables, rev, prec, transfer_tile=tt)
+    k6b_ms = cuda_ms(lambda: kops.bcjr_sweep(blocks, bte, tables, rev, prec, transfer_tile=tt,
+                                             alphas=alphas), reps=3)
+    got = kops.bcjr_sweep(blocks, bte, tables, rev, prec, transfer_tile=tt, alphas=alphas)
+    print(f"K6 at the soft cell's shape (F={F_K6} x T={T}, TT={tt}, N={N}: {rows} rows): "
+          f"{k6.launches} launches, the timed ones included", flush=True)
+    res = {}
+    k6f_plain_ms = cuda_ms(
+        lambda: res.update(a=bcjr_forward_ref(blocks, entry, fwd, transfer_tile=tt)))
+    m_scale = blocks.abs().sum(dim=-1).max().item() + math.log(R)
+    d = -(-(tables.spec.k - 1) // tables.rho)  # steps in which every state reaches every state
+    scale = d * (2 * m_scale) + m_scale
+    f_err, _ = logprob_case(f"K6-F alphas vs plain (F={F_K6} T={T} TT={tt})", alphas,
+                            res.pop("a"), tt, scale, B, R, True)
+    k6b_plain_ms = cuda_ms(
+        lambda: res.update(b=bcjr_backward_ref(blocks, bte, alphas, bwd, transfer_tile=tt)))
+    b_err = (got - res.pop("b")).abs().max().item()
+    b_bound = k6_llr_bound(tt - 1, scale, B, R, S)
+    print(f"K6-B LLRs vs plain on the same alphas: max abs err {b_err!r}; bound "
+          f"{b_bound!r}; {'within' if b_err <= b_bound else 'OUTSIDE'}", flush=True)
+    if not b_err <= b_bound:
+        fail(f"K6-B: max abs err {b_err} beyond its f32 rounding bound {b_bound}")
+    del alphas
+    # the plain scans and combine K6 replaces, on the same boundaries
+    tiles = tp.tiled_blocks(blocks, tt).reshape(tt, rows, B)
+    alpha_ms = cuda_ms(lambda: soft._alpha_scan(tiles, entry.reshape(rows, S), tables, prec))
+    joint = soft._alpha_scan(tiles, entry.reshape(rows, S), tables, prec)
+    beta_ms = cuda_ms(lambda: soft._beta_scan(tiles, bte.reshape(rows, S), rev, prec))
+    joint += soft._beta_scan(tiles, bte.reshape(rows, S), rev, prec)
+    joint = joint.view(tt, N, F_K6, S).permute(1, 0, 2, 3).reshape(T, F_K6, S)
+    llr_ms = cuda_ms(lambda: soft._llrs_from_joints(joint, tables))
+    gap = (soft._llrs_from_joints(joint, tables) - got).abs().max().item()
+    del joint
+    print(f"K6 against the plain scans and combine: max |LLR diff| {gap!r} "
+          f"(limit {K4_LOGPROB_ATOL})", flush=True)
+    if not gap <= K4_LOGPROB_ATOL:
+        fail(f"K6's LLRs lie {gap} from the plain scans', beyond {K4_LOGPROB_ATOL}")
+    lib_ms = cuda_ms(
+        lambda: library_forward(tiles, entry.reshape(rows, S), w, S, R, semiring="logprob"),
+        warmup=lambda: library_forward(tiles[:8], entry.reshape(rows, S), w, S, R,
+                                       semiring="logprob"))
+    del tiles, entry, bte, got
+    decoder = ViterbiDecoder.from_standard("ccsds-k7", precision=prec)
+    decoder.decode_soft(x)
+    torch.cuda.reset_peak_memory_stats()
+    walls = sorted(host_ms(lambda: decoder.decode_soft(x))[1] for _ in range(3))
+    peak = torch.cuda.max_memory_allocated()
+    alpha_bytes = tt * rows * S * 4
+    llr_bytes = blocks.numel() * 4
+    f_bound, f_by = k6_bound(w, B, S, R, rows * tt, alpha_bytes + llr_bytes + rows * S * 4,
+                             False)
+    b_bound_ms, b_by = k6_bound(w, B, S, R, rows * tt,
+                                alpha_bytes + llr_bytes + rows * S * 4 + F_K6 * T * 2 * 4,
+                                True)
+    print(f"time K6-F: {k6f_ms:.3f} ms; plain version (bcjr_forward_ref) "
+          f"{k6f_plain_ms:.3f} ms; bound {f_bound:.3f} ms ({f_by}), K6-F at "
+          f"{f_bound / k6f_ms:.2%} of it")
+    print(f"time K6-B: {k6b_ms:.3f} ms; plain version (bcjr_backward_ref) "
+          f"{k6b_plain_ms:.3f} ms; bound {b_bound_ms:.3f} ms ({b_by}), K6-B at "
+          f"{b_bound_ms / k6b_ms:.2%} of it")
+    print(f"time the plain scans K6 replaces: alpha {alpha_ms:.3f} ms, beta "
+          f"{beta_ms:.3f} ms, _llrs_from_joints {llr_ms:.3f} ms")
+    print(f"time torch.matmul + torch.logsumexp yardstick ({tt} steps x {rows} rows): "
+          f"{lib_ms:.3f} ms")
+    print(f"time decode_soft(llr) wall at F={F_K6}: {walls[1]:.3f} ms (median of "
+          f"{', '.join(f'{t:.3f}' for t in walls)}); {x.shape[0] * x.shape[1] / walls[1] / 1e3:.3f} "
+          f"Mb/s; peak device memory {peak} B", flush=True)
+    shape = f"bcjr_llrs sweeps: F={F_K6} x T={T} steps, TT={tt}, N={N} ({rows} rows)"
+    row = dict(route="cuda", source="src/repro_torch/kernels/csrc/bcjr_sweep.cu",
+               replaces=None, shape=shape)
+    return [dict(row, name="K6-F bcjr_sweep", launches=launches["K6-F"], max_abs_err=f_err,
+                 ms=k6f_ms, plain_ms=k6f_plain_ms, bound_ms=f_bound, bound_by=f_by,
+                 library_ms=lib_ms),
+            dict(row, name="K6-B bcjr_sweep", launches=launches["K6-B"], max_abs_err=b_err,
+                 ms=k6b_ms,
+                 plain_ms=k6b_plain_ms, bound_ms=b_bound_ms, bound_by=b_by,
+                 library_ms=None)]
+
+
 def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w, sweep_err):
     """Phase 10: decode_soft at full width, K3-LOGPROB and K1-LOGPROB
     against their plain versions, the list decode and lte-tbcc; returns
@@ -1333,6 +1506,7 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w, sweep_err
     from repro_torch.core.semiring import LOGPROB
     from repro_torch.core.trellis import build_reverse_tables
     from repro_torch.core.viterbi import blocks_from_llrs, forward_fused, init_metric
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import viterbi_acs
     from repro_torch.kernels.ref import acs_forward_ref, transfer_matrix_ref
 
@@ -1351,17 +1525,23 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w, sweep_err
           f"N={N} tiles", flush=True)
 
     # the main path: decode_soft(output="llr"), counts zeroed just before
-    k4 = viterbi_acs.semiring_compose
+    k4, k6 = viterbi_acs.semiring_compose, viterbi_acs.bcjr_sweep
     for kernel in (k1, k3, k4):
         kernel.launches = kernel.logprob_launches = 0
+    k6.launches = k6.backward_launches = 0
     out, paths = dispatched(lambda: decoder.decode_soft(x))
     k3_launches, k3_all, k1_all = k3.logprob_launches, k3.launches, k1.launches
     k4_launches, k4_want = (k4.launches, k4.logprob_launches), 2 * scan_composes(N)
+    k6_launches = {"K6-F": k6.launches - k6.backward_launches,
+                   "K6-B": k6.backward_launches}
     print(f"decode_soft(llr): dispatch {paths}; K3-LOGPROB launches "
           f"{k3_launches} (K3 launches in all {k3_all}, K1 {k1_all}); K4-LOGPROB "
-          f"launches {k4_launches[1]} (the two scans' pairing trees: {k4_want})")
+          f"launches {k4_launches[1]} (the two scans' pairing trees: {k4_want}); "
+          f"K6 launches {k6_launches}")
     if paths != {"soft": 1}:
         fail(f"decode_soft dispatched {paths}")
+    if k6_launches != {"K6-F": 1, "K6-B": 1}:
+        fail(f"decode_soft launched K6 {k6_launches}, not K6-F and K6-B once each")
     if (k3_launches, k3_all, k1_all) != (1, 1, 0):
         fail(f"decode_soft launched K3-LOGPROB {k3_launches} times (K3 {k3_all}, "
              f"K1 {k1_all}), not one K3-LOGPROB launch")
@@ -1433,8 +1613,22 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w, sweep_err
     beta_start = LOGPROB.sum(suffix + beta_end[None, :, None, :], dim=-1)
     del suffix
     beta_tile_end = torch.cat([beta_start[1:], beta_end[None]], dim=0)
-    tiles = tp.tiled_blocks(blocks, tt).reshape(tt, N * F_SOFT, B)
     rev = build_reverse_tables(spec, 2)
+    k6f_ms = cuda_ms(lambda: kops.bcjr_sweep(blocks, entry, tables, rev, prec,
+                                             transfer_tile=tt))
+    alphas = kops.bcjr_sweep(blocks, entry, tables, rev, prec, transfer_tile=tt)
+    k6b_ms = cuda_ms(lambda: kops.bcjr_sweep(blocks, beta_tile_end, tables, rev, prec,
+                                             transfer_tile=tt, alphas=alphas))
+    staged = kops.bcjr_sweep(blocks, beta_tile_end, tables, rev, prec, transfer_tile=tt,
+                             alphas=alphas)
+    del alphas
+    if not torch.equal(staged, out):
+        fail("decode_soft in stages gives other LLRs than the call (max |diff| "
+             f"{(staged - out).abs().max().item()!r}): the stage times describe "
+             "other code")
+    print("decode_soft in stages: the same LLRs as the call")
+    # the plain scans and combine that K6 replaces, on the same boundaries
+    tiles = tp.tiled_blocks(blocks, tt).reshape(tt, N * F_SOFT, B)
     alpha_ms = cuda_ms(lambda: soft._alpha_scan(
         tiles, entry.reshape(N * F_SOFT, S), tables, prec))
     alphas = soft._alpha_scan(tiles, entry.reshape(N * F_SOFT, S), tables, prec)
@@ -1444,12 +1638,11 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w, sweep_err
     joint = alphas.view(tt, N, F_SOFT, S).permute(1, 0, 2, 3).reshape(T, F_SOFT, S)
     del alphas
     llr_ms = cuda_ms(lambda: soft._llrs_from_joints(joint, tables))
-    staged = soft._llrs_from_joints(joint, tables)
-    if not torch.equal(staged, out):
-        fail("decode_soft in stages gives other LLRs than the call (max |diff| "
-             f"{(staged - out).abs().max().item()!r}): the stage times describe "
-             "other code")
-    print("decode_soft in stages: the same LLRs as the call")
+    plain_gap = (soft._llrs_from_joints(joint, tables) - out).abs().max().item()
+    print(f"decode_soft (K6) against the plain scans and combine on the same "
+          f"boundaries: max |LLR diff| {plain_gap!r} (limit {K4_LOGPROB_ATOL})")
+    if not plain_gap <= K4_LOGPROB_ATOL:
+        fail(f"K6's LLRs lie {plain_gap} from the plain scans', beyond {K4_LOGPROB_ATOL}")
     del joint, staged, m, entry, beta_start, beta_tile_end, tiles
     torch.cuda.reset_peak_memory_stats()
     walls = sorted(host_ms(lambda: decoder.decode_soft(x))[1] for _ in range(3))
@@ -1459,9 +1652,12 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w, sweep_err
           f"T={T} steps, TT={tt})")
     print(f"time LOGPROB prefix scan (associative_scan): {prefix_ms:.3f} ms")
     print(f"time LOGPROB suffix scan (reverse associative_scan): {suffix_ms:.3f} ms")
-    print(f"time alpha scan ({tt} steps x {N * F_SOFT} rows): {alpha_ms:.3f} ms")
-    print(f"time beta scan ({tt - 1} steps x {N * F_SOFT} rows): {beta_ms:.3f} ms")
-    print(f"time _llrs_from_joints ({T} x {F_SOFT} x {S}): {llr_ms:.3f} ms")
+    print(f"time K6-F alpha sweep ({tt} steps x {N * F_SOFT} rows): {k6f_ms:.3f} ms")
+    print(f"time K6-B beta sweep and LLR combine ({tt} boundaries x {N * F_SOFT} rows): "
+          f"{k6b_ms:.3f} ms")
+    print(f"time plain alpha scan ({tt} steps x {N * F_SOFT} rows): {alpha_ms:.3f} ms")
+    print(f"time plain beta scan ({tt - 1} steps x {N * F_SOFT} rows): {beta_ms:.3f} ms")
+    print(f"time plain _llrs_from_joints ({T} x {F_SOFT} x {S}): {llr_ms:.3f} ms")
     print(f"time decode_soft(llr) wall: {wall:.3f} ms (median of "
           f"{', '.join(f'{t:.3f}' for t in walls)}; K3-LOGPROB {k3_ms / wall:.1%})")
     print(f"soft decoded: {F_SOFT * N_FULL / wall / 1e3:.3f} Mb/s")
@@ -1572,15 +1768,20 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w, sweep_err
             EBN0_DB, spec3.rate)
     for kernel in (k1, k3, k4):
         kernel.launches = kernel.logprob_launches = 0
+    k6.launches = k6.backward_launches = 0
     out3, paths = dispatched(lambda: tbd.decode_soft(y))
     tb_launches = k3.logprob_launches
     tb_k4, tb_k4_want = k4.logprob_launches, 2 * scan_composes(N_TBCC // 2)
     print(f"lte-tbcc decode_soft: dispatch {paths}; K3-LOGPROB launches "
-          f"{tb_launches} (K3 {k3.launches}, K1 {k1.launches}); K4-LOGPROB launches "
-          f"{tb_k4} (the circular BCJR's two scans over {N_TBCC // 2} steps: {tb_k4_want})")
+          f"{tb_launches} (K3 {k3.launches}, K1 {k1.launches}, K6 {k6.launches}); "
+          f"K4-LOGPROB launches {tb_k4} (the circular BCJR's two scans over "
+          f"{N_TBCC // 2} steps: {tb_k4_want})")
     if paths != {"soft": 1} or (tb_launches, k3.launches, k1.launches) != (1, 1, 0):
         fail(f"lte-tbcc decode_soft dispatched {paths} with {tb_launches} "
              "K3-LOGPROB launches")
+    if k6.launches:
+        fail(f"lte-tbcc decode_soft launched K6 {k6.launches} times: the circular "
+             "BCJR keeps its own plain combine")
     if (k4.launches, tb_k4) != (tb_k4_want, tb_k4_want):
         fail(f"lte-tbcc decode_soft launched K4 ({k4.launches}, {tb_k4}), not "
              f"{tb_k4_want} LOGPROB composes")
@@ -1609,11 +1810,13 @@ def soft_phase(decoder, llrs, info, bits_batch, quant, gen, tables, w, sweep_err
           f"{k3_tb_ms:.3f} ms; plain version {k3_tb_plain_ms:.3f} ms")
     print(f"time lte-tbcc decode_soft wall: {walls3[1]:.3f} ms (median of "
           f"{', '.join(f'{t:.3f}' for t in walls3)})")
+
+    k6_rows = k6_cell_phase(llrs, tables, prec, w, k6_launches)
     print(f"phase 10 (soft) took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     shape = (f"decode_soft(llr): F={F_SOFT} x {N_FULL} stages, T={T} steps, "
              f"TT={tt}, N={N}")
-    return k4_launches[1], [{
+    return k4_launches[1], k6_rows + [{
         "name": "K1-LOGPROB acs_forward",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/acs_forward.cu",
@@ -1723,11 +1926,12 @@ def kernel_patches(**extra):
 def launch_counts():
     from repro_torch.kernels import viterbi_acs
 
-    k1, k2, k3 = (viterbi_acs.acs_forward, viterbi_acs.acs_decode_fused,
-                  viterbi_acs.transfer_matrix)
+    k1, k2, k3, k6 = (viterbi_acs.acs_forward, viterbi_acs.acs_decode_fused,
+                      viterbi_acs.transfer_matrix, viterbi_acs.bcjr_sweep)
     return {"K1": k1.launches - k1.logprob_launches, "K1-LOGPROB": k1.logprob_launches,
             "K2": k2.launches, "K3": k3.launches - k3.logprob_launches,
-            "K3-LOGPROB": k3.logprob_launches}
+            "K3-LOGPROB": k3.logprob_launches,
+            "K6-F": k6.launches - k6.backward_launches, "K6-B": k6.backward_launches}
 
 
 def zero_counts():
@@ -1736,6 +1940,7 @@ def zero_counts():
     for kernel in (viterbi_acs.acs_forward, viterbi_acs.transfer_matrix):
         kernel.launches = kernel.logprob_launches = 0
     viterbi_acs.acs_decode_fused.launches = 0
+    viterbi_acs.bcjr_sweep.launches = viterbi_acs.bcjr_sweep.backward_launches = 0
 
 
 def main_path(label, fn, want_paths, want_launches, patches=None, keep=()):
@@ -2040,7 +2245,7 @@ def punctured_soft(name, dec, bits, llrs, hard, launches):
     label = f"{name} decode_soft"
     soft, launches[label], _, st = main_path(
         f"{label}(llr) on {F_SOFT} frames", lambda: dec.decode_soft(xs),
-        {"soft": 1}, {"K3-LOGPROB": 1}, keep=("K3",))
+        {"soft": 1}, SOFT_LAUNCHES, keep=("K3",))
     signs = (soft < 0).to(torch.int32)
     print(f"{name} soft: {int((signs != hard[:F_SOFT]).sum())} bits of llr < 0 "
           f"differ from decode_batch's; min |llr| {soft.abs().min().item():.3f}")
@@ -2181,7 +2386,7 @@ def serve_want(path, length, shards):
     return {"batch": {"K1": 1}, "sharded": {"K1": shards},
             "time_parallel": {"K3": 1, "K1": 1},
             "stream": {"K2": -(-length // STREAM_CHUNK)},
-            "wava": {"K1": DEFAULT_WAVA_ITERS}, "soft": {"K3-LOGPROB": 1},
+            "wava": {"K1": DEFAULT_WAVA_ITERS}, "soft": SOFT_LAUNCHES,
             "session": {"K2": 1}}[path]
 
 
@@ -2447,7 +2652,7 @@ def serve_phase(dev):
     t_end = time.perf_counter()
     counts = {k: v for k, v in launch_counts().items() if v}
     print(f"serve clean run: launches {counts}", flush=True)
-    for kernel in ("K1", "K2", "K3", "K3-LOGPROB"):
+    for kernel in ("K1", "K2", "K3", "K3-LOGPROB", "K6-F", "K6-B"):
         if not counts.get(kernel):
             fail(f"serve clean run: {kernel} was not launched")
     serve_gate_launches("serve clean run", log)

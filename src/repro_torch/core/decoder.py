@@ -26,9 +26,10 @@ zero-terminated and tail-biting frames, with or without puncturing.
     the ring and the chunk);
   * ``decode_soft`` — BCJR per-bit LLRs or their hard decisions
     (``core/soft.py``: LOGPROB transfer matrices in K3-LOGPROB, log-depth
-    scans, plain within-tile alpha and beta scans; the exact circular
-    BCJR for tail-biting frames), and top-L list-Viterbi (plain scans;
-    the WAVA list loop for tail-biting frames);
+    scans, the within-tile alpha and beta sweeps and the LLR combine in
+    K6 on the card, plain scans off it; the exact circular BCJR for
+    tail-biting frames), and top-L list-Viterbi (plain scans; the WAVA
+    list loop for tail-biting frames);
   * ``decode_sharded`` — ``decode_batch``'s sequential path with the
     frames split over the shards of a ``distributed.decoder.FrameMesh``,
     K1 once a shard.

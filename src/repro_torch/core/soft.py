@@ -16,13 +16,18 @@ boundary joints  joint_{t+1}[j] = alpha_{t+1}[j] + beta_{t+1}[j]  and
 Open frames (``bcjr_llrs``) take the time-parallel machinery of
 ``core/timeparallel.py`` at LOGPROB: tile transfer matrices (K3-LOGPROB
 on the card), a forward associative scan for the tile-entry alphas, a
-reverse scan (flipped compose) for the tile-end betas, then plain
-within-tile alpha and beta scans over all tiles at once fill in every
-boundary.  Tail-biting frames (``bcjr_circular_llrs``) get the exact
-circular BCJR: per-stage matrices (K3-LOGPROB at one step a tile),
-prefix and suffix scans and the diagonal contraction
-joint_{t+1}[j] = lse_s(P_t[s, j] + S_{t+1}[j, s]).  Every per-step renorm
-and per-tile normalisation is a constant per (frame, boundary) and
+reverse scan (flipped compose) for the tile-end betas (K4-LOGPROB
+composes both), then within-tile alpha and beta sweeps over all tiles at
+once fill in every boundary.  On the card with ``use_kernel`` the sweeps
+are K6: K6-F writes every boundary's alpha, K6-B walks the betas back
+and forms each boundary's LLRs in registers, so no beta or joint is
+stored; elsewhere the plain scans (``_alpha_scan``, ``_beta_scan``) and
+``_llrs_from_joints`` run, one Python step per radix step.  Tail-biting
+frames (``bcjr_circular_llrs``) get the exact circular BCJR: per-stage
+matrices (K3-LOGPROB at one step a tile), prefix and suffix scans and
+the diagonal contraction joint_{t+1}[j] = lse_s(P_t[s, j] + S_{t+1}[j,
+s]), and the plain combine.  Every per-step renorm, per-tile
+normalisation and combine max is a constant per (frame, boundary) and
 cancels in the LLR difference.
 
 **List-Viterbi** (``list_decode``) grows the metric carry a rank axis
@@ -35,8 +40,9 @@ promises and ``torch.topk`` does not, which makes L=1 bit-exact with
 slot); the traceback walks (state, rank) chains.  ``wava_list_decode``
 runs the WAVA loop over the list forward for tail-biting frames.
 
-The alpha, beta, list-forward and traceback scans are plain PyTorch, one
-Python step per radix step, as the traceback of ``core/viterbi.py`` is.
+The list-forward and traceback scans, and the alpha and beta scans off
+the kernel route, are plain PyTorch, one Python step per radix step, as
+the traceback of ``core/viterbi.py`` is.
 Functions that take LLRs take ``device`` (None is the card); the others
 work on the device of their input tensors.
 """
@@ -169,6 +175,34 @@ def _llrs_from_joints(joint: torch.Tensor, tables: AcsTables) -> torch.Tensor:
         return llr.permute(1, 0, 2).reshape(joint.shape[1], -1)  # (F, T*rho)
 
 
+def _tile_boundaries(
+    blocks: torch.Tensor,  # (T', F, B) half-scaled channel scores
+    lam0: torch.Tensor,  # (F, S) alpha at boundary 0
+    beta_end: torch.Tensor,  # (F, S) beta at boundary T'
+    tables: AcsTables,
+    precision: AcsPrecision,
+    transfer_tile: int,
+    use_kernel: bool,
+):
+    """(entry, beta_tile_end), each (N, F, S): the alpha entering and the
+    beta leaving every tile.  LOGPROB tile transfer matrices and forward
+    and reverse associative scans give them in log depth."""
+    m = transfer_matrices(
+        blocks, tables, precision, transfer_tile, use_kernel=use_kernel,
+        semiring=LOGPROB,
+    )  # (N, F, S, S)
+    mm = precision.matmul_dtype
+    prefix = associative_scan(_compose(mm, LOGPROB, use_kernel=use_kernel), m)
+    entry = entry_from_prefix(prefix, lam0, LOGPROB)  # (N, F, S) tile alphas
+    del prefix
+    suffix = associative_scan(
+        _compose(mm, LOGPROB, flip=True, use_kernel=use_kernel), m, reverse=True)
+    # beta at the start of tile p: suffix_p composed into the end metric
+    beta_start = LOGPROB.sum(suffix + beta_end[None, :, None, :], dim=-1)
+    del suffix, m
+    return entry, torch.cat([beta_start[1:], beta_end[None]], dim=0)
+
+
 def _bcjr_joints(
     blocks: torch.Tensor,  # (T', F, B) half-scaled channel scores
     lam0: torch.Tensor,  # (F, S) alpha at boundary 0
@@ -181,30 +215,16 @@ def _bcjr_joints(
 ) -> torch.Tensor:
     """Boundary joints alpha+beta at boundaries 1..T': (T', F, S).
 
-    LOGPROB tile transfer matrices and forward and reverse associative
-    scans give the tile-boundary alphas and betas in log depth; the
-    within-tile scans (tiles folded into the frame axis) fill in the
-    per-step boundaries at tile depth.
+    The tile boundaries (``_tile_boundaries``), then the plain within-tile
+    scans (tiles folded into the frame axis) fill in the per-step
+    boundaries at tile depth.
     """
     T, F, B = blocks.shape
     S = tables.n_states
     tt = transfer_tile
     n_tiles = T // tt
-    m = transfer_matrices(
-        blocks, tables, precision, tt, use_kernel=use_kernel,
-        semiring=LOGPROB,
-    )  # (N, F, S, S)
-    mm = precision.matmul_dtype
-    prefix = associative_scan(_compose(mm, LOGPROB, use_kernel=use_kernel), m)
-    entry = entry_from_prefix(prefix, lam0, LOGPROB)  # (N, F, S) tile alphas
-    del prefix
-    suffix = associative_scan(
-        _compose(mm, LOGPROB, flip=True, use_kernel=use_kernel), m, reverse=True)
-    # beta at the start of tile p: suffix_p composed into the end metric
-    beta_start = LOGPROB.sum(suffix + beta_end[None, :, None, :], dim=-1)
-    del suffix, m
-    beta_tile_end = torch.cat([beta_start[1:], beta_end[None]], dim=0)
-
+    entry, beta_tile_end = _tile_boundaries(
+        blocks, lam0, beta_end, tables, precision, tt, use_kernel)
     tiles = tiled_blocks(blocks.to(precision.channel_dtype), tt).reshape(
         tt, n_tiles * F, B
     )
@@ -215,6 +235,30 @@ def _bcjr_joints(
     )
     joint = joint.view(tt, n_tiles, F, S)
     return joint.permute(1, 0, 2, 3).reshape(T, F, S)
+
+
+def _sweeps_in_kernel(device: torch.device, use_kernel: bool) -> bool:
+    """Whether ``bcjr_llrs`` takes the within-tile sweeps in K6: on the
+    card with ``use_kernel``; the CPU keeps the plain scans."""
+    return use_kernel and device.type == "cuda"
+
+
+def _bcjr_sweep_llrs(blocks, lam0, beta_end, tables, rev, precision, tt, dev):
+    """The tile boundaries, then K6-F inside the ``alpha`` stage and K6-B
+    (the beta sweep and the LLR combine) inside the ``beta`` stage:
+    LLRs (F, T' * rho)."""
+    from repro_torch.kernels import ops as kernel_ops
+
+    entry, beta_tile_end = _tile_boundaries(
+        blocks, lam0, beta_end, tables, precision, tt, True)
+    with stage("alpha", device=dev):
+        alphas = kernel_ops.bcjr_sweep(
+            blocks, entry, tables, rev, precision, transfer_tile=tt)
+    del entry
+    with stage("beta", device=dev):
+        return kernel_ops.bcjr_sweep(
+            blocks, beta_tile_end, tables, rev, precision, transfer_tile=tt,
+            alphas=alphas)
 
 
 def bcjr_llrs(
@@ -234,8 +278,9 @@ def bcjr_llrs(
     Positive = bit 0 more likely (the hard decision is ``llr < 0``, the
     convention of the channel LLRs).  ``use_kernel`` (default) forms the
     tile transfer matrices in K3-LOGPROB and composes them in K4-LOGPROB
-    (their plain versions on the CPU); ``use_kernel=False`` runs the
-    plain versions directly.
+    (their plain versions on the CPU), and on the card runs the
+    within-tile sweeps and the LLR combine in K6; ``use_kernel=False``
+    runs the plain versions directly.
     """
     dev = resolve_device(device)
     llrs = torch.as_tensor(llrs, device=dev).to(torch.float32)
@@ -248,6 +293,8 @@ def bcjr_llrs(
     tt = pick_transfer_tile(blocks.shape[0], transfer_tile)
     lam0 = init_metric(F, spec.n_states, initial_state, device=dev)
     beta_end = _end_metric(F, spec.n_states, final_state, dev)
+    if _sweeps_in_kernel(dev, use_kernel):
+        return _bcjr_sweep_llrs(blocks, lam0, beta_end, tables, rev, precision, tt, dev)
     joint = _bcjr_joints(
         blocks, lam0, beta_end, tables, rev, precision, tt, use_kernel
     )

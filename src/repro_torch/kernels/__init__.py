@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper, one per Pallas TPU kernel of the
-reference and K4 for the scans' compose, each with its plain PyTorch
-version.
+reference, K4 for the scans' compose and K6 for the BCJR's within-tile
+sweeps, each with its plain PyTorch version.
 
 Layout: ``csrc/`` (CUDA C++ sources, built with ``nvcc`` at first use),
 ``<name>.py`` (build, binding and the wrapper that launches the kernel),
@@ -15,6 +15,7 @@ from .ops import (  # noqa: F401
 from .viterbi_acs import (  # noqa: F401
     acs_decode_fused,
     acs_forward,
+    bcjr_sweep,
     semiring_compose,
     transfer_matrix,
 )

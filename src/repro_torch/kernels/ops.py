@@ -7,7 +7,9 @@ full survivor tensor written out and a plain PyTorch traceback after it.
 sliding-window traceback in one kernel, the survivors kept in its ring.
 ``viterbi_transfer_matrices`` is the formation of the time-parallel
 decode (K3), plug-compatible with ``core.timeparallel.transfer_matrices``
-and selected there by ``use_kernel=True``.
+and selected there by ``use_kernel=True``.  ``bcjr_sweep`` is the BCJR's
+within-tile sweeps (K6-F, and K6-B with the LLR combine), which
+``core.soft.bcjr_llrs`` takes on the card with ``use_kernel=True``.
 """
 from __future__ import annotations
 
@@ -18,17 +20,19 @@ import torch
 
 from repro_torch.core import kernel_geometry
 from repro_torch.core.kernel_geometry import DEFAULT_TIME_TILE
-from repro_torch.core.trellis import AcsTables
+from repro_torch.core.trellis import AcsTables, ReverseTables
 from repro_torch.core.viterbi import AcsPrecision
 from repro_torch.obs.trace import stage
 
 from .viterbi_acs import (
-    GatherOperands, acs_decode_fused, acs_forward, gather_operands, transfer_matrix,
+    GatherOperands, SweepOperands, acs_decode_fused, acs_forward, gather_operands,
+    sweep_operands, transfer_matrix,
 )
+from .viterbi_acs import bcjr_sweep as _bcjr_sweep
 
 __all__ = [
     "viterbi_forward", "viterbi_decode_fused", "viterbi_transfer_matrices",
-    "ring_words", "ring_dtype", "device_tables",
+    "bcjr_sweep", "ring_words", "ring_dtype", "device_tables", "device_sweep_tables",
 ]
 
 
@@ -151,3 +155,44 @@ def viterbi_transfer_matrices(
             semiring=semiring,
             operands=operands,
         )
+
+
+@functools.lru_cache(maxsize=64)
+def device_sweep_tables(tables: AcsTables, rev: ReverseTables,
+                        device: torch.device) -> Tuple[SweepOperands, SweepOperands]:
+    """K6's operands of both directions on ``device``, made once per
+    (tables, device): the forward sweep's from ``theta_t`` and
+    ``pred_onehot``, the backward sweep's from ``theta_rev`` and
+    ``succ_onehot``, both with ``dec_bits``.  The routing halves are
+    checked here on the host (``sweep_operands`` raises on one that is
+    not a one-hot), so no launch uploads or reads a table."""
+    fwd = sweep_operands(tables.theta_t, tables.pred_onehot, tables.dec_bits)
+    bwd = sweep_operands(rev.theta_rev, rev.succ_onehot, tables.dec_bits)
+    return tuple(SweepOperands(*(x.to(device) for x in ops)) for ops in (fwd, bwd))
+
+
+def bcjr_sweep(
+    blocks: torch.Tensor,  # (T', F, B) half-scaled channel scores
+    metric: torch.Tensor,  # (N, F, S) tile-entry alphas, or tile-end betas
+    tables: AcsTables,
+    rev: ReverseTables,
+    precision=None,
+    *,
+    transfer_tile: int,
+    alphas=None,
+):
+    """K6-backed within-tile sweep: without ``alphas`` the alphas (tt,
+    N*F, S) from the tile-entry alphas (K6-F); with them the LLRs (F,
+    T' * rho) from the tile-end betas (K6-B).  The blocks are rounded to
+    ``precision.channel_dtype`` first, as ``core.soft`` rounds its
+    tiles."""
+    precision = precision or AcsPrecision()
+    fwd, bwd = device_sweep_tables(tables, rev, blocks.device)
+    if precision.channel_dtype != torch.float32:
+        blocks = blocks.to(precision.channel_dtype).to(torch.float32)
+    return _bcjr_sweep(
+        blocks, metric, fwd if alphas is None else bwd,
+        transfer_tile=transfer_tile, alphas=alphas,
+        carry_dtype=precision.carry_dtype, matmul_dtype=precision.matmul_dtype,
+        renorm=precision.renorm, split_dot=precision.split_dot,
+    )

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of K1 (``viterbi_acs.acs_forward``), K2
-(``viterbi_acs.acs_decode_fused``) and K3 (``viterbi_acs.transfer_matrix``):
-the same contracts, one radix step at a time.  K1 and K3 take the
-semiring of their slot reduction by name: ``"tropical"`` (the max) or
-``"logprob"`` (``Semiring.sum``'s max-normalised logsumexp).
+(``viterbi_acs.acs_decode_fused``), K3 (``viterbi_acs.transfer_matrix``)
+and K6 (``viterbi_acs.bcjr_sweep``): the same contracts, one radix step
+at a time.  K1 and K3 take the semiring of their slot reduction by name:
+``"tropical"`` (the max) or ``"logprob"`` (``Semiring.sum``'s
+max-normalised logsumexp); K6 is LOGPROB only.
 
 The wrappers run these for CPU tensors; the tests hold them against the
 reference's Pallas kernels, and ``chip_smoke.py`` holds the CUDA kernels
@@ -21,12 +22,13 @@ from repro_torch.core.kernel_geometry import (
     ring_dtype,
     ring_words,
 )
-from repro_torch.core.semiring import get_semiring
+from repro_torch.core.semiring import LOGPROB, NEG, get_semiring
 from repro_torch.core.viterbi import AcsPrecision, dot_f32, fused_potentials
 
 __all__ = [
     "acs_forward_ref", "acs_forward_gather_ref", "acs_decode_fused_ref",
-    "acs_decode_fused_maps_ref", "transfer_matrix_ref",
+    "acs_decode_fused_maps_ref", "transfer_matrix_ref", "bcjr_forward_ref",
+    "bcjr_backward_ref", "bcjr_sweep_ref",
 ]
 
 
@@ -372,3 +374,122 @@ def transfer_matrix_ref(
         new = sr.sum(pot.view(rows, S, R), dim=-1)
         m = new.to(carry_dtype).to(torch.float32).view(N, F, S, S)
     return m - m.amax(dim=(-2, -1), keepdim=True)
+
+
+def _sweep_rows(blocks: torch.Tensor, tt: int, matmul_dtype) -> torch.Tensor:
+    """(T', F, B) -> (tt, N*F, B): step t of row p*F + f is step p*tt + t
+    of frame f, rounded to ``matmul_dtype``."""
+    T, F, B = blocks.shape
+    rows = blocks.reshape(T // tt, tt, F, B).permute(1, 0, 2, 3).reshape(tt, -1, B)
+    return rows.to(matmul_dtype).to(torch.float32)
+
+
+def _sweep_step_ref(l_t, lam, cols, operands, S, R, *, carry_dtype, matmul_dtype,
+                    renorm, split_dot):
+    """K6's step on rows (rows, B) and metrics (rows, S): each column's
+    branch metric an fmaf chain in k order (``_fma_f32``), each potential
+    that plus the routed metric (rounded to ``matmul_dtype`` unless
+    ``split_dot``), the tournament logsumexp, the renorm, the carry."""
+    bm = torch.zeros((l_t.shape[0], cols.shape[1]), dtype=torch.float32, device=l_t.device)
+    for k in range(l_t.shape[1]):
+        bm = _fma_f32(l_t[:, k, None], cols[k][None, :], bm)
+    x = lam if split_dot else lam.to(matmul_dtype).to(torch.float32)
+    cid = operands.cid.to(torch.int64)
+    route = operands.route.to(torch.int64)
+    pot = (bm[:, cid] + x[:, route]).view(-1, S, R)
+    new = _tournament_logsumexp(pot)
+    if renorm:
+        new = new - new.amax(dim=-1, keepdim=True)
+    return new.to(carry_dtype).to(torch.float32)
+
+
+def bcjr_forward_ref(
+    blocks: torch.Tensor,  # (T', F, B)
+    entry: torch.Tensor,  # (N, F, S) tile-entry alphas
+    operands,  # viterbi_acs.SweepOperands of the forward tables
+    *,
+    transfer_tile: int,
+    carry_dtype: torch.dtype = torch.float32,
+    matmul_dtype: torch.dtype = torch.float32,
+    renorm: bool = True,
+    split_dot: bool = False,
+) -> torch.Tensor:
+    """K6-F's plain version: the alphas at boundaries 1..tt of every row
+    p*F + f, (tt, N*F, S) f32, in the kernel's arithmetic order
+    (``_sweep_step_ref``; ``torch.exp`` and ``torch.log`` where the kernel
+    takes CUDA's accurate ``expf`` and ``log_of_sum``).  The same
+    rounding points as ``soft._alpha_scan``."""
+    N, F, S = entry.shape
+    R = operands.cid.numel() // S
+    tiles = _sweep_rows(blocks, transfer_tile, matmul_dtype)
+    cols = operands.cols.to(matmul_dtype).to(torch.float32)
+    lam = entry.reshape(N * F, S).to(carry_dtype).to(torch.float32)
+    alphas = torch.empty((transfer_tile, N * F, S), dtype=torch.float32, device=entry.device)
+    for t in range(transfer_tile):
+        lam = _sweep_step_ref(tiles[t], lam, cols, operands, S, R, carry_dtype=carry_dtype,
+                              matmul_dtype=matmul_dtype, renorm=renorm, split_dot=split_dot)
+        alphas[t] = lam
+    return alphas
+
+
+def _joint_llrs(joint: torch.Tensor, dec: torch.Tensor, rho: int) -> torch.Tensor:
+    """(rows, S) boundary joints -> (rows, rho) LLRs: per bit, the
+    logsumexp of the joints whose state has the bit 0 less that of those
+    with the bit 1, every other state standing in as NEG, as
+    ``soft._llrs_from_joints`` masks them."""
+    neg = torch.tensor(NEG, dtype=torch.float32, device=joint.device)
+    out = []
+    for b in range(rho):
+        one = ((dec.to(torch.int64) >> b) & 1).bool()[None, :]
+        out.append(LOGPROB.sum(torch.where(one, neg, joint), dim=-1)
+                   - LOGPROB.sum(torch.where(one, joint, neg), dim=-1))
+    return torch.stack(out, dim=-1)
+
+
+def bcjr_backward_ref(
+    blocks: torch.Tensor,  # (T', F, B)
+    beta_tile_end: torch.Tensor,  # (N, F, S) tile-end betas
+    alphas: torch.Tensor,  # (tt, N*F, S) the forward sweep's alphas
+    operands,  # viterbi_acs.SweepOperands of the reversed tables
+    *,
+    transfer_tile: int,
+    carry_dtype: torch.dtype = torch.float32,
+    matmul_dtype: torch.dtype = torch.float32,
+    renorm: bool = True,
+    split_dot: bool = False,
+) -> torch.Tensor:
+    """K6-B's plain version: the LLRs (F, T' * rho) f32.  Per row, from
+    t = tt-1 down to 0: the LLRs of the joint alpha[t] + beta at boundary
+    t+1 (``_joint_llrs``), the beta at boundary tt being the tile-end beta
+    unrounded, then for t >= 1 the reverse step (``_sweep_step_ref``) to
+    the beta at boundary t.  The same rounding points as
+    ``soft._beta_scan`` and ``soft._llrs_from_joints``."""
+    N, F, S = beta_tile_end.shape
+    R = operands.cid.numel() // S
+    rho = R.bit_length() - 1
+    tt = transfer_tile
+    tiles = _sweep_rows(blocks, tt, matmul_dtype)
+    cols = operands.cols.to(matmul_dtype).to(torch.float32)
+    beta = beta_tile_end.reshape(N * F, S).to(torch.float32)
+    lam = beta.to(carry_dtype).to(torch.float32)
+    llr = torch.empty((tt, N * F, rho), dtype=torch.float32, device=beta.device)
+    for t in range(tt - 1, -1, -1):
+        llr[t] = _joint_llrs(alphas[t] + beta, operands.dec, rho)
+        if t:
+            lam = _sweep_step_ref(tiles[t], lam, cols, operands, S, R,
+                                  carry_dtype=carry_dtype, matmul_dtype=matmul_dtype,
+                                  renorm=renorm, split_dot=split_dot)
+            beta = lam
+    return llr.view(tt, N, F, rho).permute(2, 1, 0, 3).reshape(F, N * tt * rho)
+
+
+def bcjr_sweep_ref(blocks, entry, beta_tile_end, forward, backward, *,
+                   transfer_tile: int, **precision) -> torch.Tensor:
+    """K6's plain version whole: (blocks (T', F, B), tile-entry alphas and
+    tile-end betas (N, F, S)) -> LLRs (F, T' * rho), ``bcjr_forward_ref``
+    on the forward tables' operands, then ``bcjr_backward_ref`` on the
+    reversed tables'."""
+    alphas = bcjr_forward_ref(blocks, entry, forward, transfer_tile=transfer_tile,
+                              **precision)
+    return bcjr_backward_ref(blocks, beta_tile_end, alphas, backward,
+                             transfer_tile=transfer_tile, **precision)

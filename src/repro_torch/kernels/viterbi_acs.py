@@ -1,6 +1,7 @@
 """K1, K2 and K3 — the kernels of the reference, hand-written in CUDA for
-Hopper — and K4, the compose of the scans, which the reference leaves to
-XLA.
+Hopper — K4, the compose of the scans, which the reference leaves to
+XLA, and K6, the BCJR's within-tile sweeps, which the reference runs as
+``lax.scan``s.
 
   * K1, ``acs_forward`` (``csrc/acs_forward.cu``), replaces
     ``acs_forward_pallas`` (body ``_acs_kernel``) of the reference's
@@ -16,14 +17,19 @@ XLA.
     Pallas kernel: the semiring product of (S x S) matrices that
     ``Semiring.matmul`` runs at every level of ``associative_scan``,
     where the reference broadcasts and reduces.
+  * K6, ``bcjr_sweep`` (``csrc/bcjr_sweep.cu``), replaces no Pallas
+    kernel: the within-tile alpha sweep of ``bcjr_llrs`` (K6-F), and its
+    beta sweep with the LLR combine fused in (K6-B), two launches a call
+    where the plain versions step each tile in Python.
 
 K1-K3 share the ACS step of ``csrc/acs_step.cuh``; each source's header
 comment gives its design and what bounds it on an H100.  K1 and K3 take
 ``semiring``, as the reference's kernels do: ``"tropical"`` (the slot
 max) or ``"logprob"`` (the max-normalised logsumexp of the BCJR), and so
-does K4.
+does K4.  K6 is LOGPROB only.
 ``launches`` counts every launch of a kernel, ``logprob_launches``
-those of its LOGPROB variant.
+those of its LOGPROB variant, and K6's ``backward_launches`` those of
+K6-B.
 
 The gather.  K1 and K3 at both semirings, and K2, form each potential as
 a branch metric plus the one predecessor metric that W's metric half
@@ -71,6 +77,7 @@ from repro_torch.core.kernel_geometry import (
     K3_MAX_STATES,
     SLOT_BITS,
     SMEM_LIMIT_BYTES,
+    STAGE_STEPS,
     check_packable,
     gather_stage_steps,
     gather_tables,
@@ -85,17 +92,24 @@ from repro_torch.core.kernel_geometry import (
 )
 from repro_torch.core.semiring import check_semiring, get_semiring
 
-from .ref import acs_decode_fused_ref, acs_forward_ref, transfer_matrix_ref
+from .ref import (
+    acs_decode_fused_ref,
+    acs_forward_ref,
+    bcjr_backward_ref,
+    bcjr_forward_ref,
+    transfer_matrix_ref,
+)
 
 __all__ = [
     "acs_forward", "acs_decode_fused", "transfer_matrix", "semiring_compose",
-    "build", "bind",
-    "gather_operands", "GatherOperands", "KernelError", "KernelRefusal", "SMEM_LIMIT_BYTES",
+    "bcjr_sweep", "build", "bind",
+    "gather_operands", "GatherOperands", "route_index", "sweep_operands", "SweepOperands", "KernelError", "KernelRefusal", "SMEM_LIMIT_BYTES",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # one shared library per kernel, each built from its own source
-KERNELS = ("acs_forward", "acs_decode_fused", "transfer_matrix", "semiring_compose")
+KERNELS = ("acs_forward", "acs_decode_fused", "transfer_matrix", "semiring_compose",
+           "bcjr_sweep")
 _HEADERS = (_CSRC / "acs_step.cuh",)
 # the checkout's build/ directory (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
@@ -253,6 +267,12 @@ def bind(path: Path, name: str) -> ctypes.CDLL:
             + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         )
         lib.semiring_compose_launch.restype = ctypes.c_int
+    elif name == "bcjr_sweep":
+        lib.bcjr_sweep_launch.argtypes = (
+            [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+            + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        )
+        lib.bcjr_sweep_launch.restype = ctypes.c_int
     else:
         lib.transfer_matrix_launch.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
@@ -814,3 +834,163 @@ def _launch_k4(a, b, S, *, semiring, matmul_dtype):
     _raise_on(lib, "semiring_compose", err)
     _count_launch(semiring_compose, semiring)
     return out
+
+
+class SweepOperands(NamedTuple):
+    """What K6 takes for one direction of the sweep, in place of W."""
+
+    cols: torch.Tensor  # (B, n_u) float32: Theta's distinct columns
+    cid: torch.Tensor  # (S*R,) int16: each column's index in ``cols``
+    route: torch.Tensor  # (S*R,) int16: the state each column's metric comes from
+    dec: torch.Tensor  # (S,) int32: each state's rho decoded bits, bit b at b
+
+
+def route_index(onehot) -> torch.Tensor:
+    """(S*R,) int64: the row of the one 1 in each column of a routing
+    one-hot (S, S*R), ``pred_onehot`` or ``succ_onehot``: the state whose
+    metric each potential adds.  Raises ``ValueError`` unless every
+    column holds exactly one 1.0 among 0.0s (then the dense sum of the
+    routing half is that one product).  Reads the one-hot on the host."""
+    routing = torch.as_tensor(onehot).detach().to("cpu", torch.float32)
+    if routing.dim() != 2:
+        raise ValueError(f"a routing one-hot is (S, S*R), got {tuple(routing.shape)}")
+    rows = routing.argmax(dim=0)
+    want = torch.zeros_like(routing)
+    want[rows, torch.arange(routing.shape[1])] = 1.0
+    if not torch.equal(routing, want):
+        raise ValueError(
+            "the routing half is not one 1.0 per column among 0.0s, so a "
+            "potential is not one routed metric plus a branch metric"
+        )
+    return rows
+
+
+def sweep_operands(theta, onehot, dec_bits) -> SweepOperands:
+    """K6's operands of one direction, on the CPU: Theta's (B, S*R)
+    distinct columns and each column's index among them, the routing index
+    of ``onehot`` (``route_index``, which raises on a routing half that is
+    not a one-hot) and the (S, rho) decoded bits packed one int a state."""
+    theta = torch.as_tensor(theta).to("cpu", torch.float32)
+    cols, cid = torch.unique(theta.T, dim=0, return_inverse=True)
+    dec = torch.as_tensor(dec_bits).to("cpu", torch.int64)
+    packed = (dec << torch.arange(dec.shape[1])).sum(dim=1)
+    return SweepOperands(cols.T.contiguous(), cid.to(torch.int16),
+                         route_index(onehot).to(torch.int16), packed.to(torch.int32))
+
+
+def bcjr_sweep(
+    blocks: torch.Tensor,  # (T', F, B) float32, T' a multiple of the tile
+    metric: torch.Tensor,  # (N, F, S) float32: tile-entry alphas or tile-end betas
+    operands: SweepOperands,
+    *,
+    transfer_tile: int,
+    alphas: Optional[torch.Tensor] = None,  # (tt, N*F, S) float32: K6-B's input
+    carry_dtype: torch.dtype = torch.float32,
+    matmul_dtype: torch.dtype = torch.float32,
+    renorm: bool = True,
+    split_dot: bool = False,
+):
+    """The BCJR's within-tile sweeps over rows p*F + f (tile p, frame f).
+
+    Without ``alphas`` (K6-F): from each tile's entry alpha, the tile's tt
+    LOGPROB steps on the forward tables' operands; returns the alphas at
+    boundaries 1..tt, (tt, N*F, S) f32, ``soft._alpha_scan``'s layout.
+    With ``alphas`` (K6-B): from each tile's end beta, the reverse steps
+    on the reversed tables' operands, and at every boundary the LLRs of
+    the joint alpha + beta; returns the LLRs (F, T' * rho) f32 of
+    ``bcjr_llrs``.  ``blocks`` may be strided along T' and F.  The
+    precision knobs are ``AcsPrecision``'s; float32 and bfloat16 carries
+    and matmul operands, anything else raises ``ValueError`` naming the
+    knob, on both devices.  More than ``K3_MAX_STATES`` (64) states
+    raise.  On CUDA tensors this launches K6 and adds one to
+    ``bcjr_sweep.launches`` (and, for K6-B, to
+    ``bcjr_sweep.backward_launches``); on CPU tensors it runs the plain
+    versions, ``bcjr_forward_ref`` and ``bcjr_backward_ref``."""
+    tensors = (blocks, metric, *operands) + (() if alphas is None else (alphas,))
+    dev = _one_device("bcjr_sweep", *tensors)
+    kw = _k6_args(blocks, metric, operands, alphas, transfer_tile=transfer_tile,
+                  carry_dtype=carry_dtype, matmul_dtype=matmul_dtype, renorm=renorm,
+                  split_dot=split_dot)
+    if dev.type == "cpu":
+        if alphas is None:
+            return bcjr_forward_ref(blocks, metric, operands, **kw)
+        return bcjr_backward_ref(blocks, metric, alphas, operands, **kw)
+    return _launch_k6(blocks, metric, operands, alphas, **kw)
+
+
+bcjr_sweep.launches = 0  # K6 launches (K6-F and K6-B) in this process
+bcjr_sweep.backward_launches = 0  # of which K6-B
+
+
+def _k6_args(blocks, metric, operands, alphas, *, transfer_tile, carry_dtype,
+             matmul_dtype, **kw):
+    """K6's checks on both devices; its keyword arguments."""
+    _check_dtypes("bcjr_sweep", matmul_dtype=matmul_dtype, carry_dtype=carry_dtype)
+    if blocks.dim() != 3 or metric.dim() != 3:
+        raise ValueError(
+            "bcjr_sweep: blocks must be (T', F, B) and the metric (N, F, S), got "
+            f"{tuple(blocks.shape)} and {tuple(metric.shape)}")
+    T, F, B = blocks.shape
+    N, S = metric.shape[0], metric.shape[2]
+    tt = transfer_tile
+    if tt <= 0 or T != N * tt or metric.shape[1] != F:
+        raise ValueError(
+            f"bcjr_sweep: {N} tiles of {tt} steps do not make T'={T}, or the "
+            f"metric's {metric.shape[1]} frames are not the blocks' {F}")
+    cols, cid, route, dec = operands
+    R = cid.numel() // max(S, 1)
+    if R not in SLOT_BITS or S < R or S & (S - 1) or S > K3_MAX_STATES:
+        raise ValueError(
+            f"bcjr_sweep: S={S} states and R={R} slots; K6 takes R in "
+            f"{list(SLOT_BITS)} and a power of two S in [R, {K3_MAX_STATES}]")
+    if (cols.dim() != 2 or cols.shape[0] != B or cols.dtype != torch.float32
+            or tuple(cid.shape) != (S * R,) or cid.dtype != torch.int16
+            or tuple(route.shape) != (S * R,) or route.dtype != torch.int16
+            or tuple(dec.shape) != (S,) or dec.dtype != torch.int32):
+        raise ValueError(f"bcjr_sweep: operands do not fit B={B}, S={S}, R={R}")
+    if blocks.dtype != torch.float32 or metric.dtype != torch.float32:
+        raise ValueError("bcjr_sweep: blocks and the metric must be float32")
+    if alphas is not None and (tuple(alphas.shape) != (tt, N * F, S)
+                               or alphas.dtype != torch.float32):
+        raise ValueError(
+            f"bcjr_sweep: alphas {tuple(alphas.shape)}/{alphas.dtype}, want "
+            f"{(tt, N * F, S)} float32")
+    return dict(transfer_tile=tt, carry_dtype=carry_dtype, matmul_dtype=matmul_dtype, **kw)
+
+
+@_card_errors
+def _launch_k6(blocks, metric, operands, alphas, *, transfer_tile, carry_dtype,
+               matmul_dtype, renorm, split_dot):
+    dev = blocks.device
+    _check_card(dev, "K6")
+    if blocks.stride(-1) != 1:
+        blocks = blocks.contiguous()
+    metric = metric.contiguous()
+    T, F, B = blocks.shape
+    N, S, tt = metric.shape[0], metric.shape[2], transfer_tile
+    cols, cid, route, dec = operands
+    R = cid.numel() // S
+    rows = N * F
+    backward = alphas is not None
+    if backward:
+        alphas = alphas.contiguous()
+        out = torch.empty((F, T * SLOT_BITS[R]), dtype=torch.float32, device=dev)
+    else:
+        alphas = torch.empty((tt, rows, S), dtype=torch.float32, device=dev)
+        out = None
+    if rows == 0:
+        return out if backward else alphas
+    lib = _library("bcjr_sweep")
+    err = lib.bcjr_sweep_launch(
+        int(backward), blocks.data_ptr(), blocks.stride(0), blocks.stride(1),
+        metric.data_ptr(), cols.data_ptr(), cid.data_ptr(), route.data_ptr(),
+        dec.data_ptr() if backward else None, alphas.data_ptr(),
+        out.data_ptr() if backward else None, tt, F, rows, B, S, R, cols.shape[1],
+        min(STAGE_STEPS, tt), _DTYPE_CODES[matmul_dtype], _DTYPE_CODES[carry_dtype],
+        int(renorm), int(split_dot), _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib, "bcjr_sweep", err)
+    bcjr_sweep.launches += 1
+    bcjr_sweep.backward_launches += int(backward)
+    return out if backward else alphas

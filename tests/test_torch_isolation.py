@@ -282,7 +282,8 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize(
-    "name", ["acs_forward", "acs_decode_fused", "transfer_matrix", "semiring_compose"]
+    "name", ["acs_forward", "acs_decode_fused", "transfer_matrix", "semiring_compose",
+             "bcjr_sweep"]
 )
 def test_every_kernel_build_raises_without_nvcc(monkeypatch, tmp_path, name):
     from repro_torch.kernels import viterbi_acs

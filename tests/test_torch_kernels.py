@@ -1266,9 +1266,8 @@ def _compose_operands(S, n, F, seed):
     return x[0:-1:2], x[1::2], x[2::2]
 
 
-def scan_composes(n):
-    """``chip_smoke.scan_composes``: the non-empty composes (K4 launches)
-    of one ``associative_scan`` over n elements."""
+def _chip_smoke():
+    """``chip_smoke.py`` at the repo's root, loaded as a module."""
     import importlib.util
     from pathlib import Path
 
@@ -1276,7 +1275,13 @@ def scan_composes(n):
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    return smoke.scan_composes(n)
+    return smoke
+
+
+def scan_composes(n):
+    """``chip_smoke.scan_composes``: the non-empty composes (K4 launches)
+    of one ``associative_scan`` over n elements."""
+    return _chip_smoke().scan_composes(n)
 
 
 @pytest.mark.parametrize("semiring", ["tropical", "logprob"])
@@ -1615,3 +1620,190 @@ def test_cuda_k4_scans_match_the_plain_tree():
         want = 2 * scan_composes(T // tt)
         assert k4.launches == want and want > 0
         assert k4.logprob_launches == (want if semiring == "logprob" else 0)
+
+
+# -- K6: the BCJR's within-tile sweeps -------------------------------------
+
+def test_k6_source_uses_accurate_expf_and_logf():
+    """K6 takes the accurate expf and logf and the shared step's
+    tournament logsumexp (no intrinsics, no fast-math flag in the build),
+    and its source says it replaces no Pallas kernel."""
+    import re
+
+    from repro_torch.kernels import viterbi_acs
+
+    assert "bcjr_sweep" in viterbi_acs.KERNELS
+    src = (viterbi_acs._CSRC / "bcjr_sweep.cu").read_text()
+    assert "Replaces no Pallas kernel" in src
+    code = re.sub(r"//[^\n]*", "", src)
+    assert "expf(" in code and "logf(" in code and "reduce_slots<R, kLogprob>" in code
+    for fast in ("__expf", "__logf", "exp2f", "__fdividef", "ex2.approx"):
+        assert fast not in code
+    assert "fast" not in " ".join(viterbi_acs._NVCC_FLAGS)
+
+
+def _k6_card_inputs(code, rho, F, n_tiles, tt, seed, dev, precision=None):
+    """(tables, reverse tables, half-scaled Gaussian blocks (T', F, B) in
+    ``bcjr_llrs``'s strided layout, tile-entry alphas, tile-end betas,
+    the blocks' potential scale m) on the card, the boundaries from K3 and
+    K4 at LOGPROB."""
+    from repro_torch.codes import get_code
+    from repro_torch.core import CodeSpec, build_acs_tables
+    from repro_torch.core import soft
+    from repro_torch.core.trellis import build_reverse_tables
+    from repro_torch.core.viterbi import AcsPrecision, blocks_from_llrs, init_metric
+
+    spec = get_code(code).spec if isinstance(code, str) else CodeSpec(*code)
+    tb, rev = build_acs_tables(spec, rho), build_reverse_tables(spec, rho)
+    rng = np.random.default_rng(seed)
+    llrs = torch.from_numpy(
+        rng.normal(0.0, 3.0, (F, n_tiles * tt * rho, spec.beta)).astype(np.float32)).to(dev)
+    blocks = blocks_from_llrs(llrs, rho) * 0.5
+    S = spec.n_states
+    lam0 = init_metric(F, S, 0, device=dev)
+    beta_end = init_metric(F, S, None, device=dev)
+    entry, bte = soft._tile_boundaries(blocks, lam0, beta_end, tb,
+                                       precision or AcsPrecision(), tt, True)
+    m = blocks.abs().sum(dim=-1).max().item() + math.log(tb.n_slots)
+    return tb, rev, llrs, blocks, entry, bte, m
+
+
+def _k6_llr_bound(steps, scale, renorm, n_llr, n_slots, n_states):
+    """``chip_smoke.k6_llr_bound``: how far K6-B's LLRs may lie from its
+    plain version's on the same alphas in f32, which ``chip_smoke.py``
+    derives and holds the kernel to."""
+    return _chip_smoke().k6_llr_bound(steps, scale, n_llr, n_slots, n_states, renorm)
+
+
+def _bf16_step(x):
+    """The spacing of bfloat16 values (8 significant bits) at magnitudes
+    below 2^e, for the least such 2^e above ``x``: 2^(e - 8)."""
+    return 2.0 ** (math.frexp(x)[1] - 8)
+
+
+def _k6_hold(got, want, bound, label):
+    """Reachable entries (> -1e8) the same on both sides and within
+    ``bound``, the -1e9 entries equal."""
+    reach = want > -1e8
+    assert torch.equal(got > -1e8, reach), label
+    assert torch.equal(got[~reach], want[~reach]), label
+    assert (got - want)[reach].abs().max().item() <= bound, label
+
+
+@pytest.mark.cuda
+def test_cuda_k6_matches_plain_at_the_soft_cell():
+    """K6-F and K6-B against their plain versions on the card (needs an
+    H100 and nvcc) at the soft cell's shape, 128 tiles x 256 frames of
+    ccsds-k7 at tt 256: the alphas within ``_cuda_logprob_bound`` of
+    ``bcjr_forward_ref`` (which models the kernel's branch metrics, so
+    only the exponentials and the log and what they move differ), the
+    LLRs on the same alphas within ``_k6_llr_bound`` of
+    ``bcjr_backward_ref``, one launch each; then ``decode_soft`` (two K6
+    launches) within 1e-4 of the plain scans and combine on the same
+    boundaries (the soft tests' tolerance, ``K4_LOGPROB_ATOL``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.core import soft
+    from repro_torch.core.decoder import ViterbiDecoder
+    from repro_torch.core.viterbi import AcsPrecision, init_metric
+    from repro_torch.kernels import ops, viterbi_acs
+    from repro_torch.kernels.ref import bcjr_backward_ref, bcjr_forward_ref
+
+    dev = torch.device("cuda")
+    F, N, tt = 256, 128, 256
+    tb, rev, llrs, blocks, entry, bte, m = _k6_card_inputs("ccsds-k7", 2, F, N, tt, 36, dev)
+    S, R, B = tb.n_states, tb.n_slots, tb.llr_block
+    fwd, bwd = ops.device_sweep_tables(tb, rev, dev)
+    k6 = viterbi_acs.bcjr_sweep
+    before, back = k6.launches, k6.backward_launches
+    alphas = ops.bcjr_sweep(blocks, entry, tb, rev, transfer_tile=tt)
+    want_a = bcjr_forward_ref(blocks, entry, fwd, transfer_tile=tt)
+    torch.cuda.synchronize()
+    assert k6.launches == before + 1 and k6.backward_launches == back
+    assert alphas.shape == (tt, N * F, S)
+    d = -(-(tb.spec.k - 1) // 2)  # steps in which every state reaches every state
+    scale = d * (2 * m) + m
+    _k6_hold(alphas, want_a, _cuda_logprob_bound(tt, scale, True, 0, R), "K6-F")
+    del want_a
+    got = ops.bcjr_sweep(blocks, bte, tb, rev, transfer_tile=tt, alphas=alphas)
+    want = bcjr_backward_ref(blocks, bte, alphas, bwd, transfer_tile=tt)
+    torch.cuda.synchronize()
+    assert k6.launches == before + 2 and k6.backward_launches == back + 1
+    assert got.shape == (F, N * tt * 2)
+    assert torch.isfinite(got).all()
+    bound = _k6_llr_bound(tt - 1, scale, True, 0, R, S)
+    assert (got - want).abs().max().item() <= bound
+    del alphas, want, got
+
+    dec = ViterbiDecoder.from_standard("ccsds-k7", device=dev)
+    k6.launches = k6.backward_launches = 0
+    out = dec.decode_soft(llrs)
+    torch.cuda.synchronize()
+    assert (k6.launches, k6.backward_launches) == (2, 1)
+    lam0 = init_metric(F, S, 0, device=dev)
+    joint = soft._bcjr_joints(blocks, lam0, init_metric(F, S, None, device=dev), tb, rev,
+                              AcsPrecision(), tt, True)
+    plain = soft._llrs_from_joints(joint, tb)
+    assert (out - plain).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_k6_codes_radixes_and_knobs():
+    """K6 against its plain version on the card at each code and radix
+    (S = 16, 32, 64; rho 1..4; beta 3), rows that leave a block short, and
+    under the precision knobs: in f32 (and with split_dot at a bfloat16
+    matmul, where the routed metric stays f32) within the f32 bounds.
+    Where a bfloat16 carry or routed metric rounds, both sides round to
+    the same bfloat16 value unless their f32 values straddle a rounding
+    midpoint; then one metric differs by one bfloat16 step d at the
+    metrics' range X (``_bf16_step``).  Later steps move the two sides'
+    metric differences only within their spread (a logsumexp takes a
+    convex combination of them, a renorm shifts them all alike), so one
+    such flip in a row's alphas and one in its betas move the joint's
+    spread, and so an LLR, by at most 2 d: every LLR is held to the f32
+    bound plus 2 d, and the median distance and 95% of the LLRs to the
+    f32 bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.core.viterbi import AcsPrecision
+    from repro_torch.kernels import ops, viterbi_acs
+    from repro_torch.kernels.ref import bcjr_sweep_ref
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    cases = [("ccsds-k7", rho, AcsPrecision()) for rho in (1, 2, 3, 4)] + [
+        ("gsm-cs1", 2, AcsPrecision()), ((6, (0o53, 0o75)), 2, AcsPrecision()),
+        ("lte-tbcc", 2, AcsPrecision()), ("ccsds-k7", 2, AcsPrecision(renorm=False)),
+        ("ccsds-k7", 2, AcsPrecision(matmul_dtype=bf16, split_dot=True)),
+        ("ccsds-k7", 2, AcsPrecision(matmul_dtype=bf16, carry_dtype=bf16)),
+        ("ccsds-k7", 2, AcsPrecision(carry_dtype=bf16, channel_dtype=bf16)),
+    ]
+    for i, (code, rho, prec) in enumerate(cases):
+        F, N, tt = 5, 3, 24
+        tb, rev, _, blocks, entry, bte, m = _k6_card_inputs(code, rho, F, N, tt, 50 + i, dev,
+                                                            prec)
+        S, R = tb.n_states, tb.n_slots
+        fwd, bwd = ops.device_sweep_tables(tb, rev, dev)
+        before = viterbi_acs.bcjr_sweep.launches
+        alphas = ops.bcjr_sweep(blocks, entry, tb, rev, prec, transfer_tile=tt)
+        got = ops.bcjr_sweep(blocks, bte, tb, rev, prec, transfer_tile=tt, alphas=alphas)
+        kw = dict(transfer_tile=tt, carry_dtype=prec.carry_dtype,
+                  matmul_dtype=prec.matmul_dtype, renorm=prec.renorm,
+                  split_dot=prec.split_dot)
+        x = blocks.to(prec.channel_dtype).to(torch.float32)
+        want = bcjr_sweep_ref(x, entry, bte, fwd, bwd, **kw)
+        torch.cuda.synchronize()
+        assert viterbi_acs.bcjr_sweep.launches == before + 2
+        d = -(-(tb.spec.k - 1) // rho)
+        scale = d * (2 * m) + m
+        bound = _k6_llr_bound(2 * tt, scale, prec.renorm, 0, R, S)
+        diff = (got - want).abs()
+        label = (code, rho, prec.label())
+        assert torch.isfinite(got).all(), label
+        if prec.carry_dtype == bf16 or (prec.matmul_dtype == bf16 and not prec.split_dot):
+            assert diff.median().item() <= bound, label
+            assert (diff <= bound).float().mean().item() >= 0.95, label
+            x = scale if prec.renorm else 2 * tt * scale
+            assert diff.max().item() <= bound + 2 * _bf16_step(x), label
+        else:
+            assert diff.max().item() <= bound, label

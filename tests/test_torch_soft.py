@@ -638,3 +638,274 @@ def test_soft_entry_points_default_to_the_card():
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call(None)
         assert call("cpu")[0].device.type == "cpu"
+
+
+# -- K6: the within-tile sweeps and the LLR combine -------------------------
+
+K6_CASES = [
+    ("ccsds-k7", 1, 1, 5, 3),
+    ("ccsds-k7", 1, 8, 3, 3),
+    ("ccsds-k7", 1, 256, 2, 3),
+    ("ccsds-k7", 2, 1, 5, 3),
+    ("ccsds-k7", 2, 8, 3, 3),
+    ("ccsds-k7", 2, 256, 2, 3),
+    ("lte-tbcc", 2, 8, 3, 3),  # beta = 3
+    ("ccsds-k7", 2, 8, 1, 1),  # one row: a block of four rows left three short
+]
+K6_IDS = ["k7-rho1-tt1", "k7-rho1-tt8", "k7-rho1-tt256", "k7-rho2-tt1",
+          "k7-rho2-tt8", "k7-rho2-tt256", "tbcc-rho2-tt8", "k7-one-row"]
+
+
+def _k6_inputs(code, rho, tt, n_tiles, F, final=None, seed=11):
+    """(tables, reverse tables, half-scaled blocks (T', F, B) in the
+    strided layout ``bcjr_llrs`` makes, tile-entry alphas and tile-end
+    betas (N, F, S)) of AWGN codeword LLRs."""
+    from repro_torch.core import soft
+    from repro_torch.core.trellis import build_acs_tables, build_reverse_tables
+    from repro_torch.core.viterbi import AcsPrecision, blocks_from_llrs, init_metric
+
+    spec, _ = _specs(code)
+    tb, rev = build_acs_tables(spec, rho), build_reverse_tables(spec, rho)
+    llrs = _llrs(spec, F, n_tiles * tt * rho, seed=seed, ebn0_db=1.0, tail="open")
+    blocks = blocks_from_llrs(torch.from_numpy(llrs), rho) * 0.5
+    S = spec.n_states
+    lam0 = init_metric(F, S, 0, device="cpu")
+    beta_end = init_metric(F, S, final, device="cpu")
+    entry, bte = soft._tile_boundaries(blocks, lam0, beta_end, tb, AcsPrecision(), tt, True)
+    return tb, rev, blocks, lam0, beta_end, entry, bte
+
+
+@pytest.mark.parametrize("code,rho,tt,n_tiles,F", K6_CASES, ids=K6_IDS)
+def test_k6_plain_version_is_the_plain_sweeps(code, rho, tt, n_tiles, F):
+    """K6's plain version (the kernel's gathered step and tournament
+    logsumexp, the combine per boundary) against today's composition of
+    ``_alpha_scan``, ``_beta_scan`` and ``_llrs_from_joints``, within
+    1e-5; and the wrapper's two halves on CPU tensors are that plain
+    version and launch nothing."""
+    from repro_torch.core import soft
+    from repro_torch.core.viterbi import AcsPrecision
+    from repro_torch.kernels import viterbi_acs
+    from repro_torch.kernels.ref import bcjr_sweep_ref
+
+    tb, rev, blocks, lam0, beta_end, entry, bte = _k6_inputs(code, rho, tt, n_tiles, F)
+    joint = soft._bcjr_joints(blocks, lam0, beta_end, tb, rev, AcsPrecision(), tt, True)
+    want = soft._llrs_from_joints(joint, tb)
+    fwd = viterbi_acs.sweep_operands(tb.theta_t, tb.pred_onehot, tb.dec_bits)
+    bwd = viterbi_acs.sweep_operands(rev.theta_rev, rev.succ_onehot, tb.dec_bits)
+    got = bcjr_sweep_ref(blocks, entry, bte, fwd, bwd, transfer_tile=tt)
+    assert got.shape == (F, n_tiles * tt * rho) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    launches = viterbi_acs.bcjr_sweep.launches
+    alphas = viterbi_acs.bcjr_sweep(blocks, entry, fwd, transfer_tile=tt)
+    assert alphas.shape == (tt, n_tiles * F, tb.n_states)
+    halves = viterbi_acs.bcjr_sweep(blocks, bte, bwd, transfer_tile=tt, alphas=alphas)
+    assert torch.equal(halves, got)
+    assert viterbi_acs.bcjr_sweep.launches == launches
+
+
+@pytest.mark.parametrize("code,rho,tt,final", [
+    ("ccsds-k7", 1, 8, None),
+    ("ccsds-k7", 2, 8, 0),
+    ("ccsds-k7", 2, 1, None),
+    ("lte-tbcc", 2, 4, None),
+    (K5, 2, 8, 0),
+], ids=["k7-rho1-open", "k7-rho2-pinned", "k7-rho2-tt1", "tbcc-rho2", "k5-pinned"])
+def test_k6_route_matches_the_reference(code, rho, tt, final, monkeypatch):
+    """The K6 route of ``bcjr_llrs`` (forced; its plain version on the
+    CPU) against the reference's ``bcjr_llrs`` (XLA path), and K6's plain
+    version (``bcjr_sweep_ref``) on the port's tile boundaries against the
+    reference's ``_llrs_from_joints(_bcjr_joints(...))``, on the same
+    numpy LLRs, at the BCJR parity tolerance."""
+    import jax.numpy as jnp
+    from repro.core import soft as ref_soft
+    from repro.core.trellis import build_acs_tables as ref_acs_tables
+    from repro.core.trellis import build_reverse_tables as ref_reverse_tables
+    from repro.core.viterbi import AcsPrecision as RefPrecision
+    from repro.core.viterbi import blocks_from_llrs as ref_blocks
+    from repro.core.viterbi import init_metric as ref_init
+
+    from repro_torch.core import soft
+    from repro_torch.core.trellis import build_acs_tables, build_reverse_tables
+    from repro_torch.core.viterbi import AcsPrecision, blocks_from_llrs, init_metric
+    from repro_torch.kernels import viterbi_acs
+    from repro_torch.kernels.ref import bcjr_sweep_ref
+
+    spec, ref_spec = _specs(code)
+    F, n = 3, 4 * tt * rho
+    llrs = _llrs(spec, F, n, seed=16, tail="flush")
+    monkeypatch.setattr(soft, "_sweeps_in_kernel", lambda dev, use_kernel: use_kernel)
+    got = soft.bcjr_llrs(torch.from_numpy(llrs), spec, rho=rho, final_state=final,
+                         transfer_tile=tt, device="cpu")
+    want = ref_soft.bcjr_llrs(jnp.asarray(llrs), ref_spec, rho=rho, final_state=final,
+                              transfer_tile=tt)
+    _close_llrs(got.numpy(), want)
+
+    tb, rev = build_acs_tables(spec, rho), build_reverse_tables(spec, rho)
+    S = spec.n_states
+    blocks = blocks_from_llrs(torch.from_numpy(llrs), rho) * 0.5
+    entry, bte = soft._tile_boundaries(
+        blocks, init_metric(F, S, 0, device="cpu"), init_metric(F, S, final, device="cpu"),
+        tb, AcsPrecision(), tt, True)
+    fwd = viterbi_acs.sweep_operands(tb.theta_t, tb.pred_onehot, tb.dec_bits)
+    bwd = viterbi_acs.sweep_operands(rev.theta_rev, rev.succ_onehot, tb.dec_bits)
+    sweep = bcjr_sweep_ref(blocks, entry, bte, fwd, bwd, transfer_tile=tt)
+    ref_tb = ref_acs_tables(ref_spec, rho)
+    joint = ref_soft._bcjr_joints(
+        ref_blocks(jnp.asarray(llrs), rho) * jnp.float32(0.5), ref_init(F, S, 0),
+        ref_init(F, S, final), ref_tb, ref_reverse_tables(ref_spec, rho), RefPrecision(),
+        tt, False)
+    _close_llrs(sweep.numpy(), ref_soft._llrs_from_joints(joint, ref_tb))
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(matmul_dtype=torch.bfloat16, carry_dtype=torch.bfloat16),
+    dict(matmul_dtype=torch.bfloat16, split_dot=True),
+    dict(renorm=False),
+    dict(channel_dtype=torch.bfloat16),
+], ids=["bf16", "split", "norenorm", "channel-bf16"])
+@pytest.mark.parametrize("final", [None, 0], ids=["open", "pinned"])
+def test_k6_plain_version_keeps_every_rounding_point(knobs, final, monkeypatch):
+    """Under each precision knob, and with a pinned end (whose forced bits
+    saturate near 1e9), ``bcjr_llrs`` through the K6 route (its plain
+    version, on the CPU) gives the plain scans' LLRs within 1e-5."""
+    from repro_torch.core import soft
+    from repro_torch.core.viterbi import AcsPrecision
+
+    spec, _ = _specs("ccsds-k7")
+    llrs = torch.from_numpy(_llrs(spec, 3, 64, seed=12, ebn0_db=1.0, tail="flush"))
+    prec = AcsPrecision(**knobs)
+    kw = dict(final_state=final, precision=prec, transfer_tile=8, device="cpu")
+    want = soft.bcjr_llrs(llrs, spec, **kw)
+    monkeypatch.setattr(soft, "_sweeps_in_kernel", lambda dev, use_kernel: use_kernel)
+    got = soft.bcjr_llrs(llrs, spec, **kw)
+    sat = want.abs() > SAT
+    assert torch.equal(got.abs() > SAT, sat) and (sat.any() == (final is not None))
+    assert torch.equal(got[sat], want[sat])
+    torch.testing.assert_close(got[~sat], want[~sat], atol=1e-5, rtol=0)
+
+
+def test_k6_route_index_is_the_one_hot():
+    """The routing index of ``pred_onehot`` and ``succ_onehot`` is each
+    column's predecessor and successor (``pred_state``, ``succ_state``)
+    and rebuilds the one-hot; a routing half that is not a one-hot
+    raises."""
+    from repro_torch.core.trellis import build_acs_tables, build_reverse_tables
+    from repro_torch.kernels.viterbi_acs import route_index, sweep_operands
+
+    for code, rho in (("ccsds-k7", 1), ("ccsds-k7", 2), ("lte-tbcc", 3), (K5, 4)):
+        spec, _ = _specs(code)
+        tb, rev = build_acs_tables(spec, rho), build_reverse_tables(spec, rho)
+        S, R = tb.n_states, tb.n_slots
+        for onehot, states in ((tb.pred_onehot, tb.pred_state),
+                               (rev.succ_onehot, rev.succ_state)):
+            route = route_index(onehot)
+            assert torch.equal(route, torch.from_numpy(states).reshape(-1).long())
+            rebuilt = torch.zeros(S, S * R)
+            rebuilt[route, torch.arange(S * R)] = 1.0
+            assert torch.equal(rebuilt, torch.from_numpy(onehot))
+        ops = sweep_operands(tb.theta_t, tb.pred_onehot, tb.dec_bits)
+        bits = (ops.dec[:, None].long() >> torch.arange(rho)) & 1
+        assert torch.equal(bits, torch.from_numpy(tb.dec_bits).long())
+    base = torch.from_numpy(build_acs_tables(_specs("ccsds-k7")[0], 2).pred_onehot)
+    two = base.clone()
+    two[0, 5] = 1.0  # a second 1 in a column
+    half = base.clone()
+    half[:, 3] *= 0.5  # not a 1
+    empty = base.clone()
+    empty[:, 7] = 0.0  # no 1
+    for bad in (two, half, empty):
+        with pytest.raises(ValueError, match="one 1.0 per column"):
+            route_index(bad)
+        with pytest.raises(ValueError, match="one 1.0 per column"):
+            sweep_operands(np.zeros((4, 256), np.float32), bad, np.zeros((64, 2)))
+
+
+def _spy_sweeps(monkeypatch):
+    """The K6 calls of ``bcjr_llrs`` counted (the real wrapper runs), and
+    the plain step made to fail."""
+    from repro_torch.core import soft
+    from repro_torch.kernels import ops as kernel_ops
+
+    calls = []
+    real = kernel_ops.bcjr_sweep
+
+    def spy(*args, **kw):
+        calls.append("K6-B" if kw.get("alphas") is not None else "K6-F")
+        return real(*args, **kw)
+
+    monkeypatch.setattr(kernel_ops, "bcjr_sweep", spy)
+    return calls, soft
+
+
+def test_bcjr_llrs_takes_k6_only_on_the_card_route(monkeypatch):
+    """On CPU tensors, with or without ``use_kernel``, ``bcjr_llrs`` runs
+    the plain scans and never calls K6's wrapper; on the card's route
+    with ``use_kernel`` (the route forced here) it calls K6-F then K6-B,
+    takes no plain step and no plain combine, and gives the plain scans'
+    LLRs within 1e-5; with ``use_kernel=False`` the card's route is the
+    plain scans too."""
+    calls, soft = _spy_sweeps(monkeypatch)
+    spec, _ = _specs("ccsds-k7")
+    llrs = torch.from_numpy(_llrs(spec, 2, 128, seed=13, ebn0_db=1.0))
+    kw = dict(transfer_tile=8, device="cpu")
+    plain = {uk: soft.bcjr_llrs(llrs, spec, use_kernel=uk, **kw) for uk in (True, False)}
+    assert calls == []
+    monkeypatch.setattr(soft, "_sweeps_in_kernel", lambda dev, use_kernel: use_kernel)
+    assert torch.equal(soft.bcjr_llrs(llrs, spec, use_kernel=False, **kw), plain[False])
+    assert calls == []
+
+    def no_plain(*args, **kw):
+        raise AssertionError("a plain step or combine on the kernel route")
+
+    monkeypatch.setattr(soft, "_logprob_step", no_plain)
+    monkeypatch.setattr(soft, "_llrs_from_joints", no_plain)
+    got = soft.bcjr_llrs(llrs, spec, use_kernel=True, **kw)
+    assert calls == ["K6-F", "K6-B"]
+    torch.testing.assert_close(got, plain[True], atol=1e-5, rtol=0)
+
+
+def test_k6_route_stages_carry_no_steps(monkeypatch):
+    """On the kernel route the ``alpha`` and ``beta`` stages hold the two
+    K6 calls and carry no ``steps`` and no host sync; ``llr_combine``
+    opens only on the plain route."""
+    from repro_torch.obs import trace as rt
+
+    calls, soft = _spy_sweeps(monkeypatch)
+    spec, _ = _specs("ccsds-k7")
+    llrs = torch.from_numpy(_llrs(spec, 2, 128, seed=14, ebn0_db=1.0))
+    prev = rt.set_default_recorder(rt.SpanRecorder())
+    try:
+        for route in (False, True):
+            monkeypatch.setattr(soft, "_sweeps_in_kernel", lambda dev, uk, r=route: r)
+            rt.reset_stage_totals()
+            soft.bcjr_llrs(llrs, spec, transfer_tile=8, device="cpu")
+            totals = rt.stage_totals()
+            if route:
+                assert "llr_combine" not in totals
+                assert {s: (totals[s]["steps"], totals[s]["host_syncs"])
+                        for s in ("alpha", "beta")} == {"alpha": (0, 0), "beta": (0, 0)}
+            else:
+                assert totals["alpha"]["steps"] == 8 and totals["beta"]["steps"] == 7
+                assert totals["llr_combine"]["host_syncs"] == 2
+    finally:
+        rt.set_default_recorder(prev)
+        rt.reset_stage_totals()
+    assert calls == ["K6-F", "K6-B"]
+
+
+@pytest.mark.parametrize("knob", ["carry_dtype", "matmul_dtype"])
+def test_k6_refuses_a_precision_it_cannot_match(knob, monkeypatch):
+    """A carry or matmul dtype K6 has no instantiation for (float16)
+    raises ``ValueError`` naming the knob on the kernel's route, before
+    any sweep, where the CPU's plain route runs it."""
+    from repro_torch.core import soft
+    from repro_torch.core.viterbi import AcsPrecision
+
+    spec, _ = _specs("ccsds-k7")
+    llrs = torch.from_numpy(_llrs(spec, 2, 64, seed=15, ebn0_db=1.0))
+    prec = AcsPrecision(**{knob: torch.float16})
+    kw = dict(precision=prec, transfer_tile=8, device="cpu")
+    assert soft.bcjr_llrs(llrs, spec, **kw).shape == (2, 64)
+    monkeypatch.setattr(soft, "_sweeps_in_kernel", lambda dev, use_kernel: use_kernel)
+    with pytest.raises(ValueError, match=knob):
+        soft.bcjr_llrs(llrs, spec, **kw)
